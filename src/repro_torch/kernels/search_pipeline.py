@@ -1,0 +1,531 @@
+"""Fused on-device sub-space search: enumerate -> replay -> score -> argmin.
+
+The journal/device engines drive the exhaustive cut search from the host:
+``branch_bound_subspace`` materializes every candidate tuple in Python,
+batches them through ``score_batch``, and keeps the running winner on the
+host.  This module fuses that whole loop into one device pipeline behind
+``CompileOptions(engine="pipeline")``:
+
+1. **In-kernel enumeration** -- a sub-space is ``prefix`` (fixed cuts for
+   the leading runs) x the product order over ``suffix_dims``.  Product
+   order over runs *is* lexicographic order of the cut tuples, so every
+   candidate has a global linear index ``j in [0, S)`` with the last run
+   varying fastest (``stride[q] = prod(dims[q+1:])``).  The index is
+   decoded straight into the B x G frame-mask matrix (the same three
+   gathers as ``CutpointEngine._frame_matrix``); the host never
+   materializes the candidate tuple stream.
+2. **Allocator replay** -- the decoded masks feed the tensorized allocator
+   (``kernels/alloc_scan.py``), integer-exact.
+3. **Cost reduction** -- the B x G mask-matrix reductions of
+   ``timing/dram/sram.*_fast_batch``, evaluated in float64.  Every integer
+   quantity is far below 2**53, so the int -> f64 embedding is exact and
+   ``<=`` comparisons match the host's integer comparisons bit for bit.
+   The latency total is the one order-sensitive float reduction: one
+   group's term is added per step, in gid order (``timing.seq_sum``) --
+   never a pairwise or parallel sum, which would break oracle exactness.
+4. **Argmin** -- the objective key is the host's ``_key``:
+   ``(infeasible, primary, secondary)``, tie-broken by the cut tuple, i.e.
+   by the linear index ``j``.  The first lexicographic minimum of
+   ``(infeas, primary, secondary, idx)`` is taken per block of the cost
+   stage and then over the block rows, so one row per chunk is left.
+
+Between the stages everything stays on the device.  The chunk rows are
+read back once per sub-space and folded on the host by plain tuple
+comparison; the final index is decoded back into cuts (mixed radix, last
+run fastest) and the winner is re-priced through the engine's exact journal
+oracle, so the returned ``CandidateMetrics`` is byte-identical to the
+journal path's and the kernels only ever decide *which* candidate wins.
+``evaluations`` is credited with the full enumeration count ``S``, which
+equals the journal path's ``scored + pruned``.
+
+Each stage has a plain torch version and a hand-written CUDA kernel
+(``csrc/search_pipeline.cu``) beside it, bit-identical to each other:
+
+* :func:`enum_frames_torch` / :func:`enum_frames_cuda` replace the TPU
+  kernel ``repro/kernels/search_pipeline.py::_enum_kernel``.  One thread
+  decodes one candidate and writes its G frame bits lane-major.  Bound by
+  the bytes it writes (B x G); at the search's sizes a launch is mostly
+  overhead.
+* :func:`cost_rows_torch` / :func:`cost_rows_cuda` replace ``_cost_kernel``.
+  One thread prices one candidate in a single pass over its G groups,
+  accumulating the latency in a register in gid order -- the order the TPU
+  version has to build from one-hot lane sums comes for free -- then the
+  block takes its argmin in shared memory.  Compiled without
+  multiply-add contraction.  Bound by the bytes it reads (mask + io, 5 B
+  per candidate and group).  Blocks run in no order, so the reduction
+  across blocks is a second pass:
+* :func:`argmin_rows_torch` / :func:`argmin_rows_cuda` replace
+  ``_argmin_only_kernel``.  One block reduces the L rows by direct tuple
+  comparison, which equals the TPU version's nested masked minima.
+  Launch-bound at the few thousand rows a chunk leaves.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.options import DEFAULT_BATCH_SIZE
+from repro_torch.kernels.alloc_scan import (N_STATS, STAT_BFM, STAT_FEAS,
+                                            STAT_SIDE, STAT_WRF, alloc_scan,
+                                            lane_major)
+
+VARIANTS = ("torch", "cuda")
+OBJECTIVES = ("latency", "sram", "dram")
+
+# candidates per block of the cost stage (one output row per block); the
+# kernel's block size, csrc/search_pipeline.cu BLOCK
+COST_BLOCK = 256
+
+# rows of PipelineTables.tab
+_TAB_ROWS = ("lt_comp", "lt_row", "lt_weight", "lt_side", "dt_rowfm",
+             "st_comp", "st_weight", "st_outf", "st_outr", "st_wrr")
+
+
+# --------------------------------------------------------------- index math
+def _space_strides(dims: tuple[int, ...]) -> tuple[int, ...]:
+    """Mixed-radix strides of the product order (last run fastest)."""
+    strides = [1] * len(dims)
+    for q in range(len(dims) - 2, -1, -1):
+        strides[q] = strides[q + 1] * dims[q + 1]
+    return tuple(strides)
+
+
+def _decode_index(idx: int, strides: tuple[int, ...],
+                  dims: tuple[int, ...]) -> tuple[int, ...]:
+    """Linear index -> suffix cut tuple (inverse of the in-kernel decode)."""
+    return tuple((idx // s) % d for s, d in zip(strides, dims))
+
+
+def _fold(best, w):
+    """Deterministic host fold of chunk winners: plain tuple comparison
+    on ``(infeas, primary, secondary, idx)``.  Chunk index ranges are
+    disjoint, so ties through the idx component are impossible and the
+    fold order cannot matter."""
+    w = (float(w[0]), float(w[1]), float(w[2]), float(w[3]))
+    return w if best is None or w < best else best
+
+
+# ------------------------------------------------------------- shared tables
+@dataclass(frozen=True)
+class PipelineTables:
+    """One engine's static tables as tensors on ``device``."""
+    n: int
+    device: torch.device
+    run_of: torch.Tensor       # (n,) int64 run index per group
+    pos_of: torch.Tensor       # (n,) int64 block position inside its run
+    dir_neg: torch.Tensor      # (n,) bool: the run's sizes decrease
+    run_of32: torch.Tensor     # the same three for the kernel:
+    pos_of32: torch.Tensor     # int32, int32, uint8
+    dir_neg8: torch.Tensor
+    tab: torch.Tensor          # (10, n) float64 static cost rows (_TAB_ROWS)
+    bpc: float                 # DRAM bytes per cycle
+    goc: float                 # group overhead cycles
+    budget: int                # SRAM budget, bytes
+    weight_bytes: int          # constant weight traffic
+    row_buff: int              # eq. (3), policy-independent
+
+    @classmethod
+    def from_numpy(cls, d: dict, device="cpu") -> "PipelineTables":
+        """Tables from plain numpy data: ``run_of`` / ``pos_of`` /
+        ``dir_neg``, the ten ``_TAB_ROWS`` arrays and the five scalars
+        ``bpc`` / ``goc`` / ``budget`` / ``weight_bytes`` / ``row_buff``."""
+        run_of = np.asarray(d["run_of"]).astype(np.int64)
+        pos_of = np.asarray(d["pos_of"]).astype(np.int64)
+        dir_neg = np.asarray(d["dir_neg"]).astype(bool)
+        tab = np.stack([np.asarray(d[name]).astype(np.float64)
+                        for name in _TAB_ROWS])
+
+        def to(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        tab = to(tab)
+        # the tensors' own device: "cuda" has become "cuda:0" by now
+        return cls(n=len(run_of), device=tab.device, run_of=to(run_of),
+                   pos_of=to(pos_of), dir_neg=to(dir_neg),
+                   run_of32=to(run_of.astype(np.int32)),
+                   pos_of32=to(pos_of.astype(np.int32)),
+                   dir_neg8=to(dir_neg.astype(np.uint8)), tab=tab,
+                   bpc=float(d["bpc"]), goc=float(d["goc"]),
+                   budget=int(d["budget"]),
+                   weight_bytes=int(d["weight_bytes"]),
+                   row_buff=int(d["row_buff"]))
+
+
+def _engine_tables(engine) -> PipelineTables:
+    """Per-engine tables on the engine's device (built once and stashed on
+    the engine, like its alloc tables)."""
+    tbl = engine.__dict__.get("_pipeline_tables")
+    if tbl is not None:
+        return tbl
+    lt, dt, st = engine._lt, engine._dt, engine._st
+    hw = engine.hw
+    tbl = PipelineTables.from_numpy({
+        "run_of": engine._run_of, "pos_of": engine._pos_of,
+        "dir_neg": engine._dir_neg,
+        "lt_comp": lt.comp, "lt_row": lt.row, "lt_weight": lt.weight,
+        "lt_side": lt.side, "dt_rowfm": dt.row_fm,
+        "st_comp": st.compute, "st_weight": st.weight,
+        "st_outf": st.out_frame, "st_outr": st.out_row,
+        "st_wrr": st.wr_row,
+        "bpc": hw.dram_bytes_per_cycle, "goc": hw.group_overhead_cycles,
+        "budget": hw.sram_budget, "weight_bytes": dt.weight_bytes,
+        "row_buff": st.row_buff,
+    }, device=engine.device)
+    engine._pipeline_tables = tbl
+    return tbl
+
+
+@dataclass(frozen=True)
+class SubSpace:
+    """A sub-space of the cut product: fixed ``prefix`` cuts for the
+    leading runs, mixed-radix ``dims`` for the rest.  ``digits`` is the
+    (3, nr) int64 device table both enumeration forms read: per run the
+    fixed cut, the stride (0 marks a fixed run) and the dim."""
+    prefix: tuple[int, ...]
+    dims: tuple[int, ...]
+    strides: tuple[int, ...]
+    size: int
+    digits: torch.Tensor
+
+    @classmethod
+    def make(cls, prefix, dims, device) -> "SubSpace":
+        prefix = tuple(int(c) for c in prefix)
+        dims = tuple(int(d) for d in dims)
+        strides = _space_strides(dims)
+        size = 1
+        for d in dims:
+            size *= d
+        npfx = len(prefix)
+        digits = np.zeros((3, npfx + len(dims)), dtype=np.int64)
+        digits[0, :npfx] = prefix
+        digits[1, npfx:] = strides
+        digits[2, :npfx] = 1
+        digits[2, npfx:] = dims
+        return cls(prefix=prefix, dims=dims, strides=strides, size=size,
+                   digits=torch.from_numpy(digits).to(device))
+
+
+def _objective_code(objective: str) -> int:
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective: {objective!r}")
+    return OBJECTIVES.index(objective)
+
+
+def _pick(backend: str | None, x: torch.Tensor, what: str) -> bool:
+    """True when the CUDA kernel is to run: asked for by name, or -- with
+    no backend named -- because ``x`` lies on a CUDA device."""
+    if backend is None:
+        return x.is_cuda
+    if backend not in VARIANTS:
+        raise ValueError(f"unknown {what} backend: {backend!r}")
+    return backend == "cuda"
+
+
+def _stream_args(dev: torch.device) -> tuple[int, int]:
+    return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
+
+
+# ------------------------------------------------------------ K2: enumerate
+def enum_frames_torch(tbl: PipelineTables, space: SubSpace, lo: int,
+                      count: int) -> torch.Tensor:
+    """Frame masks (count, G) bool of the linear indices ``lo + i``."""
+    j = lo + torch.arange(count, dtype=torch.int64, device=tbl.device)
+    fixed, stride, dim = space.digits
+    is_free = stride > 0
+    digit = (j[:, None] // stride.clamp(min=1)[None, :]) % dim[None, :]
+    cuts = torch.where(is_free[None, :], digit, fixed[None, :])
+    cut = cuts[:, tbl.run_of]
+    pos = tbl.pos_of[None, :]
+    return torch.where(tbl.dir_neg[None, :], pos >= cut, pos < cut)
+
+
+def enum_frames_cuda(tbl: PipelineTables, space: SubSpace, lo: int,
+                     count: int) -> torch.Tensor:
+    """The CUDA enumeration: (count, G) uint8 0/1, stored lane-major.
+    Launches the kernel or raises."""
+    from repro_torch.kernels import _build
+
+    if tbl.device.type != "cuda" or space.digits.device != tbl.device:
+        raise ValueError(f"enum_frames_cuda wants CUDA tables, got "
+                         f"{tbl.device} / {space.digits.device}")
+    frame = torch.empty((tbl.n, count), dtype=torch.uint8, device=tbl.device)
+    if count == 0:
+        return frame.t()
+    err = _build.load().enum_frames_launch(
+        space.digits.data_ptr(), tbl.run_of32.data_ptr(),
+        tbl.pos_of32.data_ptr(), tbl.dir_neg8.data_ptr(), frame.data_ptr(),
+        lo, count, tbl.n, space.digits.shape[1], *_stream_args(tbl.device))
+    _build.check(err, "enum_frames")
+    enum_frames_cuda.launches += 1
+    return frame.t()
+
+
+enum_frames_cuda.launches = 0
+
+
+def enum_frames(tbl: PipelineTables, space: SubSpace, lo: int, count: int,
+                backend: str | None = None) -> torch.Tensor:
+    """Frame masks of ``count`` candidates from linear index ``lo``; the
+    kernel on a CUDA device, the plain version only on the CPU, unless
+    ``backend`` names one."""
+    if _pick(backend, tbl.tab, "enum_frames"):
+        return enum_frames_cuda(tbl, space, lo, count)
+    return enum_frames_torch(tbl, space, lo, count)
+
+
+# ----------------------------------------------------------------- K3: cost
+def cost_keys_torch(tbl: PipelineTables, frame: torch.Tensor,
+                    io: torch.Tensor, stats: torch.Tensor, lo: int,
+                    objective: str) -> torch.Tensor:
+    """Per-candidate key lanes (4, B) float64:
+    ``(infeas, primary, secondary, idx)`` with ``idx = lo + i``."""
+    code = _objective_code(objective)
+    f64 = torch.float64
+    frame = frame.to(torch.bool)
+    (comp, rowl, wlat, side, rowfm, scomp, swt, soutf, soutr,
+     swrr) = tbl.tab
+    side = side > 0
+    scomp = scomp > 0
+    B = frame.shape[0]
+    mem = (wlat[None, :] + io.to(f64)) / tbl.bpc
+    frame_lat = torch.maximum(comp[None, :], mem) + tbl.goc
+    per = torch.where(side[None, :], comp[None, :],
+                      torch.where(frame, frame_lat, rowl[None, :]))
+    # det: the latency total adds one group column per step, in gid order
+    lat = torch.zeros(B, dtype=f64, device=frame.device)
+    for g in range(tbl.n):
+        lat = lat + per[:, g]
+    zero = torch.zeros((), dtype=f64, device=frame.device)
+    # det: int-exact f64 terms; association-free
+    rterm = torch.where(frame, zero, rowfm[None, :]).sum(dim=1)
+    st = stats.to(f64)
+    dram = rterm + st[:, STAT_BFM] + float(tbl.weight_bytes)
+    rowm = scomp[None, :] & ~frame
+    frm = scomp[None, :] & frame
+
+    def masked_max(mask, row):
+        return torch.where(mask, row[None, :], zero).amax(dim=1)
+
+    wbuff = masked_max(rowm, swt)
+    outf = masked_max(frm, soutf)
+    outr = masked_max(rowm, soutr)
+    wrr = masked_max(rowm, swrr)
+    sram = (float(tbl.row_buff) + torch.maximum(outf, outr)
+            + torch.maximum(wrr, st[:, STAT_WRF]) + st[:, 0]
+            + torch.maximum(st[:, 1], wbuff) + st[:, 2]
+            + st[:, STAT_SIDE])
+    feasible = (sram <= float(tbl.budget)) & (st[:, STAT_FEAS] > 0)
+    infeas = (~feasible).to(f64)
+    idx = (lo + torch.arange(B, dtype=torch.int64,
+                             device=frame.device)).to(f64)
+    primary, secondary = ((lat, sram), (sram, lat), (dram, lat))[code]
+    return torch.stack([infeas, primary, secondary, idx])
+
+
+def cost_rows_torch(tbl: PipelineTables, frame: torch.Tensor,
+                    io: torch.Tensor, stats: torch.Tensor, lo: int,
+                    objective: str) -> torch.Tensor:
+    """Cost stage, plain version: the winner row of every block of
+    ``COST_BLOCK`` candidates, (4, ceil(B / COST_BLOCK)) float64."""
+    keys = cost_keys_torch(tbl, frame, io, stats, lo, objective)
+    B = keys.shape[1]
+    nb = -(-B // COST_BLOCK)
+    padded = torch.full((4, nb * COST_BLOCK), float("inf"),
+                        dtype=torch.float64, device=keys.device)
+    padded[:, :B] = keys
+    return argmin_rows_torch(padded.view(4, nb, COST_BLOCK))
+
+
+def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
+                   io: torch.Tensor, stats: torch.Tensor, lo: int,
+                   objective: str) -> torch.Tensor:
+    """The CUDA cost stage: (4, ceil(B / COST_BLOCK)) float64, bit-equal to
+    :func:`cost_rows_torch`.  ``frame`` (B, G) bool/uint8, ``io`` (B, G)
+    and ``stats`` (B, 7) integer CUDA tensors; lane-major int32 storage
+    (as the allocator kernel writes it) is read in place, anything else is
+    converted once.  Launches the kernel or raises."""
+    from repro_torch.kernels import _build
+
+    code = _objective_code(objective)
+    dev = tbl.device
+    for name, x in (("frame", frame), ("io", io), ("stats", stats)):
+        if not x.is_cuda or x.device != dev:
+            raise ValueError(f"cost_rows_cuda wants {name} on the tables' "
+                             f"CUDA device {dev}, got {x.device}")
+    B = frame.shape[0]
+    if frame.shape != (B, tbl.n) or io.shape != (B, tbl.n) \
+            or stats.shape != (B, N_STATS):
+        raise ValueError(
+            f"cost_rows_cuda: frame {tuple(frame.shape)}, io "
+            f"{tuple(io.shape)}, stats {tuple(stats.shape)} do not fit "
+            f"B={B}, G={tbl.n}")
+    if frame.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"frame must be bool or uint8, got {frame.dtype}")
+    nb = -(-B // COST_BLOCK)
+    out = torch.empty((4, nb), dtype=torch.float64, device=dev)
+    if B == 0:
+        return out
+    frame_lm = lane_major(frame.view(torch.uint8)
+                          if frame.dtype == torch.bool else frame)
+    io_lm = lane_major(io.to(torch.int32))
+    stats_lm = lane_major(stats.to(torch.int32))
+    err = _build.load().cost_rows_launch(
+        frame_lm.data_ptr(), io_lm.data_ptr(), stats_lm.data_ptr(),
+        tbl.tab.data_ptr(), out.data_ptr(), lo, lo + B, B, tbl.n,
+        tbl.bpc, tbl.goc, float(tbl.budget), float(tbl.weight_bytes),
+        float(tbl.row_buff), code, *_stream_args(dev))
+    _build.check(err, "cost_rows")
+    cost_rows_cuda.launches += 1
+    return out
+
+
+cost_rows_cuda.launches = 0
+
+
+def cost_rows(tbl: PipelineTables, frame, io, stats, lo: int,
+              objective: str, backend: str | None = None) -> torch.Tensor:
+    """Block winner rows of a chunk; the kernel for CUDA tensors, the plain
+    version only for CPU tensors, unless ``backend`` names one."""
+    if _pick(backend, frame, "cost_rows"):
+        return cost_rows_cuda(tbl, frame, io, stats, lo, objective)
+    return cost_rows_torch(tbl, frame, io, stats, lo, objective)
+
+
+# --------------------------------------------------------------- K4: argmin
+def argmin_rows_torch(lanes: torch.Tensor) -> torch.Tensor:
+    """First lexicographic minimum along the last axis of (4, ..., L)
+    float64 lanes ``(infeas, primary, secondary, idx)`` -> (4, ...).
+
+    Nested masked minima: each level keeps only the lanes that achieved
+    the previous minima, then minimizes the next key component over them;
+    the last level minimizes the (unique) lane index, so ties on the full
+    key resolve to the *first* lane -- the host merge's ``(objective key,
+    cut tuple)`` order, since index order is cut-tuple order."""
+    infeas, primary, secondary, idx = lanes
+    inf = torch.full((), float("inf"), dtype=lanes.dtype,
+                     device=lanes.device)
+    i_min = infeas.amin(dim=-1, keepdim=True)
+    m0 = infeas == i_min
+    p_min = torch.where(m0, primary, inf).amin(dim=-1, keepdim=True)
+    m1 = m0 & (primary == p_min)
+    s_min = torch.where(m1, secondary, inf).amin(dim=-1, keepdim=True)
+    m2 = m1 & (secondary == s_min)
+    i_win = torch.where(m2, idx, inf).amin(dim=-1, keepdim=True)
+    return torch.stack([i_min, p_min, s_min, i_win]).squeeze(-1)
+
+
+def argmin_rows_cuda(lanes: torch.Tensor) -> torch.Tensor:
+    """The CUDA argmin: (4, L) float64 -> (4,) float64.  Launches the
+    kernel or raises."""
+    from repro_torch.kernels import _build
+
+    if not lanes.is_cuda:
+        raise ValueError(f"argmin_rows_cuda wants a CUDA tensor, got "
+                         f"{lanes.device}")
+    if lanes.dtype != torch.float64 or lanes.ndim != 2 \
+            or lanes.shape[0] != 4 or lanes.shape[1] == 0:
+        raise ValueError(f"argmin_rows_cuda wants (4, L>0) float64 lanes, "
+                         f"got {tuple(lanes.shape)} {lanes.dtype}")
+    lanes = lanes.contiguous()
+    out = torch.empty(4, dtype=torch.float64, device=lanes.device)
+    err = _build.load().argmin_rows_launch(
+        lanes.data_ptr(), out.data_ptr(), lanes.shape[1],
+        *_stream_args(lanes.device))
+    _build.check(err, "argmin_rows")
+    argmin_rows_cuda.launches += 1
+    return out
+
+
+argmin_rows_cuda.launches = 0
+
+
+def argmin_rows(lanes: torch.Tensor,
+                backend: str | None = None) -> torch.Tensor:
+    """Winner row of (4, L) key lanes; the kernel for a CUDA tensor, the
+    plain version only for a CPU tensor, unless ``backend`` names one."""
+    if _pick(backend, lanes, "argmin_rows"):
+        return argmin_rows_cuda(lanes)
+    return argmin_rows_torch(lanes)
+
+
+def argmin_lanes(infeas, primary, secondary, idx,
+                 backend: str | None = None, device="cpu") -> tuple:
+    """Winner of a batch of objective keys: ``(infeas, primary,
+    secondary, idx)`` of the first lane attaining the lexicographic
+    minimum key.  The four lanes are array-likes of one length; they are
+    moved to ``device`` and reduced by :func:`argmin_rows`."""
+    cols = [np.asarray(c, dtype=np.float64)
+            for c in (infeas, primary, secondary, idx)]
+    if not (cols[0].shape == cols[1].shape == cols[2].shape == cols[3].shape
+            and cols[0].ndim == 1 and cols[0].size):
+        raise ValueError("argmin_lanes wants four equal-length 1-D lanes")
+    lanes = torch.from_numpy(np.stack(cols)).to(device)
+    w = argmin_rows(lanes, backend=backend).tolist()
+    return (w[0], w[1], w[2], int(w[3]))
+
+
+# ------------------------------------------------------------------ entrypoint
+def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
+               variant: str) -> torch.Tensor:
+    """The device loop: one winner row per chunk of ``chunk`` candidates,
+    (nchunks, 4) float64 on the engine's device.  Nothing is read back
+    here and nothing synchronises."""
+    tbl = _engine_tables(engine)
+    at = engine.alloc_tables()
+    rows = []
+    for lo in range(0, space.size, chunk):
+        count = min(chunk, space.size - lo)
+        frame = enum_frames(tbl, space, lo, count, backend=variant)
+        res = alloc_scan(at, frame, backend=variant)
+        blocks = cost_rows(tbl, frame, res.io, res.stats, lo, objective,
+                           backend=variant)
+        rows.append(argmin_rows(blocks, backend=variant))
+    return torch.stack(rows)
+
+
+def pipeline_subspace(engine, prefix, suffix_dims, objective: str,
+                      batch_size: int = DEFAULT_BATCH_SIZE,
+                      variant: str = "torch"):
+    """Argmin over one sub-space through the fused device pipeline.
+
+    Drop-in for ``branch_bound_subspace``'s return contract:
+    ``(CandidateMetrics, pruned)`` with the bit-identical
+    ``(key, cuts)``-lexicographic winner.  Every candidate is priced on
+    the device (no pruning), so ``pruned`` is always 0 and the engine's
+    ``evaluations`` is credited with the full enumeration count --
+    matching the journal path's ``scored + pruned`` total exactly.  The
+    winner itself is re-priced through the engine's exact journal
+    scorer, so the returned metrics never depend on kernel arithmetic.
+
+    ``variant`` is ``"cuda"`` (the four kernels) or ``"torch"`` (their
+    plain versions), on ``engine.device``; ``batch_size`` is the chunk.
+    """
+    if objective not in OBJECTIVES:
+        raise ValueError(f"unknown objective: {objective!r}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown pipeline variant: {variant!r}")
+    nr = len(engine.runs)
+    if len(prefix) + len(suffix_dims) != nr:
+        raise ValueError(f"prefix ({len(prefix)}) + suffix "
+                         f"({len(suffix_dims)}) must cover all {nr} runs")
+    space = SubSpace.make(prefix, [int(d) + 1 for d in suffix_dims],
+                          engine.device)
+    before = engine.evaluations
+
+    def finish(cuts):
+        [m] = engine.score_batch([cuts], memoize=False, replay="journal")
+        engine.evaluations = before + space.size
+        return m, 0
+
+    if space.size == 1:
+        return finish(space.prefix + (0,) * len(space.dims))
+    rows = run_chunks(engine, space, objective, max(1, int(batch_size)),
+                      variant)
+    best = None
+    for row in rows.cpu().tolist():       # the one read-back per sub-space
+        best = _fold(best, row)
+    assert best is not None and best[0] <= 1.0
+    return finish(space.prefix
+                  + _decode_index(int(best[3]), space.strides, space.dims))

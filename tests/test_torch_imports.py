@@ -1,0 +1,175 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package ``repro``, it can be imported on a host with no GPU and no CUDA
+compiler, and it refuses to run a GPU engine on the CPU behind the caller's
+back."""
+import ast
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = path.relative_to(PORT.parent).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _imported_roots(path: Path):
+    """Top-level package of every import statement anywhere in the file
+    (function bodies included)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    # no dynamic imports that the AST walk would miss
+    src = path.read_text()
+    assert "importlib" not in src and "__import__" not in src
+
+
+def test_port_has_the_modules_of_the_slice():
+    mods = set(_port_modules())
+    for want in ("repro_torch.core.ir", "repro_torch.core.hw",
+                 "repro_torch.cnn.zoo", "repro_torch.core.grouping",
+                 "repro_torch.core.allocator", "repro_torch.core.dram",
+                 "repro_torch.core.sram", "repro_torch.core.timing",
+                 "repro_torch.core.options", "repro_torch.core.isa",
+                 "repro_torch.core.cutpoint", "repro_torch.core.compiler",
+                 "repro_torch.kernels.alloc_scan",
+                 "repro_torch.kernels.search_pipeline",
+                 "repro_torch.kernels._build", "repro_torch.convert"):
+        assert want in mods, want
+    csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
+    assert csrc == {"alloc_scan.cu", "search_pipeline.cu"}
+
+
+def test_every_port_module_imports_without_jax_gpu_or_compiler():
+    """A fresh interpreter imports every module of the port; afterwards
+    neither ``jax`` nor ``repro`` is loaded, nothing was built and no CUDA
+    library was looked for."""
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_port_modules()!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "from repro_torch.kernels import _build, launch_counts\n"
+        "assert _build._LIB is None\n"
+        "assert set(launch_counts().values()) == {0}\n"
+        "print('ok', len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[0] == "ok"
+
+
+def test_default_options_never_run_on_the_cpu_silently():
+    """``CompileOptions()`` means the pipeline on the GPU.  On a host
+    without one the compile raises; the same compile with ``device="cpu"``
+    runs the plain torch versions."""
+    import torch
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.compiler import compile_graph
+    from repro_torch.core.options import CompileOptions
+
+    opts = CompileOptions()
+    assert (opts.engine, opts.device) == ("pipeline", "cuda")
+    assert opts.engine_spec().spelling() == "pipeline:cuda@1024"
+    g = build_cnn("vgg16-conv")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compile_graph(g, options=opts)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            compile_graph(g, options=CompileOptions(engine="device"))
+    cpu = CompileOptions(device="cpu")
+    assert cpu.engine_spec().spelling() == "pipeline:torch@1024"
+    plan = compile_graph(g, options=cpu)
+    assert plan.search.path == "exhaustive" and plan.search.evaluated == 1080
+    # journal is host code: it needs no GPU whatever ``device`` says
+    host = compile_graph(g, options=CompileOptions(engine="journal"))
+    assert tuple(host.candidate.cuts) == tuple(plan.candidate.cuts)
+
+
+def test_engine_grammar_and_device_field():
+    from repro_torch.core.options import (SCHEDULE_FIELDS, CompileOptions,
+                                          resolve_engine)
+
+    assert "device" in SCHEDULE_FIELDS
+    a, b = CompileOptions(), CompileOptions(device="cpu")
+    assert a.plan_key() == b.plan_key()          # plans are device-blind
+    assert a.schedule() != b.schedule()
+    assert resolve_engine("device", device="cpu").variant == "torch"
+    assert resolve_engine("device", device="cuda:1").variant == "cuda"
+    assert resolve_engine("pipeline:torch@64").batch_size == 64
+    assert resolve_engine("journal").variant == ""
+    for bad in ("pipeline:lax", "device:pallas", "device:reference",
+                "fused", "pipeline@0"):
+        with pytest.raises(ValueError):
+            resolve_engine(bad)
+    with pytest.raises(ValueError, match="CUDA device"):
+        CompileOptions(engine="pipeline:cuda", device="cpu")
+    with pytest.raises(ValueError):
+        CompileOptions(device="tpu")
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"workers": 2}, "pool"), ({"workers": None}, "pool"),
+    ({"resume_dir": "journal-dir"}, "pool"),
+    ({"backend": "pallas"}, "float32"),
+    ({"verify": "strict"}, "verifier"), ({"verify": "warn"}, "verifier"),
+])
+def test_what_the_slice_leaves_out_raises(kwargs, match):
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.compiler import compile_graph
+    from repro_torch.core.options import CompileOptions
+
+    opts = CompileOptions(engine="journal", device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        compile_graph(build_cnn("vgg16-conv"), options=opts)
+
+
+def test_guard_raises_and_legacy_shim_still_works():
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.compiler import compile_graph
+    from repro_torch.core.options import CompileOptions, LegacyKnobWarning
+
+    g = build_cnn("vgg16-conv")
+    with pytest.raises(NotImplementedError, match="pool"):
+        compile_graph(g, options=CompileOptions(engine="journal"),
+                      guard=object())
+    with pytest.warns(LegacyKnobWarning):
+        plan = compile_graph(g, replay="journal", device="cpu")
+    assert plan.search.evaluated == 1080
+    with pytest.raises(TypeError):
+        compile_graph(g, options=CompileOptions(device="cpu"), workers=1)
+    assert importlib.import_module("repro_torch").__doc__
