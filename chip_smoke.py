@@ -20,13 +20,18 @@ What it does, in order; any failure ends the run with a non-zero exit code:
 3. main     -- ``compile_graph`` with default options (``engine="pipeline"``
                on ``device="cuda"``) on the 8 zoo nets, among them
                yolov2@416 with its full space of 7,962,624 cut tuples, and
-               again under ``engine="device"``.  The launch counts are set to
-               0 just before and read just after.  The plans are then held
+               again under ``engine="device"``.  Each engine's sweep has its
+               own launch counts, set to 0 just before it and read just
+               after: all four kernels must have run under ``pipeline`` and
+               the allocator kernel under ``device``.  The plans are then held
                against the port's host ``journal`` engine (against
                ``pipeline:torch`` on the GPU for yolov2, whose space is too
                large for the host) and against pinned reference values.
-4. report   -- one JSON line listing the kernels (times, bounds, launches),
-               the card line, and a last line
+4. report   -- wall and candidates per second of each compile; the yolov2
+               compile again, 5 runs for the median wall and one run traced
+               with ``torch.profiler`` for the card's busy share; one JSON
+               line listing the kernels (times, bounds, launches under the
+               default options), the card line, and a last line
                ``{"ok": true, "device": {...}}``.
 
 The chunk of the pipeline engine is ``CHUNK`` candidates (``@1048576``): the
@@ -128,19 +133,52 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
                                                            "operations")
 
 
-def kernel_bounds(B: int, G: int, nr: int, L: int) -> dict:
+# Operations of one allocator step as core/allocator.py::alloc_step states
+# it, counted one per compare, add, maximum or select with buffers addressed
+# by index (not this kernel's unrolled three-way forms):
+#   a main-path step -- main operand in a buffer? (1), first free buffer (3),
+#     fetch needed? (1), input buffer maximum (2), boundary reads into io and
+#     bfm (2), final output? with its write into io, bfm, wrf (5), first
+#     free buffer that holds no operand (3), take-over of the main operand's
+#     buffer (3), claim or spill with its bytes and feasibility (5), owner and
+#     buffer maximum (2), location (1): 28; a shortcut adds its buffer's
+#     maximum (2);
+#   each producer it consumes -- in DRAM? and its read bytes (2), mark its
+#     buffer (1), consume (1), row-mode boundary write into io, bfm, wrf (5),
+#     dead? owner? release (3): 12;
+#   a side step -- side maximum and location (2); each producer: consume,
+#     dead? owner? release (4).
+ALLOC_OPS_STEP, ALLOC_OPS_SHORTCUT, ALLOC_OPS_PRODUCER = 28, 2, 12
+ALLOC_OPS_SIDE_STEP, ALLOC_OPS_SIDE_PRODUCER = 2, 4
+
+
+def alloc_ops_per_candidate(at) -> int:
+    """Integer operations one candidate's replay needs on this graph."""
+    side = at.is_side.astype(bool)
+    fan_in = (at.gin != at.sink_idx).sum(axis=1)
+    shortcuts = int((at.sc[~side] != at.sink_idx).sum())
+    return int((~side).sum() * ALLOC_OPS_STEP
+               + shortcuts * ALLOC_OPS_SHORTCUT
+               + fan_in[~side].sum() * ALLOC_OPS_PRODUCER
+               + side.sum() * ALLOC_OPS_SIDE_STEP
+               + fan_in[side].sum() * ALLOC_OPS_SIDE_PRODUCER)
+
+
+def kernel_bounds(B: int, G: int, free_runs: int, L: int,
+                  alloc_ops: int) -> dict:
     """The least time the card could take for each kernel's work at these
     shapes: each input read once, each output written once, against the
-    operations the function needs per candidate."""
+    operations the function itself needs per candidate (not the
+    instructions this implementation spends on them)."""
     return {
-        # frame bits in; io (int32) and 7 stats out; ~100 integer
-        # operations per candidate and group (the step's compares, selects
-        # and maxima)
-        "alloc_scan": bound(B * G + 4 * B * G + 28 * B, 100 * B * G,
+        # frame bits in; io (int32) and 7 stats out; the step rule's
+        # operations, counted by alloc_ops_per_candidate
+        "alloc_scan": bound(B * G + 4 * B * G + 28 * B, B * alloc_ops,
                             PEAK_INT32_OPS_PER_S),
-        # one byte out per candidate and group; a 64-bit divide and modulo
-        # per run (~40 operations each) and three compares per group
-        "enum_frames": bound(B * G, B * (80 * nr + 3 * G),
+        # one byte out per candidate and group; one divide and one modulo
+        # per enumerated run (a fixed prefix run needs none), a compare and
+        # a direction select per group
+        "enum_frames": bound(B * G, B * (2 * free_runs + 3 * G),
                              PEAK_INT32_OPS_PER_S),
         # mask (1 B) + io (4 B) per candidate and group and 7 stats in, one
         # 32-byte row per block of 256 out; ~8 float64 operations per group
@@ -288,7 +326,9 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
         "argmin_rows": (lambda: pipe.argmin_rows_cuda(rows_main),
                         lambda: pipe.argmin_rows_torch(rows_main)),
     }
-    bounds = kernel_bounds(B, G, nr, rows_main.shape[1])
+    bounds = kernel_bounds(B, G, len(space.dims), rows_main.shape[1],
+                           alloc_ops_per_candidate(at))
+    out["alloc_ops_per_candidate"] = alloc_ops_per_candidate(at)
     out["times"] = {}
     for name, (kernel, plain) in cases.items():
         # in turns: plain, kernel, kernel, plain
@@ -323,29 +363,32 @@ def require_same_plan(got: dict, want: dict, what: str):
                 f"{str(value)[:200]}")
 
 
-def drive_main_path(nets, device_limits):
-    """The kernel-path compiles: default options, then ``engine="device"``.
-    Returns ``{(net, engine): (signature, seconds)}``."""
+def drive_main_path(nets, engine, limits):
+    """One sweep of kernel-path compiles over ``nets`` under ``engine``
+    (``"pipeline"``, the default options, or ``"device"``), with the launch
+    counts set to 0 just before it and read just after.  Returns
+    ``({(net, engine): (signature, seconds, options)}, launches)``."""
     import torch
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
     from repro_torch.core.options import CompileOptions
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     out = {}
+    reset_launch_counts()
     for net in nets:
-        for engine in ("pipeline", "device"):
-            opts = CompileOptions(engine=f"{engine}@{CHUNK}")
-            require(opts.device == "cuda"
-                    and opts.engine_spec().variant == "cuda",
-                    "default options do not resolve to the CUDA kernels")
-            if engine == "device" and net in device_limits:
-                opts = opts.replace(exhaustive_limit=device_limits[net])
-            t0 = time.perf_counter()
-            plan = compile_graph(build_cnn(net), options=opts)
-            torch.cuda.synchronize()
-            out[net, engine] = (plan_signature(plan),
-                                time.perf_counter() - t0, opts)
-    return out
+        opts = CompileOptions(engine=f"{engine}@{CHUNK}")
+        require(opts.device == "cuda"
+                and opts.engine_spec().variant == "cuda",
+                "default options do not resolve to the CUDA kernels")
+        if net in limits:
+            opts = opts.replace(exhaustive_limit=limits[net])
+        t0 = time.perf_counter()
+        plan = compile_graph(build_cnn(net), options=opts)
+        torch.cuda.synchronize()
+        out[net, engine] = (plan_signature(plan),
+                            time.perf_counter() - t0, opts)
+    return out, launch_counts()
 
 
 def check_main_path(results):
@@ -381,11 +424,10 @@ def check_main_path(results):
 
 
 # ------------------------------------------------- where the time goes
-def profile_yolov2():
-    """``--profile``: where the time of the yolov2@416 compile goes.  The
-    compile is timed as it is, then traced with ``torch.profiler`` for the
-    kernels' device time (the card's busy share of the untraced wall), at
-    four chunk sizes."""
+def yolov2_wall_and_busy() -> dict:
+    """The yolov2@416 compile under default options at ``CHUNK``: the wall of
+    5 runs, then one run traced with ``torch.profiler`` for the kernels'
+    device time (the card's busy share of the untraced median wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cnn import build_cnn
@@ -394,43 +436,39 @@ def profile_yolov2():
 
     graph = build_cnn("yolov2")
 
-    def compile_once(chunk):
+    def compile_once():
         t0 = time.perf_counter()
         plan = compile_graph(graph, options=CompileOptions(
-            engine=f"pipeline@{chunk}"))
+            engine=f"pipeline@{CHUNK}"))
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         require_same_plan(plan_signature(plan), YOLOV2_PINNED,
-                          f"yolov2 at chunk {chunk}")
-        return time.perf_counter() - t0
+                          "yolov2, repeated compile")
+        return 1e3 * wall
 
-    def traced(chunk):
-        """(traced wall ms, {kernel: {count, device_ms}}) of one compile."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = compile_once(chunk)
-        by_kernel = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0))
-            if dev_us and "kernel" in ev.key:
-                name = ev.key.split("::")[-1].split("(")[0]
-                by_kernel[name] = {"count": ev.count,
-                                   "device_ms": dev_us / 1e3}
-        return 1e3 * wall, by_kernel
-
-    out = {}
-    for chunk in (1 << 16, 1 << 18, CHUNK, 1 << 23):
-        compile_once(chunk)                              # warm
-        walls = sorted(1e3 * compile_once(chunk) for _ in range(5))
-        traced_wall, by_kernel = traced(chunk)
-        busy = sum(k["device_ms"] for k in by_kernel.values())
-        out[chunk] = {
-            "wall_ms_5_runs": walls, "traced_wall_ms": traced_wall,
-            "device_busy_ms": busy if by_kernel else "not measured",
-            "device_busy_share_of_median_wall":
-                busy / walls[2] if by_kernel else "not measured",
-            "device_time_by_kernel": by_kernel}
-    log(json.dumps({"yolov2_compile_by_chunk": out}))
+    compile_once()                                       # warm
+    walls = sorted(compile_once() for _ in range(5))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_wall = compile_once()
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0))
+        if dev_us and "kernel" in ev.key:
+            name = ev.key.split("::")[-1].split("(")[0]
+            by_kernel[name] = {"count": ev.count, "device_ms": dev_us / 1e3}
+    busy = sum(k["device_ms"] for k in by_kernel.values())
+    return {
+        "yolov2_compile": "pipeline:cuda", "chunk": CHUNK,
+        "wall_ms_5_runs": walls, "wall_ms_median": walls[2],
+        "candidates_per_s_at_median":
+            YOLOV2_PINNED["evaluated"] / (walls[2] / 1e3),
+        "traced_wall_ms": traced_wall,
+        "device_busy_ms": busy if by_kernel else "not measured",
+        "device_busy_share_of_median_wall":
+            busy / walls[2] if by_kernel else "not measured",
+        "device_time_by_kernel": by_kernel}
 
 
 # --------------------------------------------------------------------- main
@@ -440,10 +478,6 @@ def main(argv=None) -> int:
                     help="build the kernels, print what ptxas says, check "
                          "them against their plain versions at small "
                          "sizes, and stop")
-    ap.add_argument("--profile", action="store_true",
-                    help="after everything else, break the yolov2 compile's "
-                         "time down (torch.profiler) and sweep the chunk "
-                         "size")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -464,8 +498,7 @@ def main(argv=None) -> int:
         f"cuda {torch.version.cuda}")
 
     from repro_torch.cnn import CNN_BUILDERS
-    from repro_torch.kernels import (_build, launch_counts,
-                                     reset_launch_counts)
+    from repro_torch.kernels import _build
     _build.load(verbose=args.kernels_only)
     log(f"set-up: kernels built in {_build.build_seconds:.1f} s")
 
@@ -487,15 +520,20 @@ def main(argv=None) -> int:
             f"(B={c['B']}, G={c['G']}, runs={c['runs']}): max abs err "
             f"{c['errs']} ({time.perf_counter() - t0:.1f} s)")
 
-    # ---- phase 3: the main path; counts set to 0 just before, read after
+    # ---- phase 3: the main path, one sweep per engine, each with its own
+    # launch counts (set to 0 just before the sweep, read just after)
     nets = list(CNN_BUILDERS)
-    reset_launch_counts()
-    results = drive_main_path(nets, device_limits={"yolov2": 100000})
-    launches = launch_counts()
-    log(f"launches on the main path: {launches}")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was never launched on the main "
-                           f"path")
+    results, launches = {}, {}
+    for engine, limits, needed in (
+            ("pipeline", {}, tuple(KERNEL_INFO)),
+            ("device", {"yolov2": 100000}, ("alloc_scan",))):
+        swept, launches[engine] = drive_main_path(nets, engine, limits)
+        results.update(swept)
+        log(f"launches under engine={engine!r}: {launches[engine]}")
+        for name in needed:
+            require(launches[engine][name] > 0,
+                    f"kernel {name} was never launched under "
+                    f"engine={engine!r}")
     check_main_path(results)
 
     # ---- phase 4: numbers
@@ -508,22 +546,25 @@ def main(argv=None) -> int:
     for net in ("yolov2", "resnet152"):
         c = checks[net]
         log(json.dumps({"kernel_times_at": net, "B": c["B"], "G": c["G"],
-                        "L": c["L"], "times": c["times"]}))
+                        "L": c["L"], "alloc_ops_per_candidate":
+                            c["alloc_ops_per_candidate"],
+                        "times": c["times"]}))
     main_shape = checks["yolov2"]
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = main_shape["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": info["source"],
-            "replaces": info["replaces"], "launches": launches[name],
+            "replaces": info["replaces"],
+            "launches": launches["pipeline"][name],
+            "launches_under_device_engine": launches["device"][name],
             "max_abs_err": max(c["errs"][name] for c in checks.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
             "shape": {"B": main_shape["B"], "G": main_shape["G"],
                       "L": main_shape["L"]}})
-    if args.profile:
-        profile_yolov2()
+    log(json.dumps(yolov2_wall_and_busy()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
