@@ -10,28 +10,46 @@ What it does, in order; any failure ends the run with a non-zero exit code:
 1. card     -- prints the GPU's name and power limit as ``nvidia-smi`` gives
                them, and builds the CUDA kernels from ``src/repro_torch/
                kernels/csrc`` with ``nvcc`` (reported as set-up seconds).
-2. kernels  -- each of the four kernels against its plain torch version on
-               the GPU, at the shapes the search gives it: yolov2 (26
-               groups), resnet152 (160) and efficientnet-b1 (139, with SE
-               side groups); cut-derived and random frame masks, all three
-               objectives, duplicated argmin keys.  Integers must be equal
-               and the float64 rows bit-equal.  Each kernel and its plain
-               version are timed with CUDA events.
-3. main     -- ``compile_graph`` with default options (``engine="pipeline"``
-               on ``device="cuda"``) on the 8 zoo nets, among them
-               yolov2@416 with its full space of 7,962,624 cut tuples, and
-               again under ``engine="device"``.  Each engine's sweep has its
+2. kernels  -- each of the five kernels against its plain torch version on
+               the GPU, at the shapes the search gives it.  K1-K4: yolov2
+               (26 groups), resnet152 (160) and efficientnet-b1 (139, with
+               SE side groups); cut-derived and random frame masks, all
+               three objectives, duplicated argmin keys.  K5, the float32
+               scorer: the engine's default batch of 1,024 candidates at
+               resnet152's 160 groups, a chunk of 1,048,576 at yolov2's 26
+               and 8 candidates at efficientnet-b1's 139 (the largest batch
+               the descent gives it), fed K2's masks and K1's io as the
+               device engine feeds it, and random masks.  Integers must be
+               equal and the float64 and float32 rows bit-equal.  Each
+               kernel and its plain version are timed with CUDA events.
+3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
+               options (``engine="pipeline"`` on ``device="cuda"``, among
+               them yolov2@416 with its full space of 7,962,624 cut tuples),
+               ``engine="device"``, and both again with
+               ``backend="pallas"`` (the float32 scorer).  Each sweep has its
                own launch counts, set to 0 just before it and read just
-               after: all four kernels must have run under ``pipeline`` and
-               the allocator kernel under ``device``.  The plans are then held
-               against the port's host ``journal`` engine (against
-               ``pipeline:torch`` on the GPU for yolov2, whose space is too
-               large for the host) and against pinned reference values.
-4. report   -- wall and candidates per second of each compile; the yolov2
-               compile again, 5 runs for the median wall and one run traced
-               with ``torch.profiler`` for the card's busy share; one JSON
-               line listing the kernels (times, bounds, launches under the
-               default options), the card line, and a last line
+               after: all of K1-K4 must have run under ``pipeline``, K1
+               under ``device``, K5 under both ``pallas`` sweeps and K1 under
+               the second.  The default plans are held against the port's
+               host ``journal`` engine (against ``pipeline:torch`` on the GPU
+               for yolov2, whose space is too large for the host) and pinned
+               reference values; the ``pallas`` plans against the same
+               compile with ``device="cpu"`` (yolov2's exhaustive plan under
+               ``pipeline``, which the scorer never touches, against the
+               pinned values).
+4. numerics -- the quickstart pipeline (``examples/quickstart.py``) on the
+               card at full width, for each zoo net at its published size:
+               compile with ``verify="strict"``, the dry simulator audit
+               equal to ``dram_report``, the simulator executed with
+               ``init_params`` weights on a seeded input and its output equal
+               to ``run_graph``'s on the card bit for bit; at 64 pixels,
+               ``run_graph`` on the card within 1e-5 of the output's scale
+               of the same on the host (TF32 would miss by ~1e-3).
+5. report   -- wall and candidates per second of each compile, the execute
+               times; the yolov2 compile again, 5 runs for the median wall
+               and one run traced with ``torch.profiler`` for the card's busy
+               share; one JSON line listing the kernels (times, bounds,
+               launches per sweep), the card line, and a last line
                ``{"ok": true, "device": {...}}``.
 
 The chunk of the pipeline engine is ``CHUNK`` candidates (``@1048576``): the
@@ -42,6 +60,7 @@ It imports ``torch`` and ``repro_torch`` only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -57,6 +76,7 @@ CHUNK = 1 << 20
 # is the data sheet's 34 TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 33.5e12
+PEAK_F32_OPS_PER_S = 67e12
 PEAK_F64_OPS_PER_S = 34e12
 
 # What the JAX package's ``pipeline:reference`` engine returns for
@@ -84,7 +104,23 @@ KERNEL_INFO = {
     "argmin_rows": {
         "source": "src/repro_torch/kernels/csrc/search_pipeline.cu",
         "replaces": "src/repro/kernels/search_pipeline.py:592"},
+    "score_batch": {
+        "source": "src/repro_torch/kernels/csrc/score_batch.cu",
+        "replaces": "src/repro/kernels/score_batch.py:149"},
 }
+# K5's shapes: the engine's default batch at the widest zoo net, one
+# pipeline chunk at yolov2's groups, and the largest batch the descent gives
+# it on the main path (a sweep's trials, 1 to 8 candidates)
+SCORER_SHAPES = (("resnet152", 1024), ("yolov2", CHUNK),
+                 ("efficientnet-b1", 8))
+# the four sweeps of the main path: (engine, backend, exhaustive limits,
+# kernels that must have launched)
+PIPELINE_KERNELS = ("alloc_scan", "enum_frames", "cost_rows", "argmin_rows")
+SWEEPS = (("pipeline", "numpy", {}, PIPELINE_KERNELS),
+          ("device", "numpy", {"yolov2": 100000}, ("alloc_scan",)),
+          ("pipeline", "pallas", {}, ("score_batch",)),
+          ("device", "pallas", {"yolov2": 100000},
+           ("alloc_scan", "score_batch")))
 
 
 class SmokeFailure(Exception):
@@ -124,6 +160,19 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_time_by_kernel(prof) -> dict:
+    """``{kernel: {"count", "device_ms"}}`` from a ``torch.profiler`` trace
+    (empty when the trace holds no device time)."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0))
+        if dev_us and "kernel" in ev.key:
+            name = ev.key.split("::")[-1].split("(")[0]
+            by_kernel[name] = {"count": ev.count, "device_ms": dev_us / 1e3}
+    return by_kernel
 
 
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
@@ -189,6 +238,15 @@ def kernel_bounds(B: int, G: int, free_runs: int, L: int,
     }
 
 
+def scorer_bound(B: int, G: int):
+    """K5: a mask byte and four io bytes per candidate and group and the
+    nine float32 table rows in, six float32 stats per candidate out; about
+    14 float32 operations per group (the latency term: add, divide,
+    maximum, add, two selects, the sum; the row-mode term: select, add;
+    the four masked maxima and their masks)."""
+    return bound(5 * B * G + 36 * G + 24 * B, 14 * B * G, PEAK_F32_OPS_PER_S)
+
+
 # --------------------------------------------------------- kernels vs plain
 def make_engine(net: str):
     from repro_torch.cnn import build_cnn
@@ -249,7 +307,7 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
     G, nr = tbl.n, len(engine.runs)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1000 + G)
-    errs = {name: 0.0 for name in KERNEL_INFO}
+    errs = {name: 0.0 for name in PIPELINE_KERNELS}
 
     def same(name, got, want, what, bits=False):
         require(got.shape == want.shape,
@@ -342,6 +400,80 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
     return out
 
 
+def check_scorer(shapes, timed: bool, reps: int) -> dict:
+    """K5 against its plain version on the GPU, bit for bit, at each
+    ``(net, B)`` of ``shapes``: K2's masks of the last B tuples of the
+    net's space with K1's io (int32, lane-major: what the device engine
+    hands over), random masks with float32 io, B = 1 and B = 3.  Returns
+    ``{net: {"B", "G", "max_abs_err"[, "ms", "plain_ms", "bound_ms",
+    "bound_by", "device_ms"]}}``: ``ms`` is a launch through the wrapper
+    by CUDA events, ``device_ms`` the kernel's own time in a
+    ``torch.profiler`` trace of ``reps`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import alloc_scan as scan
+    from repro_torch.kernels import score_batch as sb
+    from repro_torch.kernels import search_pipeline as pipe
+
+    out = {}
+    for net, B in shapes:
+        engine = make_engine(net)
+        tbl = pipe._engine_tables(engine)
+        space = check_space(engine, 8 * CHUNK)
+        require(space.size >= B, f"{net}: {space.size} tuples < B = {B}")
+        frame = pipe.enum_frames_cuda(tbl, space, space.size - B, B)
+        io = scan.alloc_scan_cuda(engine.alloc_tables(), frame).io
+        t = engine.score_tables()
+        G = t.g
+        args = (engine.hw.dram_bytes_per_cycle,
+                engine.hw.group_overhead_cycles)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2000 + G)
+        rand = (torch.rand((B, G), generator=gen, device="cuda")
+                < torch.rand((B, 1), generator=gen, device="cuda"))
+        rio = torch.randint(0, 1 << 22, (B, G), generator=gen,
+                            device="cuda").to(torch.float32)
+        err = 0.0
+        for what, f, i in (("cut masks, K1 io", frame, io),
+                           ("random masks, float32 io", rand, rio),
+                           ("B=1", rand[:1], rio[:1]),
+                           ("B=3", rand[:3], rio[:3])):
+            got = sb.score_batch_cuda(t, f, i, *args)
+            want = sb.score_batch_torch(t, f, i, *args)
+            require(got.shape == want.shape == (f.shape[0], sb.N_STATS),
+                    f"{net} score_batch {what}: shape {tuple(got.shape)}")
+            err = max(err, max_abs_err(got, want))
+            require(torch.equal(got.contiguous().view(torch.int32),
+                                want.contiguous().view(torch.int32)),
+                    f"{net} score_batch {what}: kernel != plain version "
+                    f"(max abs err {err})")
+        torch.cuda.synchronize()
+        row = {"B": B, "G": G, "max_abs_err": err}
+        if timed:
+            def kernel():
+                return sb.score_batch_cuda(t, frame, io, *args)
+
+            def plain():
+                return sb.score_batch_torch(t, frame, io, *args)
+            # in turns: plain, kernel, kernel, plain
+            p1 = time_ms(plain, reps=2)
+            k1 = time_ms(kernel, reps=reps, warmup=2)
+            k2 = time_ms(kernel, reps=reps, warmup=0)
+            p2 = time_ms(plain, reps=2, warmup=0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    kernel()
+                torch.cuda.synchronize()
+            traced = device_time_by_kernel(prof).get("score_batch_kernel")
+            b = scorer_bound(B, G)
+            row.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=b[0],
+                       bound_by=b[1],
+                       device_ms=(traced["device_ms"] / traced["count"]
+                                  if traced else "not measured"))
+        out[net] = row
+    return out
+
+
 # ---------------------------------------------------------------- main path
 def plan_signature(plan) -> dict:
     c = plan.candidate
@@ -363,11 +495,12 @@ def require_same_plan(got: dict, want: dict, what: str):
                 f"{str(value)[:200]}")
 
 
-def drive_main_path(nets, engine, limits):
+def drive_main_path(nets, engine, limits, backend="numpy"):
     """One sweep of kernel-path compiles over ``nets`` under ``engine``
-    (``"pipeline"``, the default options, or ``"device"``), with the launch
-    counts set to 0 just before it and read just after.  Returns
-    ``({(net, engine): (signature, seconds, options)}, launches)``."""
+    (``"pipeline"``, the default options, or ``"device"``) and ``backend``,
+    with the launch counts set to 0 just before it and read just after.
+    Returns ``({(net, engine, backend): (signature, seconds, options)},
+    launches)``."""
     import torch
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
@@ -377,7 +510,7 @@ def drive_main_path(nets, engine, limits):
     out = {}
     reset_launch_counts()
     for net in nets:
-        opts = CompileOptions(engine=f"{engine}@{CHUNK}")
+        opts = CompileOptions(engine=f"{engine}@{CHUNK}", backend=backend)
         require(opts.device == "cuda"
                 and opts.engine_spec().variant == "cuda",
                 "default options do not resolve to the CUDA kernels")
@@ -386,8 +519,8 @@ def drive_main_path(nets, engine, limits):
         t0 = time.perf_counter()
         plan = compile_graph(build_cnn(net), options=opts)
         torch.cuda.synchronize()
-        out[net, engine] = (plan_signature(plan),
-                            time.perf_counter() - t0, opts)
+        out[net, engine, backend] = (plan_signature(plan),
+                                     time.perf_counter() - t0, opts)
     return out, launch_counts()
 
 
@@ -398,7 +531,9 @@ def check_main_path(results):
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
 
-    for (net, engine), (sig, _seconds, opts) in results.items():
+    for (net, engine, backend), (sig, _seconds, opts) in results.items():
+        if backend != "numpy":
+            continue
         what = f"{net} under {opts.engine}"
         require(all(w == w for w in (sig["latency_cycles"],))
                 and sig["latency_cycles"] > 0 and sig["words"],
@@ -416,11 +551,120 @@ def check_main_path(results):
         log(f"  {what}: equals {against} "
             f"({time.perf_counter() - t0:.2f} s)")
         require_same_plan(sig, want, f"{what} vs {against}")
-    sig = results["yolov2", "pipeline"][0]
+    sig = results["yolov2", "pipeline", "numpy"][0]
     require_same_plan(sig, YOLOV2_PINNED, "yolov2 vs the pinned reference")
     for net in ("resnet50", "resnet152"):
-        require_same_plan(results[net, "pipeline"][0], RESNET_PINNED,
-                          f"{net} vs the pinned reference")
+        require_same_plan(results[net, "pipeline", "numpy"][0],
+                          RESNET_PINNED, f"{net} vs the pinned reference")
+
+
+def check_pallas_path(results):
+    """Hold the ``backend="pallas"`` plans against the same compile with
+    ``device="cpu"``, the plain versions (K5 equals its plain version bit
+    for bit, so the plans must be equal); yolov2's exhaustive plan under
+    ``pipeline``, which the scorer never touches, against the pinned
+    reference values (its space is too large for the host)."""
+    import torch
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.compiler import compile_graph
+
+    for (net, engine, backend), (sig, _seconds, opts) in results.items():
+        if backend != "pallas":
+            continue
+        what = f"{net} under {opts.engine}, backend='pallas'"
+        if net == "yolov2" and engine == "pipeline":
+            require_same_plan(sig, YOLOV2_PINNED,
+                              f"{what} vs the pinned reference")
+            continue
+        t0 = time.perf_counter()
+        want = plan_signature(compile_graph(
+            build_cnn(net), options=opts.replace(device="cpu")))
+        torch.cuda.synchronize()
+        log(f"  {what}: equals device='cpu' "
+            f"({time.perf_counter() - t0:.2f} s)")
+        require_same_plan(sig, want, f"{what} vs device='cpu'")
+
+
+# ------------------------------------------------------------- numerics
+def quickstart(nets, device="cuda") -> list:
+    """The quickstart pipeline on the card at full width, one row per net
+    (see the module docstring, phase 4); ``device`` is the card, or the
+    CPU for a rehearsal at small sizes."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import errors_of
+    from repro_torch.cnn import build_cnn
+    from repro_torch.cnn.torch_ref import init_params, load_params, run_graph
+    from repro_torch.core.compiler import compile_graph
+    from repro_torch.core.dram import dram_report
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.core.simulator import simulate
+
+    def seeded_input(size):
+        return np.random.default_rng(0).standard_normal((1, size, size, 3),
+                                                        dtype=np.float32)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    rows = []
+    for net in nets:
+        graph = build_cnn(net)
+        size, last = graph.nodes[0].out_h, len(graph.nodes) - 1
+        t0 = time.perf_counter()
+        plan = compile_graph(graph, options=CompileOptions(
+            engine=f"pipeline@{CHUNK}", verify="strict", device=device))
+        compile_s = time.perf_counter() - t0
+        require(not errors_of(plan.diagnostics),
+                f"{net}: verify='strict' let errors through")
+        _, dry = simulate(plan.grouped, plan.alloc, plan.instructions,
+                          execute=False)
+        rep = dram_report(plan.grouped, plan.alloc)
+        require(dry.fm_total == rep.fm_bytes == plan.dram.fm_bytes
+                and dry.weight_reads == rep.weight_bytes
+                and dry.dangling_reads == 0,
+                f"{net}: dry audit {dry} != dram_report {rep}")
+        w = load_params(init_params(graph), device)
+        x = torch.from_numpy(seeded_input(size)).to(device)
+        want = run_graph(graph, w, x, device=device)[last]     # warm-up
+        sync()
+        t0 = time.perf_counter()
+        out, run = simulate(plan.grouped, plan.alloc, plan.instructions, w,
+                            x, device=device)
+        sync()
+        simulate_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        again = run_graph(graph, w, x, device=device)[last]
+        sync()
+        run_graph_ms = 1e3 * (time.perf_counter() - t0)
+        for other, what in ((want, "run_graph"), (again, "run_graph again")):
+            require(out.shape == other.shape and torch.equal(
+                out.view(torch.int32), other.view(torch.int32)),
+                f"{net}: simulator output != {what} on the card")
+        require(bool(torch.isfinite(out).all()),
+                f"{net}: non-finite output")
+        require(dataclasses.astuple(run) == dataclasses.astuple(dry),
+                f"{net}: executed counters {run} != dry counters {dry}")
+        del w, want, again
+        # the card's float32 against the host's on a small input
+        small = build_cnn(net, 64)
+        sp, sx = init_params(small), seeded_input(64)
+        card = run_graph(small, sp, sx, device=device)[len(small.nodes) - 1]
+        host = run_graph(small, sp, sx, device="cpu")[len(small.nodes) - 1]
+        card, host = card.cpu().double(), host.double()
+        rel = float((card - host).abs().max() / host.abs().max())
+        require(card.shape == host.shape and rel <= 1e-5,
+                f"{net}@64: card vs host {rel:.3g} of the output's scale")
+        rows.append({
+            "quickstart": net, "size": size,
+            "groups": len(plan.grouped.groups),
+            "output": list(out.shape), "compile_s": compile_s,
+            "simulate_ms": simulate_ms, "run_graph_ms": run_graph_ms,
+            "dram_fm_bytes": dry.fm_total, "onchip_hit_bytes": dry.onchip_hits,
+            "card_vs_host_at_64px": rel})
+        log(json.dumps(rows[-1]))
+    return rows
 
 
 # ------------------------------------------------- where the time goes
@@ -451,13 +695,7 @@ def yolov2_wall_and_busy() -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_wall = compile_once()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total",
-                         getattr(ev, "cuda_time_total", 0))
-        if dev_us and "kernel" in ev.key:
-            name = ev.key.split("::")[-1].split("(")[0]
-            by_kernel[name] = {"count": ev.count, "device_ms": dev_us / 1e3}
+    by_kernel = device_time_by_kernel(prof)
     busy = sum(k["device_ms"] for k in by_kernel.values())
     return {
         "yolov2_compile": "pipeline:cuda", "chunk": CHUNK,
@@ -506,6 +744,9 @@ def main(argv=None) -> int:
         for net in ("yolov2", "resnet152", "efficientnet-b1"):
             r = check_kernels(net, target=20000, timed=False, reps=0)
             log(f"kernels equal their plain versions: {json.dumps(r)}")
+        r = check_scorer((("resnet152", 1024), ("yolov2", 20000)),
+                         timed=False, reps=0)
+        log(f"score_batch equals its plain version: {json.dumps(r)}")
         return 0
 
     # ---- phase 2: kernels against their plain versions, and their times
@@ -519,29 +760,41 @@ def main(argv=None) -> int:
         log(f"kernels == plain versions at {net} shapes "
             f"(B={c['B']}, G={c['G']}, runs={c['runs']}): max abs err "
             f"{c['errs']} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    scorer = check_scorer(SCORER_SHAPES, timed=True, reps=20)
+    log(f"score_batch == plain version at {SCORER_SHAPES}: "
+        f"{json.dumps(scorer)} ({time.perf_counter() - t0:.1f} s)")
 
-    # ---- phase 3: the main path, one sweep per engine, each with its own
-    # launch counts (set to 0 just before the sweep, read just after)
+    # ---- phase 3: the main path, four sweeps, each with its own launch
+    # counts (set to 0 just before the sweep, read just after)
     nets = list(CNN_BUILDERS)
     results, launches = {}, {}
-    for engine, limits, needed in (
-            ("pipeline", {}, tuple(KERNEL_INFO)),
-            ("device", {"yolov2": 100000}, ("alloc_scan",))):
-        swept, launches[engine] = drive_main_path(nets, engine, limits)
+    for engine, backend, limits, needed in SWEEPS:
+        swept, counts = drive_main_path(nets, engine, limits, backend)
+        launches[engine, backend] = counts
         results.update(swept)
-        log(f"launches under engine={engine!r}: {launches[engine]}")
+        log(f"launches under engine={engine!r}, backend={backend!r}: "
+            f"{counts}")
         for name in needed:
-            require(launches[engine][name] > 0,
+            require(counts[name] > 0,
                     f"kernel {name} was never launched under "
-                    f"engine={engine!r}")
+                    f"engine={engine!r}, backend={backend!r}")
     check_main_path(results)
+    check_pallas_path(results)
 
-    # ---- phase 4: numbers
-    for (net, engine), (sig, seconds, opts) in results.items():
+    # ---- phase 4: the quickstart pipeline at full width
+    t0 = time.perf_counter()
+    quick = quickstart(nets)
+    log(f"quickstart pipeline on {len(quick)} nets: compile, strict verify, "
+        f"audit, simulator == run_graph bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 5: numbers
+    for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
             "compile": net, "engine": opts.engine_spec().spelling(),
-            "path": sig["path"], "evaluated": sig["evaluated"],
-            "wall_s": seconds,
+            "backend": backend, "path": sig["path"],
+            "evaluated": sig["evaluated"], "wall_s": seconds,
             "candidates_per_s": sig["evaluated"] / seconds}))
     for net in ("yolov2", "resnet152"):
         c = checks[net]
@@ -549,21 +802,36 @@ def main(argv=None) -> int:
                         "L": c["L"], "alloc_ops_per_candidate":
                             c["alloc_ops_per_candidate"],
                         "times": c["times"]}))
+    by_sweep = {name: {f"{e}+{b}": launches[e, b][name]
+                       for e, b, _l, _n in SWEEPS}
+                for name in KERNEL_INFO}
     main_shape = checks["yolov2"]
     kernels = []
-    for name, info in KERNEL_INFO.items():
-        t = main_shape["times"][name]
+    for name in PIPELINE_KERNELS:
+        info, t = KERNEL_INFO[name], main_shape["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": info["source"],
             "replaces": info["replaces"],
-            "launches": launches["pipeline"][name],
-            "launches_under_device_engine": launches["device"][name],
+            "launches": launches["pipeline", "numpy"][name],
+            "launches_by_sweep": by_sweep[name],
             "max_abs_err": max(c["errs"][name] for c in checks.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
             "shape": {"B": main_shape["B"], "G": main_shape["G"],
                       "L": main_shape["L"]}})
+    info = KERNEL_INFO["score_batch"]
+    t, chunk, descent = (scorer[net] for net, _b in SCORER_SHAPES)
+    kernels.append({
+        "name": "score_batch", "route": "cuda", "source": info["source"],
+        "replaces": info["replaces"],
+        "launches": launches["pipeline", "pallas"]["score_batch"],
+        "launches_by_sweep": by_sweep["score_batch"],
+        "max_abs_err": max(r["max_abs_err"] for r in scorer.values()),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "device_ms": t["device_ms"], "shape": {"B": t["B"], "G": t["G"]},
+        "at_chunk": chunk, "at_descent_batch": descent})
     log(json.dumps(yolov2_wall_and_busy()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,15 +1,17 @@
 """State carried across from the JAX package, as plain data.
 
-There are no weights on the compiler's path; what has to be identical on
-both sides is the graph and the packed tables.  The functions here take the
-other package's objects as plain Python / numpy data (``dataclasses.asdict``
-of its nodes, dicts of its numpy tables) -- this package never imports the
-other one.
+On the compiler's path what has to be identical on both sides is the graph
+and the packed tables; on the numerics path (``cnn/torch_ref.py``, the
+simulator) it is the CNN weights too.  The functions here take the other
+package's objects as plain Python / numpy data (``dataclasses.asdict`` of
+its nodes, dicts of its numpy tables and weights) -- this package never
+imports the other one.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.cnn.torch_ref import load_params
 from repro_torch.core.ir import Graph, LayerNode
 from repro_torch.kernels.alloc_scan import AllocScanTables
 from repro_torch.kernels.search_pipeline import PipelineTables
@@ -47,3 +49,11 @@ def pipeline_tables_from_numpy(tables: dict, device="cpu") -> PipelineTables:
     """The pipeline's tables on ``device`` from the dict the other
     package's ``_engine_tables`` builds."""
     return PipelineTables.from_numpy(tables, device=device)
+
+
+def cnn_params_from_numpy(params: dict, device="cpu") -> dict:
+    """The port's CNN weights on ``device`` from the other package's
+    ``init_params`` dict (numpy arrays keyed by node index: conv / dwconv
+    kernels HWIO, fc matrices ``[cin, cout]``), in the layout
+    ``cnn/torch_ref.py`` computes with."""
+    return load_params(params, device)

@@ -18,10 +18,13 @@ The result is an :class:`ExecutionPlan`: the chosen policy/allocation, the
 three analytic reports the paper tabulates (SRAM, DRAM, latency), derived
 metrics (GOPS, MAC efficiency, off-chip reduction vs. the all-row
 baseline), and the instruction stream.  Everything is static -- no
-hardware or input tensors are involved.
+hardware or input tensors are involved -- which is what lets the static
+verifier (``repro_torch.analysis``) and the functional simulator
+(core/simulator.py) audit the plan byte for byte.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 from repro_torch.core.allocator import Allocation, allocate, frame_feasible
@@ -50,8 +53,8 @@ class ExecutionPlan:
     latency: LatencyReport
     instructions: list[GroupInstruction]
     search: SearchResult | None = None
-    # static-verifier findings (always empty: the verifier is not part of
-    # this package yet)
+    # static-verifier findings (empty when verify="off" or the plan is
+    # clean); see repro_torch.analysis
     diagnostics: list = field(default_factory=list)
 
     # ------------------------------------------------------------- metrics
@@ -88,6 +91,29 @@ class ExecutionPlan:
                 f"SRAM {self.sram.sram_total * mb:.3f} MB")
 
 
+def apply_verification(plan: ExecutionPlan, mode: str,
+                       site: str = "compile_graph") -> ExecutionPlan:
+    """Run the static plan verifier (``repro_torch.analysis``) over a
+    finished plan, per the ``verify`` mode: ``"off"`` is a no-op,
+    ``"warn"`` records the diagnostics on ``plan.diagnostics`` and emits a
+    ``UserWarning`` per error-severity finding, ``"strict"`` raises
+    ``repro_torch.analysis.VerificationError`` on any error-severity
+    diagnostic.  A pure post-check: the plan bytes are never changed."""
+    if mode == "off":
+        return plan
+    # Imported lazily: analysis depends on core, not the reverse.
+    from repro_torch.analysis import (VerificationError, errors_of,
+                                      verify_execution_plan)
+    plan.diagnostics = verify_execution_plan(plan)
+    errors = errors_of(plan.diagnostics)
+    if errors and mode == "strict":
+        raise VerificationError(plan.graph.name, plan.diagnostics)
+    for d in errors:
+        warnings.warn(f"{site}({plan.graph.name}): {d.render()}",
+                      stacklevel=3)
+    return plan
+
+
 def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
                   options: CompileOptions | None = None,
                   *, policy: dict[int, str] | None = None,
@@ -108,9 +134,8 @@ def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
     ``CompileOptions(device="cpu")`` for the plain torch versions.
 
     Not part of this package yet, and refused with
-    ``NotImplementedError`` rather than ignored: ``verify != "off"`` (the
-    static verifier), ``workers != 1`` / ``resume_dir`` / ``guard`` (the
-    process pool) and ``backend="pallas"`` (the float32 staged scorer).
+    ``NotImplementedError`` rather than ignored: ``workers != 1`` /
+    ``resume_dir`` / ``guard`` (the process pool).
 
     Three arguments stay outside the options value because they are not
     reusable configuration: ``policy`` (gid -> "row"/"frame") skips the
@@ -124,10 +149,6 @@ def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
     results stay bit-identical to a cold compile.
     """
     opts = resolve_options(options, legacy, site="compile_graph")
-    if opts.verify != "off":
-        raise NotImplementedError(
-            f"verify={opts.verify!r}: the static plan verifier is not part "
-            f"of this package yet; compile with verify='off'")
     graph.validate()
     gg = group_nodes(graph)
     result: SearchResult | None = None
@@ -154,7 +175,7 @@ def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
         sram=sram, dram=dram, latency=latency,
         instructions=generate_instructions(gg, alloc),
         search=result)
-    return plan
+    return apply_verification(plan, opts.verify)
 
 
 def all_row_policy(gg: GroupedGraph) -> dict[int, str]:

@@ -72,6 +72,13 @@ bit-for-bit on every metric and is built from three pieces:
   back.  Dispatch happens through ``CutpointEngine.run_subspace`` -- the
   resolution point of the ``ReplayEngine`` protocol in
   ``core/options.py``.
+* **Staged float32 scorer** -- behind ``backend="pallas"`` (the JAX
+  package's spelling, kept so the two packages' plan keys agree),
+  ``score_batch``'s latency sum, row-mode DRAM term and SRAM maxima run
+  in float32 through ``kernels/score_batch.py`` (kernel K5 on a CUDA
+  device).  Not oracle-exact, hence plan-affecting; its results never
+  enter the memo.  Exhaustive sub-spaces under ``engine="pipeline"``
+  still go through the exact fused pipeline.
 
 Oracle contract: ``CutpointEngine.evaluate(cuts)`` returns the same
 ``latency_cycles`` / ``dram_total`` / ``dram_fm`` / ``sram_total`` /
@@ -297,25 +304,33 @@ class CutpointEngine:
                  device: str = "cpu"):
         self.gg = gg
         self.hw = hw
-        if backend != "numpy":
-            raise NotImplementedError(
-                f"backend={backend!r}: the staged float32 scorer is not "
-                f"part of this package yet; only the oracle-exact "
-                f"'numpy' backend is")
+        # "numpy" (oracle-exact, default) or "pallas" (the staged float32
+        # scorer of kernels/score_batch.py: K5 on a CUDA device, its plain
+        # torch version on the CPU)
+        if backend not in ("numpy", "pallas"):
+            raise ValueError(f"unknown score_batch backend: {backend!r}")
+        self.backend = backend
         # ``engine`` (an options.resolve_engine spelling) resolves onto
         # the replay mode of score_batch, the alloc_scan implementation
         # and, for the "pipeline" engine, the fused sub-space pipeline in
         # run_subspace.
         spec = resolve_engine(engine, device=device)
         self.device = device
-        if spec.name != "journal" and is_cuda_device(device):
+        if ((spec.name != "journal" or backend == "pallas")
+                and is_cuda_device(device)):
             import torch
             if not torch.cuda.is_available():
                 raise RuntimeError(
-                    f"engine={engine!r} resolved for device={device!r}, "
-                    f"but this host has no CUDA device; pass "
-                    f"device='cpu' (the plain torch versions) or "
-                    f"engine='journal' (host code)")
+                    f"engine={engine!r}, backend={backend!r} resolved for "
+                    f"device={device!r}, but this host has no CUDA device; "
+                    f"pass device='cpu' (the plain torch versions) or "
+                    f"engine='journal', backend='numpy' (host code)")
+        # which score_batch implementation the staged scorer runs: the
+        # kernel on a CUDA device, the plain version on the CPU or under an
+        # explicit ":torch" engine variant
+        self.score_backend = ("cuda" if is_cuda_device(device)
+                              and spec.variant != "torch" else "torch")
+        self._kt = None               # packed scorer tables, lazy
         # "journal" (per-candidate checkpointed Python replay) or "device"
         # (tensorized allocator scan over the whole batch, see
         # kernels/alloc_scan.py) -- the replay mode of score_batch.  Under
@@ -717,18 +732,29 @@ class CutpointEngine:
         (kernels/alloc_scan.py) under ``self.alloc_backend`` on
         ``self.device``.  ``skip`` masks pruned batch lanes out of the
         scan (their outputs come back zero-filled).  ``frame`` is the
-        host's numpy mask matrix; the result is brought back to the host
-        (CPU tensors) for ``score_batch``'s reductions."""
+        host's numpy mask matrix; returns ``(frame, result)`` as tensors on
+        ``self.device``, where the staged scorer reads them in place."""
         import torch
 
-        from repro_torch.kernels.alloc_scan import AllocScanResult, alloc_scan
+        from repro_torch.kernels.alloc_scan import alloc_scan
         frame_t = torch.from_numpy(frame).to(self.device)
         if skip is not None:
             skip = torch.as_tensor(np.asarray(skip, dtype=bool),
                                    device=self.device)
         res = alloc_scan(self.alloc_tables(), frame_t,
                          backend=self.alloc_backend, skip=skip)
-        return AllocScanResult(io=res.io.cpu(), stats=res.stats.cpu())
+        if skip is not None:
+            frame_t[skip] = True          # as the host mask below
+        return frame_t, res
+
+    def score_tables(self):
+        """This graph's packed float32 scorer tables on ``self.device``
+        (built on first use)."""
+        if self._kt is None:
+            from repro_torch.kernels.score_batch import pack_tables
+            self._kt = pack_tables(self._lt, self._dt, self._st,
+                                   device=self.device)
+        return self._kt
 
     def alloc_tables(self):
         """This graph's packed allocator-scan tables on ``self.device``
@@ -741,6 +767,7 @@ class CutpointEngine:
 
     # ------------------------------------------------------ batched scoring
     def score_batch(self, cuts_batch, memoize: bool = True,
+                    backend: str | None = None,
                     replay: str | None = None,
                     skip=None) -> list:
         """Metrics for a batch of B cut tuples in one set of 2-D reductions.
@@ -754,14 +781,23 @@ class CutpointEngine:
         fall out of ``latency_cycles_fast_batch`` / ``dram_fm_fast_batch``
         / ``sram_total_fast_batch``.
 
-        Contract: element ``i`` of the
+        Contract: with the default "numpy" backend, element ``i`` of the
         returned list is bit-identical to ``evaluate(cuts_batch[i])`` --
         same IEEE elementwise ops, same left-to-right per-row summation
         order -- and the memo/``evaluations`` bookkeeping matches a
         per-tuple loop exactly: cache hits are returned (not recounted),
         duplicate tuples within a memoized batch are evaluated once, and
         ``memoize=False`` replays every element (as exhaustive enumeration
-        wants).
+        wants).  ``backend="pallas"`` routes the latency sum, the row-mode
+        DRAM term and the four SRAM maxima through the staged float32
+        scorer (kernels/score_batch.py: K5 on a CUDA device, its plain
+        version on the CPU) -- NOT oracle-exact; its results are never
+        written into the memo, so ``evaluate``'s bit-exact contract on the
+        same engine instance is preserved (cached exact entries are still
+        served to pallas callers).  Under the journal replay the host's
+        mask and io matrices are copied to the device once per batch;
+        under the device replay the allocator kernel's matrices stay on
+        the device and go straight into the scorer.
 
         ``skip`` (a length-B boolean mask, ``memoize=False`` only) marks
         batch lanes the caller has already pruned: the branch-and-bound
@@ -784,6 +820,10 @@ class CutpointEngine:
         ``search``, ``coordinate_descent``, ``compile_graph`` -- inherits
         the knob with byte-identical results.
         """
+        if backend is None:
+            backend = self.backend
+        if backend not in ("numpy", "pallas"):
+            raise ValueError(f"unknown score_batch backend: {backend!r}")
         if replay is None:
             replay = self.replay
         if replay not in ("journal", "device"):
@@ -822,8 +862,9 @@ class CutpointEngine:
             # .tolist() materializes exact Python ints, so the assembled
             # CandidateMetrics (and the memo) are byte-identical to the
             # journal path's.
+            from repro_torch.kernels.alloc_scan import AllocScanResult
             frame = self._frame_matrix(miss)
-            res = self._device_replay(frame, skip=skip)
+            dev_frame, res = self._device_replay(frame, skip=skip)
             if skip is None:
                 self.evaluations += len(miss)
             else:
@@ -832,7 +873,11 @@ class CutpointEngine:
                 # terms in the 2-D reductions below (their metrics are
                 # discarded, but keep them finite and cheap)
                 frame[np.asarray(skip, dtype=bool)] = True
-            io = res.io.numpy().astype(np.float64)
+            # the stats come to the host; the io matrix stays where the
+            # replay wrote it when the float32 scorer reads it
+            res = AllocScanResult(io=res.io, stats=res.stats.cpu())
+            io = (res.io if backend == "pallas"
+                  else res.io.cpu().numpy().astype(np.float64))
             boundary_fm = res.bfm.tolist()
             feas_spills = res.feasible.tolist()
             cand_terms = [(b[0], b[1], b[2], s, w)
@@ -900,17 +945,33 @@ class CutpointEngine:
             io = np.asarray(io_rows, dtype=np.float64)
 
         # --- one set of 2-D reductions across the whole batch
-        lat = latency_cycles_fast_batch(self._lt, frame, io, self.hw)
-        fm = dram_fm_fast_batch(self._dt, frame, boundary_fm)
-        sram, bram = sram_total_fast_batch(
-            self._st, frame, cand_terms, self.hw,
-            bram_memo=self._bram_memo)
+        if backend == "pallas":
+            from repro_torch.kernels.score_batch import score_stats
+            # device replay: its mask and io tensors, never via the host
+            st = score_stats(self.score_tables(),
+                             dev_frame if replay == "device" else frame, io,
+                             self.hw, backend=self.score_backend)
+            lat = st.latency
+            fm = dram_fm_fast_batch(self._dt, frame, boundary_fm,
+                                    row_terms=st.row_fm)
+            sram, bram = sram_total_fast_batch(
+                self._st, frame, cand_terms, self.hw, maxima=st.maxima,
+                bram_memo=self._bram_memo)
+        else:
+            lat = latency_cycles_fast_batch(self._lt, frame, io, self.hw)
+            fm = dram_fm_fast_batch(self._dt, frame, boundary_fm)
+            sram, bram = sram_total_fast_batch(
+                self._st, frame, cand_terms, self.hw,
+                bram_memo=self._bram_memo)
 
-        # --- assemble CandidateMetrics in batch order
+        # --- assemble CandidateMetrics in batch order.  Only oracle-exact
+        # (numpy) results may enter the memo: evaluate() serves from it
+        # under a bit-exactness contract, and float32 scorer results would
+        # silently poison it.
         lat = lat.tolist()
         budget = self.hw.sram_budget
         wb = self._dt.weight_bytes
-        store = memoize
+        store = memoize and backend == "numpy"
         cache = self._cache
         scored: list[CandidateMetrics | None] = []
         for j, cuts in enumerate(miss):

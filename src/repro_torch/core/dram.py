@@ -147,14 +147,20 @@ def boundary_fm_bytes(alloc: Allocation, out_size: list[int]) -> int:
 
 
 def dram_fm_fast_batch(t: DRAMTables, frame: np.ndarray,
-                       boundary_fm: list[int]) -> list[int]:
+                       boundary_fm: list[int],
+                       row_terms=None) -> list[int]:
     """``dram_fm_fast`` for B candidates: one masked 2-D int64 reduction
     over the frame-mask matrix for the row-mode term, plus the
     per-candidate boundary/spill totals (``boundary_fm[i]`` from
     :func:`boundary_fm_bytes` -- exact ints, so each element is
-    bit-identical to the scalar path)."""
-    # det: int64 matrix reduction, exact at any association order
-    row_terms = np.where(frame, 0, t.row_fm[None, :]).sum(axis=1)
+    bit-identical to the scalar path).
+
+    ``row_terms`` optionally injects precomputed per-candidate row-mode
+    sums (the staged float32 scorer computes them on the device); when
+    given they are used verbatim."""
+    if row_terms is None:
+        # det: int64 matrix reduction, exact at any association order
+        row_terms = np.where(frame, 0, t.row_fm[None, :]).sum(axis=1)
     return [int(rt) + b for rt, b in zip(row_terms.tolist(), boundary_fm)]
 
 

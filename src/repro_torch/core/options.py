@@ -20,11 +20,9 @@ test_torch_search_pipeline.py is what makes that split sound.  The same
 written under different plan-affecting option sets can never collide.
 
 Not every value is implemented in this package yet: ``workers != 1`` and
-``resume_dir`` (the process pool), ``backend="pallas"`` (the float32
-staged scorer) and ``verify != "off"`` (the static verifier) are accepted
-by the dataclass, so option sets stay interchangeable with the JAX
-package's, and raise ``NotImplementedError`` where the compile would
-need them.
+``resume_dir`` (the process pool) are accepted by the dataclass, so option
+sets stay interchangeable with the JAX package's, and raise
+``NotImplementedError`` where the compile would need them.
 
 Field reference (the one knob table; README mirrors it)
 -------------------------------------------------------
@@ -43,10 +41,16 @@ Plan-affecting (feed ``plan_key()`` and the service cache hash):
     graph across that boundary and change the argmin, so it is
     plan-affecting.
 ``backend``
-    ``CutpointEngine`` scoring backend: ``"numpy"`` (default,
-    oracle-exact) or ``"pallas"`` (staged float32 on-device batch
-    reduction -- NOT oracle-exact, hence plan-affecting; not implemented
-    in this package yet).
+    ``CutpointEngine.score_batch`` backend: ``"numpy"`` (default,
+    oracle-exact) or ``"pallas"``.  In this package ``"pallas"`` names
+    the staged float32 scorer, ``kernels/score_batch.py``: kernel K5 on
+    a CUDA ``device``, its plain torch version on the CPU.  It is NOT
+    oracle-exact, hence plan-affecting; the spelling is the JAX
+    package's, so the two packages' ``plan_key()`` values agree.  It
+    changes only ``score_batch`` (the coordinate-descent path, and the
+    exhaustive path of the ``journal`` / ``device`` engines); exhaustive
+    sub-spaces under ``engine="pipeline"`` still run the exact fused
+    pipeline.  With a CUDA ``device`` it raises on a host without one.
 ``prune``
     ``True`` (default) runs exhaustive enumeration as exact
     branch-and-bound; the argmin and metrics are bit-identical to the
@@ -122,8 +126,7 @@ Scheduling-only (wall clock / resilience / post-checks; excluded from
     key derives from ``plan_key()`` + the partition, never from
     scheduling knobs.
 ``verify``
-    Static plan verifier post-pass (not implemented in this package
-    yet; any value but ``"off"`` raises): ``"off"``
+    Static plan verifier post-pass (``repro_torch.analysis``): ``"off"``
     (default), ``"warn"`` (diagnostics recorded on
     ``plan.diagnostics`` + UserWarning per error), ``"strict"``
     (raises ``VerificationError``).  A pure check -- the plan bytes

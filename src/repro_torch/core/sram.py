@@ -165,6 +165,7 @@ def wr_frame_max(t: SRAMTables, alloc: Allocation, frame) -> int:
 
 def sram_total_fast_batch(t: SRAMTables, frame: np.ndarray,
                           cand_terms: list, hw: FPGAConfig,
+                          maxima=None,
                           bram_memo: dict | None = None
                           ) -> tuple[list[int], list[int]]:
     """``sram_total_fast`` for B candidates: the four policy-dependent
@@ -175,18 +176,22 @@ def sram_total_fast_batch(t: SRAMTables, frame: np.ndarray,
     maxima/sums are exact, so each element is bit-identical to the scalar
     path.
 
-    ``bram_memo`` memoizes eq. (7) over the full
-    buffer-size tuple -- neighbouring candidates in a batch hit the same
-    handful of buffer shapes, so six lru lookups become one dict hit; the
-    dict must be scoped to one (graph tables, hw) pair (the engine owns
+    ``maxima`` optionally injects precomputed ``(weight_buff, out_frame,
+    out_row, wr_row)`` per-candidate maxima (the staged float32 scorer
+    computes them on the device).  ``bram_memo`` memoizes eq. (7) over the
+    full buffer-size tuple -- neighbouring candidates in a batch hit the
+    same handful of buffer shapes, so six lru lookups become one dict hit;
+    the dict must be scoped to one (graph tables, hw) pair (the engine owns
     one per instance)."""
-    compute = t.compute[None, :]
-    rowm = compute & ~frame
-    frm = compute & frame
-    wbuff = np.where(rowm, t.weight[None, :], 0).max(axis=1).tolist()
-    outf = np.where(frm, t.out_frame[None, :], 0).max(axis=1).tolist()
-    outr = np.where(rowm, t.out_row[None, :], 0).max(axis=1).tolist()
-    wrr = np.where(rowm, t.wr_row[None, :], 0).max(axis=1).tolist()
+    if maxima is None:
+        compute = t.compute[None, :]
+        rowm = compute & ~frame
+        frm = compute & frame
+        maxima = (np.where(rowm, t.weight[None, :], 0).max(axis=1),
+                  np.where(frm, t.out_frame[None, :], 0).max(axis=1),
+                  np.where(rowm, t.out_row[None, :], 0).max(axis=1),
+                  np.where(rowm, t.wr_row[None, :], 0).max(axis=1))
+    wbuff, outf, outr, wrr = (m.tolist() for m in maxima)
     totals: list[int] = []
     brams: list[int] = []
     row_buff = t.row_buff

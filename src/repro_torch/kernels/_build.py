@@ -29,11 +29,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Per-source flags.  search_pipeline.cu holds the float64 cost stage, whose
-# results must equal the host's IEEE arithmetic bit for bit: no fused
-# multiply-add contraction, and no fast-math anywhere.
+# results must equal the host's IEEE arithmetic bit for bit, and
+# score_batch.cu the float32 scorer, held bit-equal to its plain torch
+# version: no fused multiply-add contraction, and no fast-math anywhere.
 SOURCES = {
     "alloc_scan.cu": (),
     "search_pipeline.cu": ("-fmad=false",),
+    "score_batch.cu": ("-fmad=false",),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -138,8 +140,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, p]                    # objective, device, stream
     lib.argmin_rows_launch.argtypes = [p, p, ll, i, p]   # lanes, out, L,
     #                                                      device, stream
+    f = ctypes.c_float
+    lib.score_batch_launch.argtypes = [
+        p, p, i, p, p,              # frame, io, io_is_int, tab, out
+        ll, i, f, f, i, p]          # B, G, bpc, overhead, device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
-               lib.cost_rows_launch, lib.argmin_rows_launch):
+               lib.cost_rows_launch, lib.argmin_rows_launch,
+               lib.score_batch_launch):
         fn.restype = ctypes.c_int
 
 

@@ -63,10 +63,19 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.core.cutpoint", "repro_torch.core.compiler",
                  "repro_torch.kernels.alloc_scan",
                  "repro_torch.kernels.search_pipeline",
-                 "repro_torch.kernels._build", "repro_torch.convert"):
+                 "repro_torch.kernels.score_batch",
+                 "repro_torch.kernels._build", "repro_torch.convert",
+                 "repro_torch.cnn.torch_ref", "repro_torch.core.simulator",
+                 "repro_torch.analysis", "repro_torch.analysis.__main__",
+                 "repro_torch.analysis.diagnostics",
+                 "repro_torch.analysis.liveness",
+                 "repro_torch.analysis.verifier",
+                 "repro_torch.analysis.mutate"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
-    assert csrc == {"alloc_scan.cu", "search_pipeline.cu"}
+    assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu"}
+    from repro_torch.kernels import _build
+    assert set(_build.SOURCES) == csrc
 
 
 def test_every_port_module_imports_without_jax_gpu_or_compiler():
@@ -145,8 +154,9 @@ def test_engine_grammar_and_device_field():
 @pytest.mark.parametrize("kwargs,match", [
     ({"workers": 2}, "pool"), ({"workers": None}, "pool"),
     ({"resume_dir": "journal-dir"}, "pool"),
-    ({"backend": "pallas"}, "float32"),
-    ({"verify": "strict"}, "verifier"), ({"verify": "warn"}, "verifier"),
+    ({"workers": 2, "backend": "pallas"}, "pool"),
+    ({"workers": 2, "verify": "strict"}, "pool"),
+    ({"resume_dir": "journal-dir", "verify": "warn"}, "pool"),
 ])
 def test_what_the_slice_leaves_out_raises(kwargs, match):
     from repro_torch.cnn import build_cnn
@@ -156,6 +166,23 @@ def test_what_the_slice_leaves_out_raises(kwargs, match):
     opts = CompileOptions(engine="journal", device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match=match):
         compile_graph(build_cnn("vgg16-conv"), options=opts)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"backend": "pallas"}, {"verify": "strict"}, {"verify": "warn"},
+    {"backend": "pallas", "verify": "strict"}])
+def test_scorer_and_verifier_options_run(kwargs):
+    """``backend="pallas"`` (the float32 scorer) and ``verify`` are part of
+    the port now: the compile runs and returns the exhaustive plan."""
+    from repro_torch.analysis import errors_of
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.compiler import compile_graph
+    from repro_torch.core.options import CompileOptions
+
+    plan = compile_graph(build_cnn("vgg16-conv"), options=CompileOptions(
+        engine="journal", device="cpu", **kwargs))
+    assert plan.search.path == "exhaustive" and plan.search.evaluated == 1080
+    assert errors_of(plan.diagnostics) == []
 
 
 def test_guard_raises_and_legacy_shim_still_works():
