@@ -10,8 +10,8 @@ What it does, in order; any failure ends the run with a non-zero exit code:
 1. card     -- prints the GPU's name and power limit as ``nvidia-smi`` gives
                them, and builds the CUDA kernels from ``src/repro_torch/
                kernels/csrc`` with ``nvcc`` (reported as set-up seconds).
-2. kernels  -- each of the five kernels against its plain torch version on
-               the GPU, at the shapes the search gives it.  K1-K4: yolov2
+2. kernels  -- each of the eight kernels against its plain torch version on
+               the GPU, at the shapes its path gives it.  K1-K4: yolov2
                (26 groups), resnet152 (160) and efficientnet-b1 (139, with
                SE side groups); cut-derived and random frame masks, all
                three objectives, duplicated argmin keys.  K5, the float32
@@ -20,8 +20,14 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                and 8 candidates at efficientnet-b1's 139 (the largest batch
                the descent gives it), fed K2's masks and K1's io as the
                device engine feeds it, and random masks.  Integers must be
-               equal and the float64 and float32 rows bit-equal.  Each
-               kernel and its plain version are timed with CUDA events.
+               equal and the float64 and float32 rows bit-equal.  The LM
+               kernels K6 (flash attention), K7 (fused MLP block) and K9
+               (RG-LRU scan) at recurrentgemma-2b's serving shapes (batch 2,
+               3,072 tokens; K7 also at decode, M = 2), at ragged shapes, K6
+               with gemma2's soft cap and GQA, K7 ungated and with the
+               sandwich norm: within 2e-5 in float32 (K9 1e-4) and 2e-2 in
+               bfloat16.  Each kernel and its plain version are timed with
+               CUDA events; K6 also beside ``scaled_dot_product_attention``.
 3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
                options (``engine="pipeline"`` on ``device="cuda"``, among
                them yolov2@416 with its full space of 7,962,624 cut tuples),
@@ -45,11 +51,24 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                to ``run_graph``'s on the card bit for bit; at 64 pixels,
                ``run_graph`` on the card within 1e-5 of the output's scale
                of the same on the host (TF32 would miss by ~1e-3).
-5. report   -- wall and candidates per second of each compile, the execute
+5. serve    -- ``launch/serve.py::serve`` of recurrentgemma-2b at full
+               width in bfloat16, weights from ``torch.Generator(0)`` on the
+               card: batch 2, a 3,072-token prompt (over the 2,048-token
+               window: K6 masks by window and skips tiles, decode runs
+               through the ring cache), 16 tokens.  Its own launch counts,
+               set to 0 just before and read just after, must be exactly
+               K6 8, K9 18, K7 416; prefill / decode seconds, tokens per
+               second and peak memory; two more runs on the same weights,
+               one traced for the kernels' device time.  Then the model at
+               full width in float32, depth 4, a 512-token prompt: prefill
+               and one decode step through the kernels and through their
+               plain versions (``ops.plain_versions()``), logits within 1e-3
+               of their scale.
+6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
                share; one JSON line listing the kernels (times, bounds,
-               launches per sweep), the card line, and a last line
+               launches per sweep or serve), the card line, and a last line
                ``{"ok": true, "device": {...}}``.
 
 The chunk of the pipeline engine is ``CHUNK`` candidates (``@1048576``): the
@@ -78,6 +97,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT32_OPS_PER_S = 33.5e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_F64_OPS_PER_S = 34e12
+# dense tensor-core rate for bfloat16 products (the LM kernels' bound on
+# bfloat16 inputs; float32 inputs are held to PEAK_F32_OPS_PER_S)
+PEAK_BF16_OPS_PER_S = 989e12
 
 # What the JAX package's ``pipeline:reference`` engine returns for
 # yolov2@416 (exhaustive over all 7,962,624 tuples), and its winners for the
@@ -107,6 +129,15 @@ KERNEL_INFO = {
     "score_batch": {
         "source": "src/repro_torch/kernels/csrc/score_batch.cu",
         "replaces": "src/repro/kernels/score_batch.py:149"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25"},
+    "fused_block": {
+        "source": "src/repro_torch/kernels/csrc/fused_block.cu",
+        "replaces": "src/repro/kernels/fused_block.py:37"},
+    "rglru_scan": {
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:25"},
 }
 # K5's shapes: the engine's default batch at the widest zoo net, one
 # pipeline chunk at yolov2's groups, and the largest batch the descent gives
@@ -474,6 +505,367 @@ def check_scorer(shapes, timed: bool, reps: int) -> dict:
     return out
 
 
+# ------------------------------------------------ LM kernels vs plain
+LM_ARCH = "recurrentgemma-2b"
+LM_KERNELS = ("flash_attention", "fused_block", "rglru_scan")
+SERVE_SHAPE = {"batch": 2, "prompt_len": 3072, "gen_len": 16}
+# what one serve of LM_ARCH at SERVE_SHAPE must launch: a flash attention
+# per local-attention layer (8) and a scan per recurrent layer (18) in the
+# prefill, a fused block per layer (26) in each of the 16 forwards (the
+# prefill and 15 decode steps)
+SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18,
+                  "fused_block": 26 * 16}
+# (rtol, atol) as tests/test_kernels.py holds the TPU kernels
+LM_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+RGLRU_TOL = (1e-4, 1e-4)
+
+
+def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps, for one batch row and head."""
+    n = 0
+    for i in range(S):
+        hi = min(T, i + 1) if causal else T
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def lm_peak(itemsize: int) -> float:
+    return PEAK_BF16_OPS_PER_S if itemsize == 2 else PEAK_F32_OPS_PER_S
+
+
+def flash_bound(B, S, T, NH, NKV, hd, causal, window, itemsize):
+    """K6: q, k, v read and o written once; 4 * hd operations (the two
+    products) per (query, key) pair the mask keeps, at the tensor-core rate
+    of the input type."""
+    pairs = B * NH * attention_pairs(S, T, causal, window)
+    n_bytes = itemsize * (2 * B * S * NH * hd + 2 * B * T * NKV * hd)
+    return bound(n_bytes, 4 * hd * pairs, lm_peak(itemsize))
+
+
+def fused_block_bound(M, d, F, gated, itemsize):
+    """K7: x read and the output written once, the two or three weight
+    matrices and the float32 norm scales read once; 2 * M * d * F
+    operations per matrix product."""
+    mats = 3 if gated else 2
+    n_bytes = itemsize * (2 * M * d + mats * d * F) + 4 * 2 * d
+    return bound(n_bytes, 2 * M * d * F * mats, lm_peak(itemsize))
+
+
+def rglru_bound(B, S, W):
+    """K9: a and b read and h written once, float32; a product and a sum
+    per element."""
+    return bound(12 * B * S * W, 2 * B * S * W, PEAK_F32_OPS_PER_S)
+
+
+def check_lm_kernels(timed: bool, reps: int) -> dict:
+    """K6, K7 and K9 against their plain versions on the GPU: at the
+    full-width shapes of LM_ARCH's serve, at ragged shapes, K6 with gemma2's
+    soft cap and GQA, K7 ungated and with the sandwich norm.  Returns
+    ``{"errs", "cases"[, "times"]}``; each time is a launch through the
+    wrapper by CUDA events, beside the plain version's and (K6) the
+    library call's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_block as fb
+    from repro_torch.kernels import rglru_scan as rs
+
+    cfg = get_config(LM_ARCH)
+    B, S = SERVE_SHAPE["batch"], SERVE_SHAPE["prompt_len"]
+    nh, nkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    d, ff, w = cfg.d_model, cfg.d_ff, cfg.lru_width
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3000)
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+
+    errs = {name: 0.0 for name in LM_KERNELS}
+    cases = []
+
+    def close(name, got, want, what, tol):
+        err = max_abs_err(got, want)
+        errs[name] = max(errs[name], err)
+        cases.append({"kernel": name, "case": what, "max_abs_err": err})
+        log(f"  {name} {what}: max abs err {err:.3g}")
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name} {what}: {tuple(got.shape)} {got.dtype} != "
+                f"{tuple(want.shape)} {want.dtype}")
+        require(bool(torch.isfinite(got.float()).all()),
+                f"{name} {what}: non-finite output")
+        require(torch.allclose(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1]),
+                f"{name} {what}: kernel != plain version (max abs err {err}, "
+                f"tolerance {tol})")
+
+    # ---- K6
+    def attn(b, s, t, heads, kv_heads, dim, dtype):
+        return (randn((b, s, heads, dim), dtype),
+                randn((b, t, kv_heads, dim), dtype),
+                randn((b, t, kv_heads, dim), dtype))
+
+    full_attn = attn(B, S, S, nh, nkv, hd, bf16)
+    attn_cases = [
+        ("full width bf16", full_attn, dict(causal=True, window=win)),
+        ("heads of the full width, 1024 tokens, float32",
+         attn(1, 1024, 1024, nh, nkv, hd, f32),
+         dict(causal=True, window=win // 4)),
+        ("ragged 333 tokens, hd 96, GQA 4/2, window 100, float32",
+         attn(1, 333, 333, 4, 2, 96, f32), dict(causal=True, window=100)),
+        ("ragged 333 tokens, hd 96, GQA 4/2, window 100, bf16",
+         attn(1, 333, 333, 4, 2, 96, bf16), dict(causal=True, window=100)),
+        ("ragged, not causal, S 70 T 45, float32",
+         attn(2, 70, 45, 2, 1, 16, f32), dict(causal=False, window=0)),
+        ("gemma2: softcap 50, GQA 8/4, 1000 tokens, bf16",
+         attn(1, 1000, 1000, 8, 4, 256, bf16),
+         dict(causal=True, window=0, softcap=50.0)),
+        ("gemma2: softcap 50, GQA 8/4, window 300, float32",
+         attn(1, 700, 700, 8, 4, 256, f32),
+         dict(causal=True, window=300, softcap=50.0)),
+    ]
+    for what, (q, k, v), kw in attn_cases:
+        close("flash_attention", fa.flash_attention_cuda(q, k, v, **kw),
+              fa.flash_attention_torch(q, k, v, **kw), what,
+              LM_TOL[str(q.dtype).split(".")[-1]])
+
+    # ---- K7
+    def block(m, dd, f, dtype):
+        return (randn((m, dd), dtype), randn((dd,), f32, 0.1),
+                randn((dd, f), dtype, dd ** -0.5),
+                randn((dd, f), dtype, dd ** -0.5),
+                randn((f, dd), dtype, f ** -0.5), randn((dd,), f32, 0.1))
+
+    prefill_x = block(B * S, d, ff, bf16)
+    decode_x = (randn((B, d), bf16),) + prefill_x[1:]
+    geglu = dict(act=cfg.act, gated=cfg.mlp_gated, sandwich=False)
+    block_cases = [
+        ("prefill, full width bf16", prefill_x, geglu),
+        ("decode, full width bf16", decode_x, geglu),
+        ("ragged M 37, d 200, F 333, ungated silu, float32",
+         block(37, 200, 333, f32), dict(act="silu", gated=False)),
+        ("ragged M 37, d 200, F 333, ungated silu, bf16",
+         block(37, 200, 333, bf16), dict(act="silu", gated=False)),
+        ("gemma2 width, M 300, sandwich, bf16", block(300, 2304, 9216, bf16),
+         dict(act="gelu", gated=True, sandwich=True)),
+        ("gemma2 width, M 3, sandwich, float32", block(3, 2304, 9216, f32),
+         dict(act="gelu", gated=True, sandwich=True)),
+    ]
+    for what, args, kw in block_cases:
+        close("fused_block", fb.fused_block_cuda(*args, **kw),
+              fb.fused_block_torch(*args, **kw), what,
+              LM_TOL[str(args[0].dtype).split(".")[-1]])
+
+    # ---- K9
+    def scan(b, s, width):
+        return (torch.sigmoid(randn((b, s, width), f32)),
+                randn((b, s, width), f32))
+
+    full_scan = scan(B, S, w)
+    for what, (a, bb) in (("full width", full_scan),
+                          ("ragged B 3, S 77, W 100", scan(3, 77, 100))):
+        close("rglru_scan", rs.rglru_scan_cuda(a, bb),
+              rs.rglru_scan_torch(a, bb), what, RGLRU_TOL)
+    torch.cuda.synchronize()
+    out = {"errs": errs, "cases": cases}
+    if not timed:
+        return out
+
+    q, k, v = full_attn
+    mask = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
+    mask &= ~torch.ones_like(mask).tril(-win)     # keep 0 <= i - j < win
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in full_attn)
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = max_abs_err(library().transpose(1, 2),
+                          fa.flash_attention_torch(q, k, v, window=win))
+    timing = {
+        "flash_attention": (
+            lambda: fa.flash_attention_cuda(q, k, v, window=win),
+            lambda: fa.flash_attention_torch(q, k, v, window=win),
+            flash_bound(B, S, S, nh, nkv, hd, True, win, 2),
+            dict(B=B, S=S, T=S, NH=nh, NKV=nkv, hd=hd, window=win,
+                 dtype="bfloat16")),
+        "fused_block": (
+            lambda: fb.fused_block_cuda(*prefill_x, **geglu),
+            lambda: fb.fused_block_torch(*prefill_x, **geglu),
+            fused_block_bound(B * S, d, ff, True, 2),
+            dict(M=B * S, d=d, F=ff, dtype="bfloat16")),
+        "fused_block_decode": (
+            lambda: fb.fused_block_cuda(*decode_x, **geglu),
+            lambda: fb.fused_block_torch(*decode_x, **geglu),
+            fused_block_bound(B, d, ff, True, 2),
+            dict(M=B, d=d, F=ff, dtype="bfloat16")),
+        "rglru_scan": (
+            lambda: rs.rglru_scan_cuda(*full_scan),
+            lambda: rs.rglru_scan_torch(*full_scan),
+            rglru_bound(B, S, w), dict(B=B, S=S, W=w, dtype="float32")),
+    }
+    out["times"] = {}
+    for name, (kernel, plain, bnd, shape) in timing.items():
+        # in turns: plain, kernel, kernel, plain
+        p1 = time_ms(plain, reps=2)
+        k1 = time_ms(kernel, reps=reps, warmup=1)
+        k2 = time_ms(kernel, reps=reps, warmup=0)
+        p2 = time_ms(plain, reps=2, warmup=0)
+        out["times"][name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                              "bound_ms": bnd[0], "bound_by": bnd[1],
+                              "shape": shape}
+    lib = [time_ms(library, reps=reps, warmup=1) for _ in range(2)]
+    out["times"]["flash_attention"].update(library_ms=min(lib),
+                                           library_max_abs_err=lib_err)
+    return out
+
+
+# ------------------------------------------------------------------ serve
+# the f32 whole-model check: depth 4 (one pattern cycle and one tail
+# layer), a 512-token prompt, logits of the prefill and of one decode step
+# within MODEL_CHECK_TOL of their scale, kernels against plain versions
+MODEL_CHECK = {"n_layers": 4, "batch": 2, "prompt_len": 512}
+MODEL_CHECK_TOL = 1e-3
+# the kernels' names in a torch.profiler trace, by wrapper
+TRACE_NAMES = {"flash_attention": ("flash_attention_kernel",),
+               "fused_block": ("fused_block_kernel",
+                               "fused_block_reduce_kernel"),
+               "rglru_scan": ("rglru_scan_kernel",)}
+
+
+def device_time_all(prof) -> dict:
+    """``{name: {"count", "device_ms"}}`` of every device activity in a
+    trace taken with CUDA activity only (kernels, copies, sets)."""
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0))
+        if dev_us:
+            out[ev.key] = {"count": ev.count, "device_ms": dev_us / 1e3}
+    return out
+
+
+def serve_phase() -> dict:
+    """LM_ARCH served at full width on the card (phase 5, see the module
+    docstring): the counted main-path run, a second run for the times and a
+    third traced with ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.models.model import Model
+
+    cfg = get_config(LM_ARCH)
+    sc = ServeConfig(**SERVE_SHAPE, seed=0)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    first = serve(cfg, sc)                          # the main path
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in one serve of {LM_ARCH}: {counts}")
+    for name, n in counts.items():
+        want = SERVE_LAUNCHES.get(name, 0)
+        require(n == want, f"serve launched {name} {n} times, not {want}")
+    toks = first["tokens"]
+    require(toks.shape == (sc.batch, sc.gen_len)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+            f"serve returned tokens {toks.shape} outside [0, {cfg.vocab})")
+    # the same weights handed in again, for the times and the trace
+    weights = Model(cfg, device="cuda").init_weights(sc.seed).state_dict()
+    second = serve(cfg, sc, params=weights)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = serve(cfg, sc, params=weights)
+    by_name = device_time_all(prof)
+    busy = sum(v["device_ms"] for v in by_name.values())
+    kernels = {}
+    for name, names in TRACE_NAMES.items():
+        hits = [v for k, v in by_name.items() if any(n in k for n in names)]
+        kernels[name] = {"count": sum(v["count"] for v in hits),
+                         "device_ms": sum(v["device_ms"] for v in hits)}
+    del weights
+    runs = [{k: r[k] for k in ("prefill_s", "decode_s", "tok_per_s")}
+            for r in (first, second, traced)]
+    wall_ms = 1e3 * (second["prefill_s"] + second["decode_s"])
+    return {
+        "serve": LM_ARCH, **SERVE_SHAPE, "dtype": cfg.dtype,
+        "runs": runs, "launches": counts,
+        "peak_memory_bytes": peak, "allocated_before_bytes": before,
+        "tokens_row0": toks[0].tolist(),
+        "same_tokens_in_all_runs": bool(
+            (toks == second["tokens"]).all()
+            and (toks == traced["tokens"]).all()),
+        "traced_device_busy_ms": busy if by_name else "not measured",
+        "kernels_device_ms": kernels if by_name else "not measured",
+        "kernels_share_of_device_busy":
+            sum(k["device_ms"] for k in kernels.values()) / busy
+            if by_name else "not measured",
+        "device_busy_share_of_untraced_wall":
+            busy / wall_ms if by_name else "not measured",
+        "top_device_time": dict(sorted(
+            by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:8])}
+
+
+def model_check() -> dict:
+    """LM_ARCH at full width in float32, depth MODEL_CHECK["n_layers"]: the
+    prefill of a MODEL_CHECK["prompt_len"]-token prompt and one decode step,
+    through the kernels and again through their plain versions
+    (``ops.plain_versions()``) on the same weights and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.models.model import Model
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "float32 matmuls would run in TF32")
+    b, s = MODEL_CHECK["batch"], MODEL_CHECK["prompt_len"]
+    cfg = get_config(LM_ARCH).replace(n_layers=MODEL_CHECK["n_layers"],
+                                      dtype="float32", max_seq=s + 1)
+    model = Model(cfg, device="cuda").init_weights(0)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).cuda()
+    nxt = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32)).cuda()
+
+    def run():
+        pre, cache = model.prefill({"tokens": prompt})
+        dec, _ = model.decode_step(cache, nxt)
+        torch.cuda.synchronize()
+        return pre, dec
+
+    reset_launch_counts()
+    kernel = run()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    with ops.plain_versions():
+        plain = run()
+    require(not any(launch_counts()[k] - counts.get(k, 0)
+                    for k in launch_counts()),
+            "plain_versions() launched a kernel")
+    require(set(counts) == set(LM_KERNELS),
+            f"the kernel path launched {counts}")
+    out = {"model_check": LM_ARCH, **MODEL_CHECK, "dtype": "float32",
+           "tolerance_of_scale": MODEL_CHECK_TOL, "launches": counts}
+    for what, k, p in (("prefill", kernel[0], plain[0]),
+                       ("decode", kernel[1], plain[1])):
+        scale = float(p.abs().max())
+        rel = max_abs_err(k, p) / scale
+        require(bool(torch.isfinite(k).all()) and k.shape == p.shape
+                and rel <= MODEL_CHECK_TOL,
+                f"{what} logits: kernels vs plain versions {rel:.3g} of the "
+                f"scale {scale:.3g}")
+        out[what] = {"max_abs_err_over_scale": rel, "scale": scale,
+                     "same_argmax": bool((k.argmax(-1) == p.argmax(-1))
+                                         .all())}
+    return out
+
+
 # ---------------------------------------------------------------- main path
 def plan_signature(plan) -> dict:
     c = plan.candidate
@@ -747,6 +1139,9 @@ def main(argv=None) -> int:
         r = check_scorer((("resnet152", 1024), ("yolov2", 20000)),
                          timed=False, reps=0)
         log(f"score_batch equals its plain version: {json.dumps(r)}")
+        r = check_lm_kernels(timed=False, reps=0)
+        log(f"LM kernels equal their plain versions: "
+            f"{json.dumps(r['errs'])}")
         return 0
 
     # ---- phase 2: kernels against their plain versions, and their times
@@ -764,6 +1159,10 @@ def main(argv=None) -> int:
     scorer = check_scorer(SCORER_SHAPES, timed=True, reps=20)
     log(f"score_batch == plain version at {SCORER_SHAPES}: "
         f"{json.dumps(scorer)} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    lm = check_lm_kernels(timed=True, reps=5)
+    log(f"LM kernels == plain versions: {json.dumps(lm)} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 3: the main path, four sweeps, each with its own launch
     # counts (set to 0 just before the sweep, read just after)
@@ -789,7 +1188,16 @@ def main(argv=None) -> int:
         f"audit, simulator == run_graph bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # ---- phase 5: numbers
+    # ---- phase 5: the LM serving path, its own launch counts, and the
+    # whole model held against its plain versions
+    t0 = time.perf_counter()
+    served = serve_phase()
+    log(json.dumps(served))
+    checked = model_check()
+    log(json.dumps(checked))
+    log(f"serve phase ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
             "compile": net, "engine": opts.engine_spec().spelling(),
@@ -832,6 +1240,26 @@ def main(argv=None) -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "device_ms": t["device_ms"], "shape": {"B": t["B"], "G": t["G"]},
         "at_chunk": chunk, "at_descent_batch": descent})
+    lm_times = lm["times"]
+    for name in LM_KERNELS:
+        info, t = KERNEL_INFO[name], lm_times[name]
+        entry = {
+            "name": name, "route": "cuda", "source": info["source"],
+            "replaces": info["replaces"],
+            "launches": served["launches"][name],
+            "launches_in_model_check": checked["launches"][name],
+            "max_abs_err": lm["errs"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "shape": t["shape"]}
+        if name == "flash_attention":
+            entry["library"] = ("torch.nn.functional.scaled_dot_product_"
+                                "attention, boolean causal-and-window mask, "
+                                "enable_gqa=True")
+            entry["library_max_abs_err"] = t["library_max_abs_err"]
+        if name == "fused_block":
+            entry["at_decode"] = lm_times["fused_block_decode"]
+        kernels.append(entry)
     log(json.dumps(yolov2_wall_and_busy()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 
 On the compiler's path what has to be identical on both sides is the graph
 and the packed tables; on the numerics path (``cnn/torch_ref.py``, the
-simulator) it is the CNN weights too.  The functions here take the other
+simulator) it is the CNN weights too; on the LM path the model's weights.  The functions here take the other
 package's objects as plain Python / numpy data (``dataclasses.asdict`` of
 its nodes, dicts of its numpy tables and weights) -- this package never
 imports the other one.
@@ -10,6 +10,9 @@ imports the other one.
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
 
 from repro_torch.cnn.torch_ref import load_params
 from repro_torch.core.ir import Graph, LayerNode
@@ -57,3 +60,47 @@ def cnn_params_from_numpy(params: dict, device="cpu") -> dict:
     kernels HWIO, fc matrices ``[cin, cout]``), in the layout
     ``cnn/torch_ref.py`` computes with."""
     return load_params(params, device)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(cfg, tree: dict, device="cpu") -> dict:
+    """The ``state_dict`` of ``models/model.py::Model(cfg)`` from the other
+    package's ``Model.init`` tree, its leaves as numpy arrays.
+
+    That tree stacks the layers of each pattern slot along a leading axis
+    (``stack/groups/p{i}/<block>/<name>[g]``) and keeps the remainder as
+    ``stack/tail/t{i}``; the port holds one module per layer in depth
+    order, so group ``g``, slot ``i`` is layer ``g * len(pattern) + i`` and
+    tail ``t{i}`` follows the groups.  The layouts are the same on both
+    sides (both compute ``x @ W`` with ``W [in, out]``), so no weight is
+    transposed; every array keeps its type."""
+    from repro_torch.models.transformer import stack_structure
+
+    pattern, n_groups, n_tail = stack_structure(cfg)
+    out = {"final_norm": _tensor(tree["final_norm"], device)}
+    for name, a in tree["embed"].items():
+        out[f"embed.{name}"] = _tensor(a, device)
+    stack = tree["stack"]
+    for i in range(len(pattern)):
+        for block, leaves in stack["groups"][f"p{i}"].items():
+            for name, a in leaves.items():
+                a = np.asarray(a)
+                if a.shape[0] != n_groups:
+                    raise ValueError(f"p{i}/{block}/{name}: leading axis "
+                                     f"{a.shape[0]} != {n_groups} groups")
+                for g in range(n_groups):
+                    out[f"layers.{g * len(pattern) + i}.{block}.{name}"] = \
+                        _tensor(a[g], device)
+    for i in range(n_tail):
+        for block, leaves in stack["tail"][f"t{i}"].items():
+            for name, a in leaves.items():
+                out[f"layers.{n_groups * len(pattern) + i}.{block}.{name}"] = \
+                    _tensor(a, device)
+    return out

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the cut search, each beside its plain torch
-version:
+"""Hand-written CUDA kernels of the cut search and of the LM substrate, each
+beside its plain torch version:
 
     alloc_scan.py      -- tensorized allocator replay: Algorithm 1's
                           sequential state machine for a whole batch of
@@ -11,6 +11,11 @@ version:
     score_batch.py     -- staged float32 scorer: the batched scorer's masked
                           reductions in float32 (CompileOptions
                           backend="pallas")
+    flash_attention.py -- online-softmax attention of an LM prefill
+    fused_block.py     -- the fused residual MLP block of every LM layer
+    rglru_scan.py      -- the RG-LRU linear recurrence of a prefill
+    ops.py             -- the LM kernels' dispatch: kernel on CUDA, plain
+                          version on the CPU
     csrc/*.cu          -- the kernels' sources, CUDA C++ for sm_90a
     _build.py          -- nvcc + ctypes: build at first use, load once
 
@@ -23,13 +28,18 @@ def kernel_wrappers() -> dict:
     """name -> the wrapper that launches that kernel.  Each wrapper counts
     its launches in its ``launches`` attribute."""
     from repro_torch.kernels.alloc_scan import alloc_scan_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_block import fused_block_cuda
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
     from repro_torch.kernels.score_batch import score_batch_cuda
     from repro_torch.kernels.search_pipeline import (argmin_rows_cuda,
                                                      cost_rows_cuda,
                                                      enum_frames_cuda)
     return {"alloc_scan": alloc_scan_cuda, "enum_frames": enum_frames_cuda,
             "cost_rows": cost_rows_cuda, "argmin_rows": argmin_rows_cuda,
-            "score_batch": score_batch_cuda}
+            "score_batch": score_batch_cuda,
+            "flash_attention": flash_attention_cuda,
+            "fused_block": fused_block_cuda, "rglru_scan": rglru_scan_cuda}
 
 
 def launch_counts() -> dict:

@@ -32,10 +32,16 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # results must equal the host's IEEE arithmetic bit for bit, and
 # score_batch.cu the float32 scorer, held bit-equal to its plain torch
 # version: no fused multiply-add contraction, and no fast-math anywhere.
+# The LM kernels (flash attention, the fused MLP block, the RG-LRU scan)
+# are held to their plain versions within a tolerance; rglru_scan.cu
+# spells its rounding out with intrinsics.
 SOURCES = {
     "alloc_scan.cu": (),
     "search_pipeline.cu": ("-fmad=false",),
     "score_batch.cu": ("-fmad=false",),
+    "flash_attention.cu": (),
+    "fused_block.cu": (),
+    "rglru_scan.cu": (),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -144,9 +150,22 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.score_batch_launch.argtypes = [
         p, p, i, p, p,              # frame, io, io_is_int, tab, out
         ll, i, f, f, i, p]          # B, G, bpc, overhead, device, stream
+    lib.flash_attention_launch.argtypes = [
+        p, p, p, p,                 # q, k, v, o
+        i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
+        f, i, i, f,                 # scale, causal, window, softcap
+        i, i, p]                    # is_bf16, device, stream
+    lib.fused_block_launch.argtypes = [
+        p, p, p, p, p, p, p, p,     # x, scale, wg, wu, wd, post, out, part
+        i, i, i, i, i,              # M, d, F, bf, splits
+        i, i, i, f,                 # gated, gelu, sandwich, eps
+        i, i, p]                    # is_bf16, device, stream
+    lib.rglru_scan_launch.argtypes = [p, p, p, i, i, i, i, p]  # a, b, h,
+    #                                                  B, S, W, device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
                lib.cost_rows_launch, lib.argmin_rows_launch,
-               lib.score_batch_launch):
+               lib.score_batch_launch, lib.flash_attention_launch,
+               lib.fused_block_launch, lib.rglru_scan_launch):
         fn.restype = ctypes.c_int
 
 

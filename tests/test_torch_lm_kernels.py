@@ -1,0 +1,226 @@
+"""The LM kernels' plain versions in the port (K6 flash attention, K7 fused
+MLP block, K9 RG-LRU scan) against the JAX package: its Pallas kernels in
+interpret mode, as tests/test_kernels.py runs them, its pure-jnp oracles
+(``kernels/ref.py``) and the model functions each kernel is the twin of.
+Inputs are made from a seed with numpy and handed to both packages; in
+bfloat16 both round the same float32 numbers to nearest even.  Tolerances
+are those of tests/test_kernels.py: float32 2e-5 (K9 1e-4), bfloat16 2e-2.
+
+On the CPU ``kernels/ops.py`` dispatches to the plain versions; the CUDA
+wrappers refuse CPU tensors (they launch or raise), and the kernels
+themselves are held against the plain versions on the card by
+``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.fused_block import fused_block as jax_fused
+from repro.kernels.ref import flash_attention_ref, fused_block_ref
+from repro.kernels.rglru_scan import rglru_scan_kernel as jax_rglru_kernel
+from repro.models.attention import blocked_attention as jax_blocked
+from repro.models.rglru import rglru_scan
+
+jax_rglru_model = jax.jit(rglru_scan)
+
+from repro_torch.kernels import kernel_wrappers, ops
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_torch)
+from repro_torch.kernels.fused_block import (fused_block_cuda,
+                                             fused_block_torch)
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_torch
+from repro_torch.models.attention import blocked_attention
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def rnd(seed, shape, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def both(a, dtype):
+    """The same numbers as a jax and a torch array of ``dtype``."""
+    return (jnp.asarray(a).astype(JNP[dtype]),
+            torch.from_numpy(a).to(TORCH[dtype]))
+
+
+def as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def close(got, want, **tol):
+    np.testing.assert_allclose(as_np(got), as_np(want), **tol)
+
+
+# ------------------------------------------------------------------- K6
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,NH,NKV,hd,bq", [
+    (2, 128, 4, 2, 32, 64),        # GQA
+    (1, 64, 2, 1, 64, 32),         # MQA
+    (2, 96, 4, 4, 16, 32),
+])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0), (False, 0, 0.0),
+])
+def test_flash_plain_matches_jax_kernel_and_ref(dtype, B, S, NH, NKV, hd,
+                                                bq, causal, window, softcap):
+    qj, qt = both(rnd(0, (B, S, NH, hd)), dtype)
+    kj, kt = both(rnd(1, (B, S, NKV, hd)), dtype)
+    vj, vt = both(rnd(2, (B, S, NKV, hd)), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention_torch(qt, kt, vt, **kw)
+    assert got.dtype == TORCH[dtype] and got.shape == (B, S, NH, hd)
+    close(got, flash_attention_ref(qj, kj, vj, **kw), **TOL[dtype])
+    close(got, jax_flash(qj, kj, vj, block_q=bq, block_k=bq, interpret=True,
+                         **kw), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_plain_matches_model_blocked_attention(window):
+    """K6's plain version, the JAX model's blocked attention and the port's
+    blocked attention agree (float32, 2e-5), with a ragged length."""
+    q = rnd(3, (2, 72, 4, 32))
+    k = rnd(4, (2, 72, 2, 32))
+    v = rnd(5, (2, 72, 2, 32))
+    got = flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), window=window)
+    close(got, jax_blocked(q, k, v, causal=True, window=window),
+          **TOL["float32"])
+    close(got, blocked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), window=window),
+          **TOL["float32"])
+
+
+# ------------------------------------------------------------------- K7
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d,f,bm,bf", [
+    (64, 128, 256, 32, 128),
+    (128, 96, 384, 64, 96),
+])
+@pytest.mark.parametrize("gated,act,sandwich", [
+    (True, "silu", False), (True, "gelu", True), (False, "gelu", False),
+])
+def test_fused_block_plain_matches_jax_kernel_and_ref(dtype, m, d, f, bm, bf,
+                                                      gated, act, sandwich):
+    xj, xt = both(rnd(0, (m, d)), dtype)
+    sj, st = both(rnd(1, (d,), 0.1), "float32")
+    pj, pt = both(rnd(5, (d,), 0.1), "float32")
+    gj, gt = both(rnd(2, (d, f), d ** -0.5), dtype)
+    uj, ut = both(rnd(3, (d, f), d ** -0.5), dtype)
+    dj, dt = both(rnd(4, (f, d), f ** -0.5), dtype)
+    kw = dict(act=act, gated=gated, sandwich=sandwich)
+    got = fused_block_torch(xt, st, gt, ut, dt, pt, **kw)
+    assert got.dtype == TORCH[dtype] and got.shape == (m, d)
+    close(got, fused_block_ref(xj, sj, gj, uj, dj, pj, **kw), **TOL[dtype])
+    close(got, jax_fused(xj, sj, gj, uj, dj, pj, block_m=bm, block_f=bf,
+                         interpret=True, **kw), **TOL[dtype])
+
+
+@pytest.mark.parametrize("gated,act,sandwich", [
+    (True, "gelu", False), (True, "silu", True), (False, "gelu", False)])
+def test_fused_block_plain_matches_model_mlp_apply(gated, act, sandwich):
+    """In float32 the fused block and the JAX model's ``mlp_apply`` (which
+    rounds nowhere) agree to 2e-5; through the port's ``mlp_apply``, on a
+    [B, S, d] input, too."""
+    from repro.configs import smoke_config
+    from repro.models.layers import mlp_apply as jax_mlp
+
+    from repro_torch.configs import smoke_config as port_smoke
+    from repro_torch.models.layers import Params, mlp_apply, mlp_defs
+
+    over = dict(act=act, mlp_gated=gated, sandwich_norm=sandwich)
+    cfg = smoke_config("gemma2-2b").replace(**over)
+    d, f = cfg.d_model, cfg.d_ff
+    x = rnd(0, (2, 5, d))
+    p = {"pre_norm": rnd(1, (d,), 0.1), "post_norm": rnd(5, (d,), 0.1),
+         "w_gate": rnd(2, (d, f), d ** -0.5),
+         "w_up": rnd(3, (d, f), d ** -0.5),
+         "w_down": rnd(4, (f, d), f ** -0.5)}
+    want = jax_mlp({k: jnp.asarray(v) for k, v in p.items()},
+                   jnp.asarray(x), cfg)
+    pt = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = fused_block_torch(torch.from_numpy(x.reshape(-1, d)),
+                            pt["pre_norm"], pt["w_gate"], pt["w_up"],
+                            pt["w_down"], pt["post_norm"], act=act,
+                            gated=gated, sandwich=sandwich)
+    close(got.reshape(x.shape), want, **TOL["float32"])
+    port_cfg = port_smoke("gemma2-2b").replace(**over)
+    mod = Params(mlp_defs(port_cfg), torch.float32, "cpu")
+    mod.load_state_dict({k: pt[k] for k in mlp_defs(port_cfg)})
+    close(mlp_apply(mod, torch.from_numpy(x), port_cfg), want,
+          **TOL["float32"])
+
+
+# ------------------------------------------------------------------- K9
+@pytest.mark.parametrize("B,S,W,q,bw", [
+    (2, 64, 32, 16, 32), (1, 128, 64, 64, 32), (3, 32, 16, 32, 16),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_plain_matches_jax_kernel_and_model_scan(B, S, W, q, bw, dtype):
+    """Inputs rounded to ``dtype`` (the TPU kernel's test feeds bfloat16
+    too); the port's scan runs in float32 on the same numbers."""
+    aj, at = both(np.array(jax.nn.sigmoid(rnd(0, (B, S, W)))), dtype)
+    bj, bt = both(rnd(1, (B, S, W)), dtype)
+    got = rglru_scan_torch(at, bt)
+    assert got.dtype == torch.float32 and got.shape == (B, S, W)
+    close(got, jax_rglru_model(aj.astype(jnp.float32),
+                               bj.astype(jnp.float32)), **SCAN_TOL)
+    close(got, jax_rglru_kernel(aj.astype(jnp.float32),
+                                bj.astype(jnp.float32), chunk=q,
+                                block_w=bw, interpret=True), **SCAN_TOL)
+
+
+def test_rglru_plain_is_the_sequential_recurrence():
+    a = torch.tensor([[[0.5], [0.25], [2.0]]])
+    b = torch.tensor([[[1.0], [2.0], [-1.0]]])
+    h = rglru_scan_torch(a, b)
+    assert h[0, :, 0].tolist() == [1.0, 2.25, 3.5]
+
+
+# --------------------------------------------------------------- dispatch
+def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
+    q = torch.from_numpy(rnd(0, (1, 20, 2, 16)))
+    k = torch.from_numpy(rnd(1, (1, 20, 1, 16)))
+    x = torch.from_numpy(rnd(2, (6, 16)))
+    s = torch.zeros(16)
+    w1 = torch.from_numpy(rnd(3, (16, 24), 0.25))
+    w2 = torch.from_numpy(rnd(4, (24, 16), 0.2))
+    a = torch.sigmoid(torch.from_numpy(rnd(5, (2, 9, 4))))
+    before = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    for ctx in (torch.no_grad(), ops.plain_versions()):
+        with ctx:
+            assert torch.equal(ops.flash_attention(q, k, k, window=5),
+                               flash_attention_torch(q, k, k, window=5))
+            assert torch.equal(ops.fused_block(x, s, w1, w1, w2),
+                               fused_block_torch(x, s, w1, w1, w2))
+            assert torch.equal(ops.rglru_scan(a, a), rglru_scan_torch(a, a))
+    assert not ops._PLAIN
+    assert {n: fn.launches for n, fn in kernel_wrappers().items()} == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: flash_attention_cuda(t((1, 8, 2, 16)), t((1, 8, 1, 16)),
+                                   t((1, 8, 1, 16))),
+    lambda t: fused_block_cuda(t((4, 16)), t((16,)), t((16, 8)), t((16, 8)),
+                               t((8, 16))),
+    lambda t: rglru_scan_cuda(t((1, 4, 8)), t((1, 4, 8))),
+], ids=["flash_attention", "fused_block", "rglru_scan"])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    """A wrapper launches its kernel or raises: given CPU tensors it raises
+    before building anything, and counts no launch."""
+    from repro_torch.kernels import _build
+    before = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(torch.zeros)
+    assert {n: fn.launches for n, fn in kernel_wrappers().items()} == before
+    assert _build._LIB is None
