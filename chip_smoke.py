@@ -23,7 +23,8 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                equal and the float64 and float32 rows bit-equal.  The LM
                kernels K6 (flash attention), K7 (fused MLP block) and K9
                (RG-LRU scan) at recurrentgemma-2b's serving shapes (batch 2,
-               3,072 tokens; K7 also at decode, M = 2), at ragged shapes, K6
+               3,072 tokens, window 2,048; K7 also at decode, M = 2), K6 and
+               K7 there in bfloat16 and in float32, at ragged shapes, K6
                with gemma2's soft cap and GQA, K7 ungated and with the
                sandwich norm: within 2e-5 in float32 (K9 1e-4) and 2e-2 in
                bfloat16.  Each kernel and its plain version are timed with
@@ -60,7 +61,7 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K6 8, K9 18, K7 416; prefill / decode seconds, tokens per
                second and peak memory; two more runs on the same weights,
                one traced for the kernels' device time.  Then the model at
-               full width in float32, depth 4, a 512-token prompt: prefill
+               full width in float32, depth 4, a 1,024-token prompt: prefill
                and one decode step through the kernels and through their
                plain versions (``ops.plain_versions()``), logits within 1e-3
                of their scale.
@@ -611,6 +612,8 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     full_attn = attn(B, S, S, nh, nkv, hd, bf16)
     attn_cases = [
         ("full width bf16", full_attn, dict(causal=True, window=win)),
+        ("full width float32", attn(B, S, S, nh, nkv, hd, f32),
+         dict(causal=True, window=win)),
         ("heads of the full width, 1024 tokens, float32",
          attn(1, 1024, 1024, nh, nkv, hd, f32),
          dict(causal=True, window=win // 4)),
@@ -644,6 +647,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     geglu = dict(act=cfg.act, gated=cfg.mlp_gated, sandwich=False)
     block_cases = [
         ("prefill, full width bf16", prefill_x, geglu),
+        ("prefill, full width float32", block(B * S, d, ff, f32), geglu),
         ("decode, full width bf16", decode_x, geglu),
         ("ragged M 37, d 200, F 333, ungated silu, float32",
          block(37, 200, 333, f32), dict(act="silu", gated=False)),
@@ -725,9 +729,11 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
 
 # ------------------------------------------------------------------ serve
 # the f32 whole-model check: depth 4 (one pattern cycle and one tail
-# layer), a 512-token prompt, logits of the prefill and of one decode step
-# within MODEL_CHECK_TOL of their scale, kernels against plain versions
-MODEL_CHECK = {"n_layers": 4, "batch": 2, "prompt_len": 512}
+# layer), a 1,024-token prompt, logits of the prefill and of one decode step
+# within MODEL_CHECK_TOL of their scale, kernels against plain versions.
+# Its prefill has 2 * 1,024 / 8 = 256 row tiles, more than the SMs, so K7
+# takes there its single-split branch, as in the serve's prefill
+MODEL_CHECK = {"n_layers": 4, "batch": 2, "prompt_len": 1024}
 MODEL_CHECK_TOL = 1e-3
 # the kernels' names in a torch.profiler trace, by wrapper
 TRACE_NAMES = {"flash_attention": ("flash_attention_kernel",),

@@ -1,2 +1,1 @@
-"""Drivers of the LM substrate: the serving loop (``serve.py``) and its
-step builders (``steps.py``)."""
+"""Drivers of the LM substrate: the serving loop (``serve.py``)."""

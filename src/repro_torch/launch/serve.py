@@ -20,8 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.model import build_model
+from repro_torch.models.model import Model
 
 
 @dataclass
@@ -45,13 +44,15 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
                            "is False); pass device='cpu' to serve on the "
                            "host")
     max_len = sc.prompt_len + sc.gen_len
-    model = build_model(cfg.replace(max_seq=max_len), device=device)
+    model = Model(cfg.replace(max_seq=max_len), device=device)
     if params is None:
         model.init_weights(sc.seed)
     else:
         model.load_state_dict(params)
-    prefill = make_prefill_step(model)
-    decode = make_decode_step(model)
+
+    def greedy(logits):
+        """The first index of the largest logit, as [B, 1] int32."""
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
 
     def sync():
         if device.type == "cuda":
@@ -64,15 +65,16 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
     tokens = torch.from_numpy(prompts).to(device)
     sync()
     t0 = time.perf_counter()
-    logits, cache = prefill({"tokens": tokens}, cache)
-    next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    logits, cache = model.prefill({"tokens": tokens}, cache)
+    next_tok = greedy(logits)
     sync()
     t_prefill = time.perf_counter() - t0
 
     generated = [next_tok]
     t0 = time.perf_counter()
     for _ in range(sc.gen_len - 1):
-        next_tok, logits, cache = decode(cache, next_tok)
+        logits, cache = model.decode_step(cache, next_tok)
+        next_tok = greedy(logits)
         generated.append(next_tok)
     toks = torch.cat(generated, dim=1).cpu().numpy()
     sync()

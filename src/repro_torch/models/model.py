@@ -34,12 +34,12 @@ class TensorSpec:
 
 
 class Model(Params):
-    def __init__(self, cfg: ModelConfig, device="cuda", dtype=None):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family (encoder / cross "
                 f"attention stubs) is not ported yet")
-        dtype = model_dtype(cfg) if dtype is None else dtype
+        dtype = model_dtype(cfg)
         super().__init__({"final_norm": D((cfg.d_model,), init="zeros")},
                          dtype, device)
         self.cfg = cfg
@@ -59,10 +59,9 @@ class Model(Params):
         return self
 
     # ------------------------------------------------------------ serving
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
-        dtype = model_dtype(self.cfg) if dtype is None else dtype
-        return {"layers": stack_cache(self.cfg, batch, max_len, dtype,
-                                      self.device),
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return {"layers": stack_cache(self.cfg, batch, max_len,
+                                      model_dtype(self.cfg), self.device),
                 "pos": 0}
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -86,11 +85,11 @@ class Model(Params):
         return self._last_logits(x), {"layers": layers, "pos": pos + S}
 
     @torch.no_grad()
-    def decode_step(self, cache: dict, tokens, pos: int | None = None):
+    def decode_step(self, cache: dict, tokens):
         """tokens [B, 1]; returns (logits [B, V], new_cache)."""
         cfg = self.cfg
         tokens = self._tokens(tokens)
-        pos = cache["pos"] if pos is None else pos
+        pos = cache["pos"]
         x = embed_lookup(self.embed, tokens, cfg)
         x, layers = apply_stack(self.layers, x, cfg, cache=cache["layers"],
                                 pos=pos)
@@ -111,7 +110,3 @@ class Model(Params):
         raise NotImplementedError(
             f"mode {mode!r}: the port serves (prefill, decode); training "
             f"comes later")
-
-
-def build_model(cfg: ModelConfig, device="cuda", dtype=None) -> Model:
-    return Model(cfg, device=device, dtype=dtype)

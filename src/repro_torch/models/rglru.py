@@ -67,8 +67,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return ops.rglru_scan(a, b)
 
 
-def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
-                pos=None):
+def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
     """Griffin recurrent block with residual.  state (decode):
       {"conv": [B,K-1,W], "h": [B,W] float32}."""
     S = x.shape[1]

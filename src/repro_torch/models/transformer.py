@@ -91,7 +91,7 @@ class Layer(nn.Module):
 
 # ------------------------------------------------------------ attention op
 def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
-               cache: dict | None = None, pos: int = 0, causal: bool = True):
+               cache: dict | None = None, pos: int = 0):
     """One self-attention sub-block with residual.  Returns (y, cache).
 
     A prefill (S > 1 with a cache) runs K6 and must start at position 0,
@@ -115,7 +115,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     k = apply_rope(k, sin, cos)
     window = cfg.window if kind == "local" else 0
     if cache is None:
-        out = plain_attention(q, k, v, q_offset=pos, causal=causal,
+        out = plain_attention(q, k, v, q_offset=pos, causal=True,
                               window=window, softcap_val=cfg.attn_softcap)
     else:
         ring = cache["k"].shape[1] < cfg.max_seq
@@ -155,7 +155,7 @@ def apply_layer(layer: Layer, x: torch.Tensor, cfg, *, cache=None,
                 pos: int = 0):
     """Returns (x, new_cache)."""
     if layer.kind == "recurrent":
-        x, cache = rglru_apply(layer.rglru, x, cfg, state=cache, pos=pos)
+        x, cache = rglru_apply(layer.rglru, x, cfg, state=cache)
     else:
         x, cache = attn_apply(layer.attn, x, cfg, layer.kind, cache=cache,
                               pos=pos)
@@ -176,22 +176,11 @@ def layer_cache(cfg, kind: str, batch: int, max_len: int,
 
 
 # ------------------------------------------------------ stack construction
-def stack_structure(cfg, decoder: bool = True) -> tuple[list[str], int, int]:
-    """(pattern kinds, n_groups, n_tail) for the decoder or encoder stack."""
-    if cfg.family == "audio" and decoder:
-        pattern = ["encdec"]
-        n_layers = cfg.n_layers
-    elif cfg.family == "audio":
-        pattern = ["enc"]
-        n_layers = cfg.enc_layers
-    elif cfg.family == "ssm":
-        pattern = ["ssm"]
-        n_layers = cfg.n_layers
-    else:
-        pattern = list(cfg.pattern)
-        n_layers = cfg.n_layers
-    n_groups = n_layers // len(pattern)
-    n_tail = n_layers - n_groups * len(pattern)
+def stack_structure(cfg) -> tuple[list[str], int, int]:
+    """(pattern kinds, n_groups, n_tail) of the decoder stack."""
+    pattern = ["ssm"] if cfg.family == "ssm" else list(cfg.pattern)
+    n_groups = cfg.n_layers // len(pattern)
+    n_tail = cfg.n_layers - n_groups * len(pattern)
     return pattern, n_groups, n_tail
 
 

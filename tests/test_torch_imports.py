@@ -79,8 +79,7 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.models.attention",
                  "repro_torch.models.mamba2", "repro_torch.models.rglru",
                  "repro_torch.models.transformer",
-                 "repro_torch.models.model", "repro_torch.launch.steps",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.models.model", "repro_torch.launch.serve"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",

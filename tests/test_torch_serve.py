@@ -201,3 +201,29 @@ def test_bfloat16_weights_cross_unchanged():
     assert got.dtype == torch.bfloat16
     assert np.array_equal(got.to(torch.float32).numpy(),
                           want.astype(np.float32))
+
+
+def test_serve_is_prefill_then_greedy_decode_steps():
+    """``serve`` with weights from its seed gives the tokens of the model
+    built from that seed, run by hand: a prefill, then each step's argmax
+    fed to ``decode_step``; handing it those weights changes nothing."""
+    cfg = port_smoke("recurrentgemma-2b")
+    sc = ServeConfig(batch=2, prompt_len=12, gen_len=5, seed=4)
+    max_len = sc.prompt_len + sc.gen_len
+    model = Model(cfg.replace(max_seq=max_len), device="cpu")
+    model.init_weights(sc.seed)
+    prompts = np.random.default_rng(sc.seed).integers(
+        0, cfg.vocab, (sc.batch, sc.prompt_len)).astype(np.int32)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(prompts)},
+                                  model.init_cache(sc.batch, max_len))
+    want = []
+    for _ in range(sc.gen_len):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        want.append(tok)
+        logits, cache = model.decode_step(cache, tok)
+    want = torch.cat(want, dim=1).numpy()
+    assert cache["pos"] == max_len
+    drawn = serve(cfg, sc, device="cpu")["tokens"]
+    handed = serve(cfg, sc, device="cpu", params=model.state_dict())["tokens"]
+    assert drawn.dtype == np.int32
+    assert np.array_equal(drawn, want) and np.array_equal(handed, want)
