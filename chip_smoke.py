@@ -10,7 +10,7 @@ What it does, in order; any failure ends the run with a non-zero exit code:
 1. card     -- prints the GPU's name and power limit as ``nvidia-smi`` gives
                them, and builds the CUDA kernels from ``src/repro_torch/
                kernels/csrc`` with ``nvcc`` (reported as set-up seconds).
-2. kernels  -- each of the eight kernels against its plain torch version on
+2. kernels  -- each of the nine kernels against its plain torch version on
                the GPU, at the shapes its path gives it.  K1-K4: yolov2
                (26 groups), resnet152 (160) and efficientnet-b1 (139, with
                SE side groups); cut-derived and random frame masks, all
@@ -27,8 +27,14 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K7 there in bfloat16 and in float32, at ragged shapes, K6
                with gemma2's soft cap and GQA, K7 ungated and with the
                sandwich norm: within 2e-5 in float32 (K9 1e-4) and 2e-2 in
-               bfloat16.  Each kernel and its plain version are timed with
-               CUDA events; K6 also beside ``scaled_dot_product_attention``.
+               bfloat16.  K8 (the Mamba-2 SSD scan), on ``y`` and the final
+               state, at mamba2-2.7b's serving shape (batch 4, 2,048 tokens,
+               80 heads of 64, state 128, chunk 256) in bfloat16 and float32,
+               at a ragged 2,000 tokens from a random initial state, with 8
+               groups of heads, and at a ragged chunk, head and state dim:
+               within 1e-4 in float32 and 2e-2 in bfloat16.  Each kernel and
+               its plain version are timed with CUDA events; K6 also beside
+               ``scaled_dot_product_attention``.
 3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
                options (``engine="pipeline"`` on ``device="cuda"``, among
                them yolov2@416 with its full space of 7,962,624 cut tuples),
@@ -52,19 +58,24 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                to ``run_graph``'s on the card bit for bit; at 64 pixels,
                ``run_graph`` on the card within 1e-5 of the output's scale
                of the same on the host (TF32 would miss by ~1e-3).
-5. serve    -- ``launch/serve.py::serve`` of recurrentgemma-2b at full
-               width in bfloat16, weights from ``torch.Generator(0)`` on the
-               card: batch 2, a 3,072-token prompt (over the 2,048-token
-               window: K6 masks by window and skips tiles, decode runs
-               through the ring cache), 16 tokens.  Its own launch counts,
-               set to 0 just before and read just after, must be exactly
-               K6 8, K9 18, K7 416; prefill / decode seconds, tokens per
-               second and peak memory; two more runs on the same weights,
-               one traced for the kernels' device time.  Then the model at
-               full width in float32, depth 4, a 1,024-token prompt: prefill
-               and one decode step through the kernels and through their
-               plain versions (``ops.plain_versions()``), logits within 1e-3
-               of their scale.
+5. serve    -- ``launch/serve.py::serve`` at full width in bfloat16,
+               weights from ``torch.Generator(0)`` on the card, for each
+               architecture of ``LM_SERVES``, each with its own launch
+               counts, set to 0 just before and read just after:
+               recurrentgemma-2b, batch 2, a 3,072-token prompt (over the
+               2,048-token window: K6 masks by window and skips tiles,
+               decode runs through the ring cache), 16 tokens, exactly K6 8,
+               K9 18, K7 416; then mamba2-2.7b (64 layers, d 2,560, 80
+               heads of 64, state 128), batch 4, a 2,048-token prompt, 16
+               tokens, exactly K8 64 and every other kernel 0.  Each: prefill
+               / decode seconds, tokens per second and peak memory; two more
+               runs on the same weights, one traced for the kernels' device
+               time.  Then each model at full width in float32, depth 4
+               (recurrentgemma a 1,024-token prompt, mamba2 1,000 tokens, a
+               ragged last chunk): prefill and one decode step through the
+               kernels and through their plain versions
+               (``ops.plain_versions()``), logits within 1e-3 of their
+               scale, with exactly the launches ``LM_SERVES`` states.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -136,6 +147,9 @@ KERNEL_INFO = {
     "fused_block": {
         "source": "src/repro_torch/kernels/csrc/fused_block.cu",
         "replaces": "src/repro/kernels/fused_block.py:37"},
+    "ssd_scan": {
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:26"},
     "rglru_scan": {
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:25"},
@@ -507,18 +521,60 @@ def check_scorer(shapes, timed: bool, reps: int) -> dict:
 
 
 # ------------------------------------------------ LM kernels vs plain
-LM_ARCH = "recurrentgemma-2b"
-LM_KERNELS = ("flash_attention", "fused_block", "rglru_scan")
-SERVE_SHAPE = {"batch": 2, "prompt_len": 3072, "gen_len": 16}
-# what one serve of LM_ARCH at SERVE_SHAPE must launch: a flash attention
-# per local-attention layer (8) and a scan per recurrent layer (18) in the
-# prefill, a fused block per layer (26) in each of the 16 forwards (the
-# prefill and 15 decode steps)
-SERVE_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18,
-                  "fused_block": 26 * 16}
-# (rtol, atol) as tests/test_kernels.py holds the TPU kernels
+# The architectures phase 5 serves, each with the shape of its serve, what
+# one serve must launch (every other kernel 0), and its float32 model check
+# (depth, batch, prompt) with what that must launch.
+LM_SERVES = {
+    "recurrentgemma-2b": {
+        "shape": {"batch": 2, "prompt_len": 3072, "gen_len": 16},
+        # a flash attention per local-attention layer (8) and a scan per
+        # recurrent layer (18) in the prefill, a fused block per layer (26)
+        # in each of the 16 forwards (the prefill and 15 decode steps)
+        "launches": {"flash_attention": 8, "rglru_scan": 18,
+                     "fused_block": 26 * 16},
+        # depth 4 (one pattern cycle and one tail layer), 1,024 tokens: the
+        # prefill has 2 * 1,024 / 8 = 256 row tiles, more than the SMs, so
+        # K7 takes there its single-split branch, as in the serve
+        "check": {"n_layers": 4, "batch": 2, "prompt_len": 1024},
+        "check_launches": {"flash_attention": 1, "fused_block": 8,
+                           "rglru_scan": 3}},
+    "mamba2-2.7b": {
+        "shape": {"batch": 4, "prompt_len": 2048, "gen_len": 16},
+        # an SSD scan per layer (64) in the prefill (8 chunks of 256); the
+        # ssm layers have no MLP, and decode is plain torch
+        "launches": {"ssd_scan": 64},
+        # depth 4, 1,000 tokens: three chunks of 256 and a ragged one of 232
+        "check": {"n_layers": 4, "batch": 2, "prompt_len": 1000},
+        "check_launches": {"ssd_scan": 4}},
+}
+LM_ARCH = "recurrentgemma-2b"        # K6, K7, K9 are checked at its shapes
+SSD_ARCH = "mamba2-2.7b"             # K8 at its shapes
+LM_KERNELS = ("flash_attention", "fused_block", "ssd_scan", "rglru_scan")
+# (rtol, atol) as tests/test_kernels.py holds the TPU kernels; K8 in
+# bfloat16 as K6 and K7 (the output is rounded once, at the same point)
 LM_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
 RGLRU_TOL = (1e-4, 1e-4)
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def require_close(name, got, want, what, tol, errs, cases):
+    """Hold a kernel's output against its plain version's: same shape and
+    type, finite, within ``tol``; record the error in ``errs`` and
+    ``cases``."""
+    import torch
+    err = max_abs_err(got, want)
+    errs[name] = max(errs.get(name, 0.0), err)
+    cases.append({"kernel": name, "case": what, "max_abs_err": err})
+    log(f"  {name} {what}: max abs err {err:.3g}")
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {what}: {tuple(got.shape)} {got.dtype} != "
+            f"{tuple(want.shape)} {want.dtype}")
+    require(bool(torch.isfinite(got.float()).all()),
+            f"{name} {what}: non-finite output")
+    require(torch.allclose(got.float(), want.float(), rtol=tol[0],
+                           atol=tol[1]),
+            f"{name} {what}: kernel != plain version (max abs err {err}, "
+            f"tolerance {tol})")
 
 
 def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -559,6 +615,31 @@ def rglru_bound(B, S, W):
     return bound(12 * B * S * W, 2 * B * S * W, PEAK_F32_OPS_PER_S)
 
 
+def ssd_multiply_adds(b, s, h, g, p, n, chunk):
+    """K8's multiply-adds from a given state h0, chunk by chunk (a ragged
+    last one counted at its length L): the causal half of C B^T once per
+    group, as ``ssd_chunked`` computes it, and of the scores times x, per
+    head; the state's two products per head, C . state and the increment
+    x^T B."""
+    macs = 0
+    for c0 in range(0, s, chunk):
+        L = min(chunk, s - c0)
+        tri = L * (L + 1) // 2
+        macs += g * tri * n + h * tri * p + 2 * h * L * p * n
+    return b * macs
+
+
+def ssd_bound(b, s, h, g, p, n, chunk, itemsize):
+    """K8 from a given state (the serve passes its cache's): x, B, C, dt,
+    A, D and h0 read and y and the state written once; two operations a
+    multiply-add at the float32 vector rate (the function takes every
+    input to float32 before its products, as the TPU kernel does)."""
+    n_bytes = (itemsize * (2 * b * s * h * p + 2 * b * s * g * n)
+               + 4 * (b * s * h + 2 * h) + 4 * 2 * b * h * p * n)
+    return bound(n_bytes, 2 * ssd_multiply_adds(b, s, h, g, p, n, chunk),
+                 PEAK_F32_OPS_PER_S)
+
+
 def check_lm_kernels(timed: bool, reps: int) -> dict:
     """K6, K7 and K9 against their plain versions on the GPU: at the
     full-width shapes of LM_ARCH's serve, at ragged shapes, K6 with gemma2's
@@ -574,7 +655,8 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     from repro_torch.kernels import rglru_scan as rs
 
     cfg = get_config(LM_ARCH)
-    B, S = SERVE_SHAPE["batch"], SERVE_SHAPE["prompt_len"]
+    shape = LM_SERVES[LM_ARCH]["shape"]
+    B, S = shape["batch"], shape["prompt_len"]
     nh, nkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
     d, ff, w = cfg.d_model, cfg.d_ff, cfg.lru_width
     bf16, f32 = torch.bfloat16, torch.float32
@@ -585,23 +667,11 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         return (scale * torch.randn(shape, generator=gen, device="cuda")
                 ).to(dtype)
 
-    errs = {name: 0.0 for name in LM_KERNELS}
+    errs = {"flash_attention": 0.0, "fused_block": 0.0, "rglru_scan": 0.0}
     cases = []
 
     def close(name, got, want, what, tol):
-        err = max_abs_err(got, want)
-        errs[name] = max(errs[name], err)
-        cases.append({"kernel": name, "case": what, "max_abs_err": err})
-        log(f"  {name} {what}: max abs err {err:.3g}")
-        require(got.shape == want.shape and got.dtype == want.dtype,
-                f"{name} {what}: {tuple(got.shape)} {got.dtype} != "
-                f"{tuple(want.shape)} {want.dtype}")
-        require(bool(torch.isfinite(got.float()).all()),
-                f"{name} {what}: non-finite output")
-        require(torch.allclose(got.float(), want.float(), rtol=tol[0],
-                               atol=tol[1]),
-                f"{name} {what}: kernel != plain version (max abs err {err}, "
-                f"tolerance {tol})")
+        require_close(name, got, want, what, tol, errs, cases)
 
     # ---- K6
     def attn(b, s, t, heads, kv_heads, dim, dtype):
@@ -727,18 +797,157 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     return out
 
 
+def ssd_float64(x, dt, A, Bm, Cm, D, h0, chunk):
+    """The chunked SSD of ``ssd_chunked`` evaluated in float64 throughout
+    (cum included): the yardstick K8 and its plain version are both held
+    against at the serve's shape, to show how far float32 carries."""
+    import torch
+    import torch.nn.functional as F
+    f64 = torch.float64
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+
+    def chunks(t):
+        t = F.pad(t.to(f64), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(b, nc, chunk, *t.shape[2:])
+    xc, dtc, Bc, Cc = chunks(x), chunks(dt), chunks(Bm), chunks(Cm)
+    Bc, Cc = (t.repeat_interleave(h // g, dim=3) for t in (Bc, Cc))
+    cum = torch.cumsum(dtc * A.to(f64), dim=2)               # [b,nc,l,h]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    state = (torch.zeros((b, h, p, n), dtype=f64, device=x.device)
+             if h0 is None else h0.to(f64))
+    ys = []
+    for c in range(nc):
+        ck, xdt = cum[:, c], xc[:, c] * dtc[:, c][..., None]
+        L = torch.exp((ck[:, :, None] - ck[:, None]).masked_fill(~causal,
+                                                                 -1e300))
+        sc = torch.einsum("blhn,bmhn->blmh", Cc[:, c], Bc[:, c]) * L
+        ys.append(torch.einsum("blmh,bmhp->blhp", sc, xdt)
+                  + torch.einsum("blhn,bhpn->blhp", Cc[:, c], state)
+                  * torch.exp(ck)[..., None])
+        decay = torch.exp(ck[:, -1:] - ck)[..., None]
+        state = (state * torch.exp(ck[:, -1])[:, :, None, None]
+                 + torch.einsum("blhn,blhp->bhpn", Bc[:, c], xdt * decay))
+    y = torch.cat(ys, dim=1)[:, :s] + x.to(f64) * D.to(f64)[:, None]
+    return y, state
+
+
+def check_ssd_kernel(timed: bool, reps: int) -> dict:
+    """K8 against its plain version on the GPU, on ``y`` and on the final
+    state: at the full-width shape of SSD_ARCH's serve in bfloat16 and in
+    float32, at a ragged length with a non-zero initial state, with 8
+    groups (the head -> group map), and at a ragged chunk, head dim and
+    state dim.  B and C are the two halves of one projection, read in
+    place, as the model hands them over.  Returns ``{"errs", "cases"[,
+    "times"]}``; the time is a launch through the wrapper by CUDA events
+    at the serve's shape, from the zero state of a fresh cache, beside the
+    plain version's.  No single PyTorch call computes the scan (no
+    library time)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ss
+
+    cfg = get_config(SSD_ARCH)
+    shape = LM_SERVES[SSD_ARCH]["shape"]
+    b, s = shape["batch"], shape["prompt_len"]
+    h, p, g = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_ngroups
+    n, q = cfg.ssm_state, cfg.ssm_chunk
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4000)
+
+    def randn(shape, dtype=f32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")
+                ).to(dtype)
+
+    def inputs(b, s, h, g, p, n, dtype, h0):
+        """x, dt (after softplus), A < 0, B and C (halves of one
+        projection), D and h0 (None, "zero" or "random")."""
+        bc = randn((b, s, 2 * g * n), dtype)
+        Bm, Cm = (t.reshape(b, s, g, n)
+                  for t in torch.split(bc, [g * n, g * n], dim=-1))
+        state = {None: None, "zero": torch.zeros((b, h, p, n), device="cuda"),
+                 "random": randn((b, h, p, n))}[h0]
+        return (randn((b, s, h, p), dtype), F.softplus(randn((b, s, h))),
+                -torch.exp(randn((h,), scale=0.5)), Bm, Cm, randn((h,)),
+                state)
+
+    errs, cases = {"ssd_scan": 0.0}, []
+    serve_in = inputs(b, s, h, g, p, n, bf16, "zero")
+    ssd_cases = [
+        ("serve shape bf16, the zero state of a fresh cache", serve_in, q),
+        ("serve shape float32, no state", inputs(b, s, h, g, p, n, f32, None),
+         q),
+        ("ragged S 2000, random h0, bf16",
+         inputs(b, 2000, h, g, p, n, bf16, "random"), q),
+        ("ragged S 2000, random h0, float32",
+         inputs(2, 2000, h, g, p, n, f32, "random"), q),
+        ("8 groups of 10 heads, S 777, random h0, float32",
+         inputs(2, 777, h, 8, p, n, f32, "random"), q),
+        ("8 groups of 10 heads, S 777, random h0, bf16",
+         inputs(2, 777, h, 8, p, n, bf16, "random"), q),
+        ("p 24, n 40, 6 heads in 3 groups, chunk 100, S 333, float32",
+         inputs(3, 333, 6, 3, 24, 40, f32, "random"), 100),
+    ]
+    float64 = {}
+    for what, args, chunk in ssd_cases:
+        tol = SSD_TOL[str(args[0].dtype).split(".")[-1]]
+        y_k, st_k = ss.ssd_scan_cuda(*args, chunk=chunk)
+        y_p, st_p = ss.ssd_scan_torch(*args, chunk=chunk)
+        require_close("ssd_scan", y_k, y_p, what + ": y", tol, errs, cases)
+        require_close("ssd_scan", st_k, st_p, what + ": state",
+                      SSD_TOL["float32"], errs, cases)
+        if what.startswith("serve shape float32"):
+            y_64, st_64 = ssd_float64(*args, chunk)
+            float64 = {
+                "case": what, "max_abs_y": float(y_64.abs().max()),
+                "kernel_y": max_abs_err(y_k, y_64),
+                "plain_y": max_abs_err(y_p, y_64),
+                "kernel_state": max_abs_err(st_k, st_64),
+                "plain_state": max_abs_err(st_p, st_64)}
+            del y_64, st_64
+            log(f"  ssd_scan against a float64 evaluation: "
+                f"{json.dumps(float64)}")
+    torch.cuda.synchronize()
+    out = {"errs": errs, "cases": cases, "against_float64": float64}
+    if not timed:
+        return out
+
+    def kernel():
+        return ss.ssd_scan_cuda(*serve_in, chunk=q)
+
+    def plain():
+        return ss.ssd_scan_torch(*serve_in, chunk=q)
+
+    # in turns: plain, kernel, kernel, plain
+    p1 = time_ms(plain, reps=2)
+    k1 = time_ms(kernel, reps=reps, warmup=1)
+    k2 = time_ms(kernel, reps=reps, warmup=0)
+    p2 = time_ms(plain, reps=2, warmup=0)
+    bnd = ssd_bound(b, s, h, g, p, n, q, 2)
+    out["times"] = {"ssd_scan": {
+        "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bnd[0],
+        "bound_by": bnd[1], "library_ms": None,
+        "multiply_adds": ssd_multiply_adds(b, s, h, g, p, n, q),
+        "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
+                      dtype="bfloat16", h0="zero")}}
+    return out
+
+
 # ------------------------------------------------------------------ serve
-# the f32 whole-model check: depth 4 (one pattern cycle and one tail
-# layer), a 1,024-token prompt, logits of the prefill and of one decode step
-# within MODEL_CHECK_TOL of their scale, kernels against plain versions.
-# Its prefill has 2 * 1,024 / 8 = 256 row tiles, more than the SMs, so K7
-# takes there its single-split branch, as in the serve's prefill
-MODEL_CHECK = {"n_layers": 4, "batch": 2, "prompt_len": 1024}
+# the f32 whole-model check (LM_SERVES[arch]["check"]): logits of the
+# prefill and of one decode step within MODEL_CHECK_TOL of their scale,
+# kernels against plain versions
 MODEL_CHECK_TOL = 1e-3
 # the kernels' names in a torch.profiler trace, by wrapper
 TRACE_NAMES = {"flash_attention": ("flash_attention_kernel",),
                "fused_block": ("fused_block_kernel",
                                "fused_block_reduce_kernel"),
+               "ssd_scan": ("ssd_scan_kernel",),
                "rglru_scan": ("rglru_scan_kernel",)}
 
 
@@ -754,8 +963,8 @@ def device_time_all(prof) -> dict:
     return out
 
 
-def serve_phase() -> dict:
-    """LM_ARCH served at full width on the card (phase 5, see the module
+def serve_phase(arch: str) -> dict:
+    """``arch`` served at full width on the card (phase 5, see the module
     docstring): the counted main-path run, a second run for the times and a
     third traced with ``torch.profiler``."""
     import torch
@@ -765,8 +974,9 @@ def serve_phase() -> dict:
     from repro_torch.launch.serve import ServeConfig, serve
     from repro_torch.models.model import Model
 
-    cfg = get_config(LM_ARCH)
-    sc = ServeConfig(**SERVE_SHAPE, seed=0)
+    cfg = get_config(arch)
+    shape, expected = LM_SERVES[arch]["shape"], LM_SERVES[arch]["launches"]
+    sc = ServeConfig(**shape, seed=0)
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -774,10 +984,11 @@ def serve_phase() -> dict:
     first = serve(cfg, sc)                          # the main path
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"launches in one serve of {LM_ARCH}: {counts}")
+    log(f"launches in one serve of {arch}: {counts}")
     for name, n in counts.items():
-        want = SERVE_LAUNCHES.get(name, 0)
-        require(n == want, f"serve launched {name} {n} times, not {want}")
+        want = expected.get(name, 0)
+        require(n == want,
+                f"serve of {arch} launched {name} {n} times, not {want}")
     toks = first["tokens"]
     require(toks.shape == (sc.batch, sc.gen_len)
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
@@ -790,7 +1001,8 @@ def serve_phase() -> dict:
     by_name = device_time_all(prof)
     busy = sum(v["device_ms"] for v in by_name.values())
     kernels = {}
-    for name, names in TRACE_NAMES.items():
+    for name in expected:
+        names = TRACE_NAMES[name]
         hits = [v for k, v in by_name.items() if any(n in k for n in names)]
         kernels[name] = {"count": sum(v["count"] for v in hits),
                          "device_ms": sum(v["device_ms"] for v in hits)}
@@ -799,7 +1011,7 @@ def serve_phase() -> dict:
             for r in (first, second, traced)]
     wall_ms = 1e3 * (second["prefill_s"] + second["decode_s"])
     return {
-        "serve": LM_ARCH, **SERVE_SHAPE, "dtype": cfg.dtype,
+        "serve": arch, **shape, "dtype": cfg.dtype,
         "runs": runs, "launches": counts,
         "peak_memory_bytes": peak, "allocated_before_bytes": before,
         "tokens_row0": toks[0].tolist(),
@@ -807,6 +1019,8 @@ def serve_phase() -> dict:
             (toks == second["tokens"]).all()
             and (toks == traced["tokens"]).all()),
         "traced_device_busy_ms": busy if by_name else "not measured",
+        "traced_device_activities": sum(v["count"] for v in by_name.values())
+        if by_name else "not measured",
         "kernels_device_ms": kernels if by_name else "not measured",
         "kernels_share_of_device_busy":
             sum(k["device_ms"] for k in kernels.values()) / busy
@@ -817,10 +1031,10 @@ def serve_phase() -> dict:
             by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:8])}
 
 
-def model_check() -> dict:
-    """LM_ARCH at full width in float32, depth MODEL_CHECK["n_layers"]: the
-    prefill of a MODEL_CHECK["prompt_len"]-token prompt and one decode step,
-    through the kernels and again through their plain versions
+def model_check(arch: str) -> dict:
+    """``arch`` at full width in float32, at the depth, batch and prompt
+    length of ``LM_SERVES[arch]["check"]``: the prefill and one decode
+    step, through the kernels and again through their plain versions
     (``ops.plain_versions()``) on the same weights and tokens."""
     import numpy as np
     import torch
@@ -830,9 +1044,10 @@ def model_check() -> dict:
 
     require(not torch.backends.cuda.matmul.allow_tf32,
             "float32 matmuls would run in TF32")
-    b, s = MODEL_CHECK["batch"], MODEL_CHECK["prompt_len"]
-    cfg = get_config(LM_ARCH).replace(n_layers=MODEL_CHECK["n_layers"],
-                                      dtype="float32", max_seq=s + 1)
+    check = LM_SERVES[arch]["check"]
+    b, s = check["batch"], check["prompt_len"]
+    cfg = get_config(arch).replace(n_layers=check["n_layers"],
+                                   dtype="float32", max_seq=s + 1)
     model = Model(cfg, device="cuda").init_weights(0)
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(
@@ -854,9 +1069,10 @@ def model_check() -> dict:
     require(not any(launch_counts()[k] - counts.get(k, 0)
                     for k in launch_counts()),
             "plain_versions() launched a kernel")
-    require(set(counts) == set(LM_KERNELS),
-            f"the kernel path launched {counts}")
-    out = {"model_check": LM_ARCH, **MODEL_CHECK, "dtype": "float32",
+    require(counts == LM_SERVES[arch]["check_launches"],
+            f"the kernel path of {arch} launched {counts}, not "
+            f"{LM_SERVES[arch]['check_launches']}")
+    out = {"model_check": arch, **check, "dtype": "float32",
            "tolerance_of_scale": MODEL_CHECK_TOL, "launches": counts}
     for what, k, p in (("prefill", kernel[0], plain[0]),
                        ("decode", kernel[1], plain[1])):
@@ -1148,6 +1364,8 @@ def main(argv=None) -> int:
         r = check_lm_kernels(timed=False, reps=0)
         log(f"LM kernels equal their plain versions: "
             f"{json.dumps(r['errs'])}")
+        r = check_ssd_kernel(timed=False, reps=0)
+        log(f"ssd_scan equals its plain version: {json.dumps(r['errs'])}")
         return 0
 
     # ---- phase 2: kernels against their plain versions, and their times
@@ -1169,6 +1387,12 @@ def main(argv=None) -> int:
     lm = check_lm_kernels(timed=True, reps=5)
     log(f"LM kernels == plain versions: {json.dumps(lm)} "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    ssd = check_ssd_kernel(timed=True, reps=5)
+    log(f"ssd_scan == plain version: {json.dumps(ssd)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    lm["errs"].update(ssd["errs"])
+    lm["times"].update(ssd["times"])
 
     # ---- phase 3: the main path, four sweeps, each with its own launch
     # counts (set to 0 just before the sweep, read just after)
@@ -1194,14 +1418,16 @@ def main(argv=None) -> int:
         f"audit, simulator == run_graph bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # ---- phase 5: the LM serving path, its own launch counts, and the
-    # whole model held against its plain versions
-    t0 = time.perf_counter()
-    served = serve_phase()
-    log(json.dumps(served))
-    checked = model_check()
-    log(json.dumps(checked))
-    log(f"serve phase ({time.perf_counter() - t0:.1f} s)")
+    # ---- phase 5: the LM serving path, one serve per architecture with
+    # its own launch counts, and each model held against its plain versions
+    served, checked = {}, {}
+    for arch in LM_SERVES:
+        t0 = time.perf_counter()
+        served[arch] = serve_phase(arch)
+        log(json.dumps(served[arch]))
+        checked[arch] = model_check(arch)
+        log(json.dumps(checked[arch]))
+        log(f"serve phase of {arch} ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
@@ -1249,11 +1475,14 @@ def main(argv=None) -> int:
     lm_times = lm["times"]
     for name in LM_KERNELS:
         info, t = KERNEL_INFO[name], lm_times[name]
+        arch = next(a for a, v in LM_SERVES.items() if name in v["launches"])
         entry = {
             "name": name, "route": "cuda", "source": info["source"],
             "replaces": info["replaces"],
-            "launches": served["launches"][name],
-            "launches_in_model_check": checked["launches"][name],
+            "launches": served[arch]["launches"][name],
+            "launches_by_serve": {a: served[a]["launches"][name]
+                                  for a in LM_SERVES},
+            "launches_in_model_check": checked[arch]["launches"][name],
             "max_abs_err": lm["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

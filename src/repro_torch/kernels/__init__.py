@@ -13,6 +13,7 @@ beside its plain torch version:
                           backend="pallas")
     flash_attention.py -- online-softmax attention of an LM prefill
     fused_block.py     -- the fused residual MLP block of every LM layer
+    ssd_scan.py        -- the Mamba-2 SSD chunked scan of a prefill
     rglru_scan.py      -- the RG-LRU linear recurrence of a prefill
     ops.py             -- the LM kernels' dispatch: kernel on CUDA, plain
                           version on the CPU
@@ -35,11 +36,13 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.search_pipeline import (argmin_rows_cuda,
                                                      cost_rows_cuda,
                                                      enum_frames_cuda)
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     return {"alloc_scan": alloc_scan_cuda, "enum_frames": enum_frames_cuda,
             "cost_rows": cost_rows_cuda, "argmin_rows": argmin_rows_cuda,
             "score_batch": score_batch_cuda,
             "flash_attention": flash_attention_cuda,
-            "fused_block": fused_block_cuda, "rglru_scan": rglru_scan_cuda}
+            "fused_block": fused_block_cuda, "ssd_scan": ssd_scan_cuda,
+            "rglru_scan": rglru_scan_cuda}
 
 
 def launch_counts() -> dict:

@@ -32,15 +32,16 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # results must equal the host's IEEE arithmetic bit for bit, and
 # score_batch.cu the float32 scorer, held bit-equal to its plain torch
 # version: no fused multiply-add contraction, and no fast-math anywhere.
-# The LM kernels (flash attention, the fused MLP block, the RG-LRU scan)
-# are held to their plain versions within a tolerance; rglru_scan.cu
-# spells its rounding out with intrinsics.
+# The LM kernels (flash attention, the fused MLP block, the SSD scan, the
+# RG-LRU scan) are held to their plain versions within a tolerance;
+# rglru_scan.cu spells its rounding out with intrinsics.
 SOURCES = {
     "alloc_scan.cu": (),
     "search_pipeline.cu": ("-fmad=false",),
     "score_batch.cu": ("-fmad=false",),
     "flash_attention.cu": (),
     "fused_block.cu": (),
+    "ssd_scan.cu": (),
     "rglru_scan.cu": (),
 }
 
@@ -160,12 +161,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,              # M, d, F, bf, splits
         i, i, i, f,                 # gated, gelu, sandwich, eps
         i, i, p]                    # is_bf16, device, stream
+    lib.ssd_scan_launch.argtypes = [
+        p, p, p, p, p, p, p,        # x, dt, A, Bm, Cm, D, h0
+        p, p,                       # y, hout
+        i, i, i, i, i, i, i,        # B, S, H, G, P, N, Q
+        ll, i, i, p]                # bc_stride, is_bf16, device, stream
     lib.rglru_scan_launch.argtypes = [p, p, p, i, i, i, i, p]  # a, b, h,
     #                                                  B, S, W, device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
                lib.cost_rows_launch, lib.argmin_rows_launch,
                lib.score_batch_launch, lib.flash_attention_launch,
-               lib.fused_block_launch, lib.rglru_scan_launch):
+               lib.fused_block_launch, lib.ssd_scan_launch,
+               lib.rglru_scan_launch):
         fn.restype = ctypes.c_int
 
 

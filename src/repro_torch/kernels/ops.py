@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.fused_block import (fused_block_cuda,
                                              fused_block_torch)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_torch
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
 
 _PLAIN = False
 
@@ -54,3 +55,10 @@ def rglru_scan(a, b):
     """K9: ``h_t = a_t * h_{t-1} + b_t`` from ``h_{-1} = 0``."""
     fn = rglru_scan_cuda if _kernel(a) else rglru_scan_torch
     return fn(a, b)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, D, h0=None, *, chunk):
+    """K8: the SSD chunked scan of a prefill from state ``h0`` (or 0);
+    returns ``(y, final_state)``."""
+    fn = ssd_scan_cuda if _kernel(x) else ssd_scan_torch
+    return fn(x, dt, A, Bm, Cm, D, h0, chunk=chunk)

@@ -2,14 +2,17 @@
 cache, on one card.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    python -m repro_torch.launch.serve --arch mamba2-2.7b --batch 4 \
+        --prompt 2048 --gen 16
 
 The counterpart of the JAX package's ``launch/serve.py``, without its mesh:
 the prompts (``numpy.random.default_rng(seed)``, as there), a prefill of
 ``prompt_len`` tokens, then ``gen_len - 1`` greedy decode steps.  On the
 card the prefill runs the hand-written kernels K6 (attention of every
-attention layer), K9 (the scan of every recurrent layer) and K7 (every
-MLP), and each decode step K7.  Times are host clock around work that ends
-in ``torch.cuda.synchronize()``.
+attention layer), K9 (the scan of every recurrent layer), K8 (the SSD scan
+of every ssm layer) and K7 (every MLP), and each decode step K7 (ssm
+layers have no MLP: a mamba2 decode step runs no kernel).  Times are host
+clock around work that ends in ``torch.cuda.synchronize()``.
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ live in the module (``embed``, ``layers`` in depth order, ``final_norm``)
 instead of a tree passed to every call, and the cache position ``pos`` is a
 host ``int``, so no call waits on the device to learn it.  Tokens are int
 tensors ``[B, S]`` (decode ``[B, 1]``).  The families the port serves are
-dense and hybrid (``transformer.py::PORTED_KINDS``); the vlm and audio
-stubs and the training loss come later.
+dense, hybrid and ssm (``transformer.py::PORTED_KINDS``); a cache holds a
+KV cache per attention layer and a fixed-size state per recurrent or ssm
+layer (``max_len`` sizes only the former).  The vlm and audio stubs, the
+MoE MLPs and the training loss come later.
 """
 from __future__ import annotations
 

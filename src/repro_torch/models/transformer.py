@@ -9,9 +9,10 @@ JAX package's group ``g``, slot ``p{i}``, and the tail layers ``t{i}``
 follow (``convert.py::lm_params_from_numpy`` maps one onto the other).
 
 Ported layer kinds: ``global`` and ``local`` self-attention and
-``recurrent`` (RG-LRU), each with its MLP.  ``ssm`` (mamba2), ``cross``
-(vlm), ``enc`` / ``encdec`` (whisper) and MoE MLPs (``n_experts > 0``)
-raise ``NotImplementedError``.  The sharding context (``set_mesh_axes``,
+``recurrent`` (RG-LRU), each with its MLP, and ``ssm`` (the Mamba-2 block,
+which has no MLP, as in the JAX package).  ``cross`` (vlm), ``enc`` /
+``encdec`` (whisper) and MoE MLPs (``n_experts > 0``) raise
+``NotImplementedError``.  The sharding context (``set_mesh_axes``,
 ``shard_hidden``) is dropped: the port runs on one card.
 """
 from __future__ import annotations
@@ -25,15 +26,13 @@ from repro_torch.models.attention import (blocked_attention, cache_update,
                                           ring_positions)
 from repro_torch.models.layers import (D, Params, apply_rope, mlp_apply,
                                        mlp_defs, rms_norm, rope_angles)
-from repro_torch.models.mamba2 import ssm_apply
+from repro_torch.models.mamba2 import init_ssm_state, ssm_apply, ssm_defs
 from repro_torch.models.rglru import init_rglru_state, rglru_apply, rglru_defs
 
-PORTED_KINDS = ("global", "local", "recurrent")
+PORTED_KINDS = ("global", "local", "recurrent", "ssm")
 
 
 def _require_kind(cfg, kind: str) -> None:
-    if kind == "ssm":
-        ssm_apply()
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} ({cfg.name}) is not ported yet: the port "
@@ -74,13 +73,16 @@ def ffn_defs(cfg) -> dict:
 def layer_defs(cfg, kind: str) -> dict:
     """``{sub-block: {name: ParamDef}}`` of one layer."""
     _require_kind(cfg, kind)
+    if kind == "ssm":
+        return {"ssm": ssm_defs(cfg)}
     if kind == "recurrent":
         return {"rglru": rglru_defs(cfg), "ffn": mlp_defs(cfg)}
     return {"attn": attn_defs(cfg, kind), "ffn": ffn_defs(cfg)}
 
 
 class Layer(nn.Module):
-    """One layer's parameters: ``attn`` or ``rglru``, and ``ffn``."""
+    """One layer's parameters: ``ssm``, or ``attn`` or ``rglru`` and
+    ``ffn``."""
 
     def __init__(self, cfg, kind: str, dtype, device):
         super().__init__()
@@ -154,6 +156,8 @@ def ffn_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 def apply_layer(layer: Layer, x: torch.Tensor, cfg, *, cache=None,
                 pos: int = 0):
     """Returns (x, new_cache)."""
+    if layer.kind == "ssm":
+        return ssm_apply(layer.ssm, x, cfg, state=cache)
     if layer.kind == "recurrent":
         x, cache = rglru_apply(layer.rglru, x, cfg, state=cache)
     else:
@@ -167,6 +171,8 @@ def layer_cache(cfg, kind: str, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cpu"):
     _require_kind(cfg, kind)
     nkv, hd = cfg.n_kv_heads, cfg.hd
+    if kind == "ssm":
+        return init_ssm_state(cfg, batch, device)
     if kind == "recurrent":
         return init_rglru_state(cfg, batch, device)
     if kind == "local":

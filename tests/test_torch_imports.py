@@ -75,6 +75,7 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.kernels.fused_block",
                  "repro_torch.kernels.rglru_scan",
+                 "repro_torch.kernels.ssd_scan",
                  "repro_torch.kernels.ops", "repro_torch.models.layers",
                  "repro_torch.models.attention",
                  "repro_torch.models.mamba2", "repro_torch.models.rglru",
@@ -83,7 +84,8 @@ def test_port_has_the_modules_of_the_slice():
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",
-                    "flash_attention.cu", "fused_block.cu", "rglru_scan.cu"}
+                    "flash_attention.cu", "fused_block.cu", "rglru_scan.cu",
+                    "ssd_scan.cu"}
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == csrc
 

@@ -1,5 +1,6 @@
 """The LM kernels' plain versions in the port (K6 flash attention, K7 fused
-MLP block, K9 RG-LRU scan) against the JAX package: its Pallas kernels in
+MLP block, K9 RG-LRU scan; K8's, the SSD scan, is held in
+test_torch_mamba2.py) against the JAX package: its Pallas kernels in
 interpret mode, as tests/test_kernels.py runs them, its pure-jnp oracles
 (``kernels/ref.py``) and the model functions each kernel is the twin of.
 Inputs are made from a seed with numpy and handed to both packages; in
@@ -32,6 +33,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.fused_block import (fused_block_cuda,
                                              fused_block_torch)
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_torch
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
 from repro_torch.models.attention import blocked_attention
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -196,6 +198,10 @@ def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
     w1 = torch.from_numpy(rnd(3, (16, 24), 0.25))
     w2 = torch.from_numpy(rnd(4, (24, 16), 0.2))
     a = torch.sigmoid(torch.from_numpy(rnd(5, (2, 9, 4))))
+    xs = torch.from_numpy(rnd(6, (1, 11, 2, 4)))
+    dt = torch.sigmoid(torch.from_numpy(rnd(7, (1, 11, 2))))
+    bc = torch.from_numpy(rnd(8, (1, 11, 1, 8)))
+    ssd = (xs, dt, -dt[0, 0], bc, bc, dt[0, 1])
     before = {n: fn.launches for n, fn in kernel_wrappers().items()}
     for ctx in (torch.no_grad(), ops.plain_versions()):
         with ctx:
@@ -204,6 +210,10 @@ def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
             assert torch.equal(ops.fused_block(x, s, w1, w1, w2),
                                fused_block_torch(x, s, w1, w1, w2))
             assert torch.equal(ops.rglru_scan(a, a), rglru_scan_torch(a, a))
+            got, want = ops.ssd_scan(*ssd, chunk=4), ssd_scan_torch(*ssd,
+                                                                    chunk=4)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
     assert not ops._PLAIN
     assert {n: fn.launches for n, fn in kernel_wrappers().items()} == before
 
@@ -214,7 +224,10 @@ def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
     lambda t: fused_block_cuda(t((4, 16)), t((16,)), t((16, 8)), t((16, 8)),
                                t((8, 16))),
     lambda t: rglru_scan_cuda(t((1, 4, 8)), t((1, 4, 8))),
-], ids=["flash_attention", "fused_block", "rglru_scan"])
+    lambda t: ssd_scan_cuda(t((1, 8, 2, 4)), t((1, 8, 2)), t((2,)),
+                            t((1, 8, 1, 16)), t((1, 8, 1, 16)), t((2,)),
+                            chunk=4),
+], ids=["flash_attention", "fused_block", "rglru_scan", "ssd_scan"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it raises
     before building anything, and counts no launch."""

@@ -3,14 +3,14 @@
 
 Each family whose layer kinds the port serves -- recurrentgemma-2b (RG-LRU
 and local attention), gemma2-2b (local and global attention, soft caps,
-sandwich norms) and smollm-360m (global attention) -- is built from its
-smoke config; the JAX package initialises the weights, and
+sandwich norms), smollm-360m (global attention) and mamba2-2.7b (SSD
+blocks, chunk 8) -- is built from its smoke config; the JAX package initialises the weights, and
 ``convert.lm_params_from_numpy`` hands the same numbers to the port.  Both
 get the same tokens, made from a seed with numpy.  The JAX side runs
 ``Model.prefill`` / ``decode_step`` without a mesh: its ``serve()`` fails
 under this jax (ROADMAP queue 3, R7).  Logits must agree at every step
-within 1e-4 of their scale (float32; K6 / K7 / K9's plain versions run here
-and sum in other orders than XLA).
+within 1e-4 of their scale (float32; K6 / K7 / K8 / K9's plain versions run
+here and sum in other orders than XLA).
 """
 import jax
 import jax.numpy as jnp
@@ -27,7 +27,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.serve import ServeConfig, serve
 from repro_torch.models.model import Model
 
-ARCHS = ["recurrentgemma-2b", "gemma2-2b", "smollm-360m"]
+ARCHS = ["recurrentgemma-2b", "gemma2-2b", "smollm-360m", "mamba2-2.7b"]
 REL_TOL = 1e-4          # of the logits' scale (their largest magnitude)
 _CACHE: dict = {}
 
@@ -138,7 +138,46 @@ def test_ring_cache_window_smaller_than_the_sequence():
     assert_logits_close(got, want, "ring decode at position 30")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen3-moe-235b-a22b",
+def test_mamba2_ragged_prompt_matches_jax():
+    """A 21-token prompt (chunks 8, 8 and a ragged 5) and 4 decode steps:
+    the port's SSD masks the last chunk where the JAX model pads it."""
+    cfg, params, jprefill, jdecode = jax_side("mamba2-2.7b", 40)
+    model = port_model("mamba2-2.7b", 40, params)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(0, cfg.vocab, (2, 21)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab, (4, 2, 1)).astype(np.int32)
+    want, jcache = jprefill(params, {"tokens": jnp.asarray(prompt)})
+    got, cache = model.prefill({"tokens": torch.from_numpy(prompt)})
+    assert_logits_close(got, want, "mamba2 ragged prefill")
+    for i in range(4):
+        want, jcache = jdecode(params, jcache, jnp.asarray(nxt[i]))
+        got, cache = model.decode_step(cache, torch.from_numpy(nxt[i]))
+        assert_logits_close(got, want, f"mamba2 decode step {i}")
+    assert cache["pos"] == int(jcache["pos"]) == 25
+
+
+def test_mamba2_prefill_continued_from_a_cache_matches_jax():
+    """A second prefill (13 tokens) from the cache of a first one (11
+    tokens): the SSD starts from the cached state and the convolutions
+    from the cached inputs, on both sides; then one decode step."""
+    cfg, params, jprefill, jdecode = jax_side("mamba2-2.7b", 40)
+    model = port_model("mamba2-2.7b", 40, params)
+    rng = np.random.default_rng(12)
+    first = rng.integers(0, cfg.vocab, (2, 11)).astype(np.int32)
+    second = rng.integers(0, cfg.vocab, (2, 13)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    _, jcache = jprefill(params, {"tokens": jnp.asarray(first)})
+    _, cache = model.prefill({"tokens": torch.from_numpy(first)})
+    want, jcache = jprefill(params, {"tokens": jnp.asarray(second)}, jcache)
+    got, cache = model.prefill({"tokens": torch.from_numpy(second)}, cache)
+    assert cache["pos"] == int(jcache["pos"]) == 24
+    assert_logits_close(got, want, "mamba2 continued prefill")
+    want, jcache = jdecode(params, jcache, jnp.asarray(nxt))
+    got, cache = model.decode_step(cache, torch.from_numpy(nxt))
+    assert_logits_close(got, want, "mamba2 decode after it")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
                                   "moonshot-v1-16b-a3b", "whisper-base",
                                   "llama-3.2-vision-11b"])
 def test_families_not_ported_raise(arch):
