@@ -27,14 +27,24 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K7 there in bfloat16 and in float32, at ragged shapes, K6
                with gemma2's soft cap and GQA, K7 ungated and with the
                sandwich norm: within 2e-5 in float32 (K9 1e-4) and 2e-2 in
-               bfloat16.  K8 (the Mamba-2 SSD scan), on ``y`` and the final
-               state, at mamba2-2.7b's serving shape (batch 4, 2,048 tokens,
-               80 heads of 64, state 128, chunk 256) in bfloat16 and float32,
+               bfloat16.  K6 and K7 each pick a kernel by a fixed rule
+               (``flash_attention_variant``, ``fused_block_variant``):
+               bfloat16 runs on the tensor cores, float32 on the SIMT
+               kernels; every case states the variant it
+               must run, and a ragged bfloat16 case of each reaches the
+               tensor cores with every dimension off the tile.  K8 (the
+               Mamba-2 SSD scan), on ``y`` and the final state, at
+               mamba2-2.7b's serving shape (batch 4, 2,048 tokens, 80 heads
+               of 64, state 128, chunk 256) in bfloat16 and float32,
                at a ragged 2,000 tokens from a random initial state, with 8
                groups of heads, and at a ragged chunk, head and state dim:
                within 1e-4 in float32 and 2e-2 in bfloat16.  Each kernel and
                its plain version are timed with CUDA events; K6 also beside
-               ``scaled_dot_product_attention``.
+               ``scaled_dot_product_attention``, K7's prefill beside its
+               three bfloat16 products alone in ``torch.matmul``
+               (``matmul_ms``); K6 and K7 also beside their SIMT kernels
+               on the same bfloat16 inputs, launched by their C entry
+               points (``earlier_design_ms``).
 3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
                options (``engine="pipeline"`` on ``device="cuda"``, among
                them yolov2@416 with its full space of 7,962,624 cut tuples),
@@ -65,17 +75,19 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                recurrentgemma-2b, batch 2, a 3,072-token prompt (over the
                2,048-token window: K6 masks by window and skips tiles,
                decode runs through the ring cache), 16 tokens, exactly K6 8,
-               K9 18, K7 416; then mamba2-2.7b (64 layers, d 2,560, 80
-               heads of 64, state 128), batch 4, a 2,048-token prompt, 16
-               tokens, exactly K8 64 and every other kernel 0.  Each: prefill
-               / decode seconds, tokens per second and peak memory; two more
-               runs on the same weights, one traced for the kernels' device
-               time.  Then each model at full width in float32, depth 4
-               (recurrentgemma a 1,024-token prompt, mamba2 1,000 tokens, a
-               ragged last chunk): prefill and one decode step through the
+               K9 18, K7 416 (K6 and K7 all on the tensor-core kernels);
+               then mamba2-2.7b (64 layers, d 2,560, 80 heads of 64, state
+               128), batch 4, a 2,048-token prompt, 16 tokens, exactly K8 64
+               and every other kernel 0.  Each: prefill / decode seconds,
+               tokens per second and peak memory; two more runs on the same
+               weights, one traced for the kernels' device time.  Then
+               each model at full width in float32, depth 4 (recurrentgemma
+               a 1,024-token prompt, mamba2 1,000 tokens, a ragged last
+               chunk): prefill and one decode step through the
                kernels and through their plain versions
                (``ops.plain_versions()``), logits within 1e-3 of their
-               scale, with exactly the launches ``LM_SERVES`` states.
+               scale, with exactly the launches ``LM_SERVES`` states (on
+               the SIMT kernels: float32).
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -141,12 +153,22 @@ KERNEL_INFO = {
     "score_batch": {
         "source": "src/repro_torch/kernels/csrc/score_batch.cu",
         "replaces": "src/repro/kernels/score_batch.py:149"},
+    # K6 and K7: "source" is the kernel of the bfloat16 prefill (the serve's
+    # main path); "variants" every source the wrapper picks from
     "flash_attention": {
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:25"},
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "variants": {
+            "tensor_core":
+                "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+            "simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}},
     "fused_block": {
-        "source": "src/repro_torch/kernels/csrc/fused_block.cu",
-        "replaces": "src/repro/kernels/fused_block.py:37"},
+        "source": "src/repro_torch/kernels/csrc/fused_block_tc.cu",
+        "replaces": "src/repro/kernels/fused_block.py:37",
+        "variants": {
+            "tensor_core": "src/repro_torch/kernels/csrc/fused_block_tc.cu",
+            "simt": "src/repro_torch/kernels/csrc/fused_block.cu",
+            "simt_split": "src/repro_torch/kernels/csrc/fused_block.cu"}},
     "ssd_scan": {
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:26"},
@@ -532,12 +554,20 @@ LM_SERVES = {
         # in each of the 16 forwards (the prefill and 15 decode steps)
         "launches": {"flash_attention": 8, "rglru_scan": 18,
                      "fused_block": 26 * 16},
+        # bfloat16: all on the tensor cores, the prefill and decode (M 2)
+        "launches_by_variant": {
+            "flash_attention": {"tensor_core": 8},
+            "fused_block": {"tensor_core": 26 * 16}},
         # depth 4 (one pattern cycle and one tail layer), 1,024 tokens: the
         # prefill has 2 * 1,024 / 8 = 256 row tiles, more than the SMs, so
         # K7 takes there its single-split branch, as in the serve
         "check": {"n_layers": 4, "batch": 2, "prompt_len": 1024},
         "check_launches": {"flash_attention": 1, "fused_block": 8,
-                           "rglru_scan": 3}},
+                           "rglru_scan": 3},
+        # float32 runs on the SIMT kernels only
+        "check_launches_by_variant": {
+            "flash_attention": {"simt": 1},
+            "fused_block": {"simt": 4, "simt_split": 4}}},
     "mamba2-2.7b": {
         "shape": {"batch": 4, "prompt_len": 2048, "gen_len": 16},
         # an SSD scan per layer (64) in the prefill (8 chunks of 256); the
@@ -640,13 +670,25 @@ def ssd_bound(b, s, h, g, p, n, chunk, itemsize):
                  PEAK_F32_OPS_PER_S)
 
 
+def ran_variant(wrapper, call):
+    """``call()``'s result and the one variant of ``wrapper`` it launched
+    (by the wrapper's per-variant counts)."""
+    before = dict(wrapper.launches_by_variant)
+    got = call()
+    ran = [v for v, n in wrapper.launches_by_variant.items()
+           if n != before[v]]
+    require(len(ran) == 1, f"one call launched the variants {ran}")
+    return got, ran[0]
+
+
 def check_lm_kernels(timed: bool, reps: int) -> dict:
     """K6, K7 and K9 against their plain versions on the GPU: at the
     full-width shapes of LM_ARCH's serve, at ragged shapes, K6 with gemma2's
-    soft cap and GQA, K7 ungated and with the sandwich norm.  Returns
-    ``{"errs", "cases"[, "times"]}``; each time is a launch through the
-    wrapper by CUDA events, beside the plain version's and (K6) the
-    library call's."""
+    soft cap and GQA, K7 ungated and with the sandwich norm.  Each K6 and
+    K7 case names the variant it must run.  Returns ``{"errs", "cases"[,
+    "times"]}``; each time is a launch through the wrapper by CUDA events,
+    beside the plain version's, K6's library call's and the bfloat16
+    products of K7 alone in ``torch.matmul``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -673,6 +715,16 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     def close(name, got, want, what, tol):
         require_close(name, got, want, what, tol, errs, cases)
 
+    def close_variant(wrapper, plain, args, kw, what, variant):
+        name = wrapper.__name__.removesuffix("_cuda")
+        got, ran = ran_variant(wrapper, lambda: wrapper(*args, **kw))
+        log(f"  {name} {what}: ran the {ran} kernel")
+        require(ran == variant, f"{name} {what}: ran the {ran} kernel, not "
+                                f"{variant}")
+        close(name, got, plain(*args, **kw), what,
+              LM_TOL[str(args[0].dtype).split(".")[-1]])
+        cases[-1]["variant"] = ran
+
     # ---- K6
     def attn(b, s, t, heads, kv_heads, dim, dtype):
         return (randn((b, s, heads, dim), dtype),
@@ -680,30 +732,38 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                 randn((b, t, kv_heads, dim), dtype))
 
     full_attn = attn(B, S, S, nh, nkv, hd, bf16)
+    tc, simt, split = "tensor_core", "simt", "simt_split"
     attn_cases = [
-        ("full width bf16", full_attn, dict(causal=True, window=win)),
+        ("full width bf16", full_attn, dict(causal=True, window=win), tc),
         ("full width float32", attn(B, S, S, nh, nkv, hd, f32),
-         dict(causal=True, window=win)),
+         dict(causal=True, window=win), simt),
         ("heads of the full width, 1024 tokens, float32",
          attn(1, 1024, 1024, nh, nkv, hd, f32),
-         dict(causal=True, window=win // 4)),
+         dict(causal=True, window=win // 4), simt),
         ("ragged 333 tokens, hd 96, GQA 4/2, window 100, float32",
-         attn(1, 333, 333, 4, 2, 96, f32), dict(causal=True, window=100)),
+         attn(1, 333, 333, 4, 2, 96, f32), dict(causal=True, window=100),
+         simt),
         ("ragged 333 tokens, hd 96, GQA 4/2, window 100, bf16",
-         attn(1, 333, 333, 4, 2, 96, bf16), dict(causal=True, window=100)),
+         attn(1, 333, 333, 4, 2, 96, bf16), dict(causal=True, window=100),
+         tc),
         ("ragged, not causal, S 70 T 45, float32",
-         attn(2, 70, 45, 2, 1, 16, f32), dict(causal=False, window=0)),
+         attn(2, 70, 45, 2, 1, 16, f32), dict(causal=False, window=0), simt),
         ("gemma2: softcap 50, GQA 8/4, 1000 tokens, bf16",
          attn(1, 1000, 1000, 8, 4, 256, bf16),
-         dict(causal=True, window=0, softcap=50.0)),
+         dict(causal=True, window=0, softcap=50.0), tc),
         ("gemma2: softcap 50, GQA 8/4, window 300, float32",
          attn(1, 700, 700, 8, 4, 256, f32),
-         dict(causal=True, window=300, softcap=50.0)),
+         dict(causal=True, window=300, softcap=50.0), simt),
+        # every dimension off the tensor-core kernel's tiles
+        ("ragged 333 tokens, hd 96, GQA 4/2, window 100, softcap 30, bf16",
+         attn(1, 333, 333, 4, 2, 96, bf16),
+         dict(causal=True, window=100, softcap=30.0), tc),
+        ("ragged, not causal, S 70 T 45, hd 16, bf16",
+         attn(2, 70, 45, 2, 1, 16, bf16), dict(causal=False, window=0), tc),
     ]
-    for what, (q, k, v), kw in attn_cases:
-        close("flash_attention", fa.flash_attention_cuda(q, k, v, **kw),
-              fa.flash_attention_torch(q, k, v, **kw), what,
-              LM_TOL[str(q.dtype).split(".")[-1]])
+    for what, args, kw, variant in attn_cases:
+        close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
+                      args, kw, what, variant)
 
     # ---- K7
     def block(m, dd, f, dtype):
@@ -716,22 +776,33 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     decode_x = (randn((B, d), bf16),) + prefill_x[1:]
     geglu = dict(act=cfg.act, gated=cfg.mlp_gated, sandwich=False)
     block_cases = [
-        ("prefill, full width bf16", prefill_x, geglu),
-        ("prefill, full width float32", block(B * S, d, ff, f32), geglu),
-        ("decode, full width bf16", decode_x, geglu),
+        ("prefill, full width bf16", prefill_x, geglu, tc),
+        ("prefill, full width float32", block(B * S, d, ff, f32), geglu,
+         simt),
+        ("decode, full width bf16", decode_x, geglu, tc),
         ("ragged M 37, d 200, F 333, ungated silu, float32",
-         block(37, 200, 333, f32), dict(act="silu", gated=False)),
+         block(37, 200, 333, f32), dict(act="silu", gated=False), split),
         ("ragged M 37, d 200, F 333, ungated silu, bf16",
-         block(37, 200, 333, bf16), dict(act="silu", gated=False)),
+         block(37, 200, 333, bf16), dict(act="silu", gated=False), split),
         ("gemma2 width, M 300, sandwich, bf16", block(300, 2304, 9216, bf16),
-         dict(act="gelu", gated=True, sandwich=True)),
+         dict(act="gelu", gated=True, sandwich=True), tc),
         ("gemma2 width, M 3, sandwich, float32", block(3, 2304, 9216, f32),
-         dict(act="gelu", gated=True, sandwich=True)),
+         dict(act="gelu", gated=True, sandwich=True), split),
+        # every dimension off the tensor-core kernel's tiles, gated and
+        # ungated
+        ("ragged M 333, d 200, F 344, gated gelu, bf16",
+         block(333, 200, 344, bf16), dict(act="gelu", gated=True), tc),
+        ("ragged M 70, d 136, F 264, ungated silu, sandwich, bf16",
+         block(70, 136, 264, bf16),
+         dict(act="silu", gated=False, sandwich=True), tc),
+        # wider than the SIMT kernel's registers hold (d > MAX_D)
+        ("gemma2-27b width, M 130, d 4608, F 36864, sandwich, bf16",
+         block(130, 4608, 36864, bf16),
+         dict(act="gelu", gated=True, sandwich=True), tc),
     ]
-    for what, args, kw in block_cases:
-        close("fused_block", fb.fused_block_cuda(*args, **kw),
-              fb.fused_block_torch(*args, **kw), what,
-              LM_TOL[str(args[0].dtype).split(".")[-1]])
+    for what, args, kw, variant in block_cases:
+        close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
+                      what, variant)
 
     # ---- K9
     def scan(b, s, width):
@@ -759,6 +830,13 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
 
     lib_err = max_abs_err(library().transpose(1, 2),
                           fa.flash_attention_torch(q, k, v, window=win))
+    # K7's three bfloat16 products alone (cuBLAS), on its prefill's shapes:
+    # no single PyTorch call computes the block, so this is `matmul_ms`
+    x_mm, _s, wg_mm, wu_mm, wd_mm, _p = prefill_x
+    h_mm = randn((B * S, ff), bf16)
+
+    def products():
+        return x_mm @ wg_mm, x_mm @ wu_mm, h_mm @ wd_mm
     timing = {
         "flash_attention": (
             lambda: fa.flash_attention_cuda(q, k, v, window=win),
@@ -794,6 +872,88 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     lib = [time_ms(library, reps=reps, warmup=1) for _ in range(2)]
     out["times"]["flash_attention"].update(library_ms=min(lib),
                                            library_max_abs_err=lib_err)
+    mm = [time_ms(products, reps=reps, warmup=1) for _ in range(2)]
+    out["times"]["fused_block"]["matmul_ms"] = min(mm)
+    variants = {"flash_attention": (fa.flash_attention_cuda, q, k, v),
+                "fused_block": (fb.fused_block_cuda, *prefill_x),
+                "fused_block_decode": (fb.fused_block_cuda, *decode_x)}
+    for name, (wrapper, *args) in variants.items():
+        kw = dict(window=win) if name == "flash_attention" else geglu
+        out["times"][name]["shape"]["variant"] = ran_variant(
+            wrapper, lambda: wrapper(*args, **kw))[1]
+    for name, (ms, err) in earlier_design_times(full_attn, win, prefill_x,
+                                                decode_x, cfg.act == "gelu",
+                                                reps).items():
+        out["times"][name].update(earlier_design_ms=ms,
+                                  earlier_design_max_abs_err=err)
+    return out
+
+
+def earlier_design_times(full_attn, win, prefill_x, decode_x, gelu,
+                         reps) -> dict:
+    """``{name: (ms, max abs err against the plain version)}`` of the SIMT
+    kernels on the bfloat16 serve-shape inputs that the tensor-core kernels
+    now take, launched through their C entry points (the wrappers' rule no
+    longer sends bfloat16 there) with the arguments the wrappers gave them:
+    the earlier design, timed in the same run beside the new one.  These
+    launches go through no wrapper and count nowhere."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_block as fb
+
+    lib = _build.load()
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    q, k, v = full_attn
+    b, s, nh, hd = q.shape
+    o = torch.empty_like(q)
+
+    def attention():
+        _build.check(lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, s,
+            nh, k.shape[2], hd, hd ** -0.5, 1, win, 0.0, 1, dev, stream),
+            "flash_attention (earlier design)")
+        return o
+
+    def block(args):
+        x, scale, wg, wu, wd, _post = args
+        m, d = x.shape
+        f = wu.shape[1]
+        bf, splits = fb.simt_slabs(
+            fb.fused_block_variant(torch.float32, m, d, f, sms), m, f, sms)
+        out = torch.empty_like(x)
+        part = torch.empty((splits, m, d), dtype=torch.float32,
+                           device=x.device)
+
+        def run():
+            _build.check(lib.fused_block_launch(
+                x.data_ptr(), scale.data_ptr(), wg.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), None, out.data_ptr(),
+                part.data_ptr(), m, d, f, bf, splits, 1, int(gelu), 0,
+                fb.EPS, 1, dev, stream), "fused_block (earlier design)")
+            return out
+        return run
+
+    act = "gelu" if gelu else "silu"
+    runs = {"flash_attention": (
+                attention, lambda: fa.flash_attention_torch(q, k, v,
+                                                            window=win)),
+            "fused_block": (block(prefill_x), lambda: fb.fused_block_torch(
+                *prefill_x[:5], act=act)),
+            "fused_block_decode": (block(decode_x),
+                                   lambda: fb.fused_block_torch(
+                                       *decode_x[:5], act=act))}
+    out = {}
+    rtol, atol = LM_TOL["bfloat16"]
+    for name, (run, plain) in runs.items():
+        got, want = run().float(), plain().float()
+        err = max_abs_err(got, want)
+        require(torch.allclose(got, want, rtol=rtol, atol=atol),
+                f"{name}, earlier design: max abs err {err}")
+        out[name] = (min(time_ms(run, reps=reps, warmup=1)
+                         for _ in range(2)), err)
     return out
 
 
@@ -943,12 +1103,33 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
 # prefill and of one decode step within MODEL_CHECK_TOL of their scale,
 # kernels against plain versions
 MODEL_CHECK_TOL = 1e-3
-# the kernels' names in a torch.profiler trace, by wrapper
-TRACE_NAMES = {"flash_attention": ("flash_attention_kernel",),
+# the names of every kernel in a torch.profiler trace (its __global__
+# functions), by wrapper; a trace entry counts for a wrapper when one of
+# them is a substring of its name
+TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
+               "enum_frames": ("enum_frames_kernel",),
+               "cost_rows": ("cost_rows_kernel",),
+               "argmin_rows": ("argmin_rows_kernel",),
+               "score_batch": ("score_batch_kernel",),
+               "flash_attention": ("flash_attention_kernel",
+                                   "flash_attention_tc_kernel"),
                "fused_block": ("fused_block_kernel",
-                               "fused_block_reduce_kernel"),
+                               "fused_block_reduce_kernel",
+                               "fused_block_norm_kernel",
+                               "fused_block_up_kernel",
+                               "fused_block_down_kernel",
+                               "fused_block_post_kernel"),
                "ssd_scan": ("ssd_scan_kernel",),
                "rglru_scan": ("rglru_scan_kernel",)}
+
+
+def require_variants(counts: dict, expected: dict, what: str):
+    """Each wrapper's per-variant launches equal to ``expected`` (a variant
+    it does not name: 0)."""
+    for name, by_variant in counts.items():
+        want = {v: expected.get(name, {}).get(v, 0) for v in by_variant}
+        require(by_variant == want,
+                f"{what} launched {name} as {by_variant}, not {want}")
 
 
 def device_time_all(prof) -> dict:
@@ -970,7 +1151,8 @@ def serve_phase(arch: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     reset_launch_counts)
     from repro_torch.launch.serve import ServeConfig, serve
     from repro_torch.models.model import Model
 
@@ -983,12 +1165,17 @@ def serve_phase(arch: str) -> dict:
     reset_launch_counts()
     first = serve(cfg, sc)                          # the main path
     counts = launch_counts()
+    by_variant = launch_counts_by_variant()
     peak = torch.cuda.max_memory_allocated()
-    log(f"launches in one serve of {arch}: {counts}")
+    log(f"launches in one serve of {arch}: {counts}, by variant "
+        f"{by_variant}")
     for name, n in counts.items():
         want = expected.get(name, 0)
         require(n == want,
                 f"serve of {arch} launched {name} {n} times, not {want}")
+    require_variants(by_variant,
+                     LM_SERVES[arch].get("launches_by_variant", {}),
+                     f"serve of {arch}")
     toks = first["tokens"]
     require(toks.shape == (sc.batch, sc.gen_len)
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
@@ -1003,16 +1190,25 @@ def serve_phase(arch: str) -> dict:
     kernels = {}
     for name in expected:
         names = TRACE_NAMES[name]
-        hits = [v for k, v in by_name.items() if any(n in k for n in names)]
-        kernels[name] = {"count": sum(v["count"] for v in hits),
-                         "device_ms": sum(v["device_ms"] for v in hits)}
+        by_kernel = {}
+        for key, v in by_name.items():
+            for n in names:
+                if n in key:
+                    got = by_kernel.setdefault(n, {"count": 0,
+                                                   "device_ms": 0.0})
+                    got["count"] += v["count"]
+                    got["device_ms"] += v["device_ms"]
+        kernels[name] = {
+            "count": sum(v["count"] for v in by_kernel.values()),
+            "device_ms": sum(v["device_ms"] for v in by_kernel.values()),
+            "by_kernel": by_kernel}
     del weights
     runs = [{k: r[k] for k in ("prefill_s", "decode_s", "tok_per_s")}
             for r in (first, second, traced)]
     wall_ms = 1e3 * (second["prefill_s"] + second["decode_s"])
     return {
         "serve": arch, **shape, "dtype": cfg.dtype,
-        "runs": runs, "launches": counts,
+        "runs": runs, "launches": counts, "launches_by_variant": by_variant,
         "peak_memory_bytes": peak, "allocated_before_bytes": before,
         "tokens_row0": toks[0].tolist(),
         "same_tokens_in_all_runs": bool(
@@ -1039,7 +1235,8 @@ def model_check(arch: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     ops, reset_launch_counts)
     from repro_torch.models.model import Model
 
     require(not torch.backends.cuda.matmul.allow_tf32,
@@ -1064,6 +1261,7 @@ def model_check(arch: str) -> dict:
     reset_launch_counts()
     kernel = run()
     counts = {k: n for k, n in launch_counts().items() if n}
+    by_variant = launch_counts_by_variant()
     with ops.plain_versions():
         plain = run()
     require(not any(launch_counts()[k] - counts.get(k, 0)
@@ -1072,8 +1270,12 @@ def model_check(arch: str) -> dict:
     require(counts == LM_SERVES[arch]["check_launches"],
             f"the kernel path of {arch} launched {counts}, not "
             f"{LM_SERVES[arch]['check_launches']}")
+    require_variants(by_variant,
+                     LM_SERVES[arch].get("check_launches_by_variant", {}),
+                     f"the kernel path of {arch}")
     out = {"model_check": arch, **check, "dtype": "float32",
-           "tolerance_of_scale": MODEL_CHECK_TOL, "launches": counts}
+           "tolerance_of_scale": MODEL_CHECK_TOL, "launches": counts,
+           "launches_by_variant": by_variant}
     for what, k, p in (("prefill", kernel[0], plain[0]),
                        ("decode", kernel[1], plain[1])):
         scale = float(p.abs().max())
@@ -1487,13 +1689,24 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": t["shape"]}
+        if "variants" in info:
+            entry["variants"] = info["variants"]
+            entry["launches_by_variant"] = served[arch][
+                "launches_by_variant"][name]
         if name == "flash_attention":
             entry["library"] = ("torch.nn.functional.scaled_dot_product_"
                                 "attention, boolean causal-and-window mask, "
                                 "enable_gqa=True")
             entry["library_max_abs_err"] = t["library_max_abs_err"]
+        if "earlier_design_ms" in t:
+            entry["earlier_design_ms"] = t["earlier_design_ms"]
+            entry["earlier_design"] = ("the SIMT kernel on the same "
+                                       "bfloat16 inputs")
         if name == "fused_block":
             entry["at_decode"] = lm_times["fused_block_decode"]
+            entry["matmul_ms"] = t["matmul_ms"]
+            entry["matmul"] = ("torch.matmul of n @ Wg, n @ Wu and h @ Wd "
+                               "in bfloat16, the block's products alone")
         kernels.append(entry)
     log(json.dumps(yolov2_wall_and_busy()))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -11,8 +11,10 @@ beside its plain torch version:
     score_batch.py     -- staged float32 scorer: the batched scorer's masked
                           reductions in float32 (CompileOptions
                           backend="pallas")
-    flash_attention.py -- online-softmax attention of an LM prefill
+    flash_attention.py -- online-softmax attention of an LM prefill (on
+                          the tensor cores in bfloat16)
     fused_block.py     -- the fused residual MLP block of every LM layer
+                          (two tensor-core products in bfloat16)
     ssd_scan.py        -- the Mamba-2 SSD chunked scan of a prefill
     rglru_scan.py      -- the RG-LRU linear recurrence of a prefill
     ops.py             -- the LM kernels' dispatch: kernel on CUDA, plain
@@ -27,7 +29,9 @@ from __future__ import annotations
 
 def kernel_wrappers() -> dict:
     """name -> the wrapper that launches that kernel.  Each wrapper counts
-    its launches in its ``launches`` attribute."""
+    its launches in its ``launches`` attribute; a wrapper that picks one of
+    several kernels (K6, K7) also counts them apart in
+    ``launches_by_variant``."""
     from repro_torch.kernels.alloc_scan import alloc_scan_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_block import fused_block_cuda
@@ -50,6 +54,16 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def launch_counts_by_variant() -> dict:
+    """name -> {variant: launches} since the last
+    :func:`reset_launch_counts`, for the wrappers with variants."""
+    return {name: dict(fn.launches_by_variant)
+            for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "launches_by_variant")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        for variant in getattr(fn, "launches_by_variant", ()):
+            fn.launches_by_variant[variant] = 0

@@ -32,15 +32,19 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # results must equal the host's IEEE arithmetic bit for bit, and
 # score_batch.cu the float32 scorer, held bit-equal to its plain torch
 # version: no fused multiply-add contraction, and no fast-math anywhere.
-# The LM kernels (flash attention, the fused MLP block, the SSD scan, the
-# RG-LRU scan) are held to their plain versions within a tolerance;
-# rglru_scan.cu spells its rounding out with intrinsics.
+# The LM kernels (flash attention and the fused MLP block, each as a SIMT
+# and a tensor-core source, the SSD scan, the RG-LRU scan) are held to their
+# plain versions within a tolerance; rglru_scan.cu spells its rounding out
+# with intrinsics.  Headers (*.cuh: tensor_core.cuh, the tensor-core
+# sources' PTX helpers) are hashed with the sources.
 SOURCES = {
     "alloc_scan.cu": (),
     "search_pipeline.cu": ("-fmad=false",),
     "score_batch.cu": ("-fmad=false",),
     "flash_attention.cu": (),
+    "flash_attention_tc.cu": (),
     "fused_block.cu": (),
+    "fused_block_tc.cu": (),
     "ssd_scan.cu": (),
     "rglru_scan.cu": (),
 }
@@ -76,6 +80,9 @@ def _digest() -> str:
         h.update(name.encode())
         h.update(" ".join(ARCH_FLAGS + COMMON_FLAGS + flags).encode())
         h.update((CSRC / name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -156,11 +163,22 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
         f, i, i, f,                 # scale, causal, window, softcap
         i, i, p]                    # is_bf16, device, stream
+    lib.flash_attention_tc_launch.argtypes = [
+        p, p, p, p,                 # q, k, v, o
+        i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
+        f, i, i, f,                 # scale, causal, window, softcap
+        i, p]                       # device, stream
     lib.fused_block_launch.argtypes = [
         p, p, p, p, p, p, p, p,     # x, scale, wg, wu, wd, post, out, part
         i, i, i, i, i,              # M, d, F, bf, splits
         i, i, i, f,                 # gated, gelu, sandwich, eps
         i, i, p]                    # is_bf16, device, stream
+    lib.fused_block_tc_launch.argtypes = [
+        p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
+        p, p, p,                    # scratch n, h, y
+        i, i, i,                    # M, d, F
+        i, i, i, f,                 # gated, gelu, sandwich, eps
+        i, p]                       # device, stream
     lib.ssd_scan_launch.argtypes = [
         p, p, p, p, p, p, p,        # x, dt, A, Bm, Cm, D, h0
         p, p,                       # y, hout
@@ -171,7 +189,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
                lib.cost_rows_launch, lib.argmin_rows_launch,
                lib.score_batch_launch, lib.flash_attention_launch,
-               lib.fused_block_launch, lib.ssd_scan_launch,
+               lib.flash_attention_tc_launch, lib.fused_block_launch,
+               lib.fused_block_tc_launch, lib.ssd_scan_launch,
                lib.rglru_scan_launch):
         fn.restype = ctypes.c_int
 

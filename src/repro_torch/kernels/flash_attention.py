@@ -13,11 +13,13 @@ Two implementations of the same function:
 * :func:`flash_attention_torch` -- the plain version, the JAX package's
   oracle ``kernels/ref.py::flash_attention_ref`` in torch: it materialises
   the float32 score matrix.
-* :func:`flash_attention_cuda` -- the hand-written kernel
-  (``csrc/flash_attention.cu``), which replaces the TPU kernel
-  ``repro/kernels/flash_attention.py::_kernel``: online softmax over key
-  tiles with whole masked tiles skipped; the design, and what bounds it,
-  are in the source.
+* :func:`flash_attention_cuda` -- the hand-written kernels, which replace
+  the TPU kernel ``repro/kernels/flash_attention.py::_kernel``: online
+  softmax over key tiles with whole masked tiles skipped, on the tensor
+  cores in bfloat16 (``csrc/flash_attention_tc.cu``), SIMT float32
+  otherwise (``csrc/flash_attention.cu``).  :func:`flash_attention_variant`
+  is the fixed rule that picks one; the designs, and what bounds them, are
+  in the sources.
 
 They agree to 2e-5 in float32 and to 2e-2 in bfloat16 (the kernel rounds the
 unnormalised probabilities to bfloat16 before ``p @ v``, the plain version
@@ -29,6 +31,7 @@ import torch
 
 NEG_INF = -1e30
 MAX_HD = 256
+VARIANTS = ("tensor_core", "simt")
 
 
 def _check(q, k, v):
@@ -70,11 +73,23 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 # ------------------------------------------------------------------- kernel
+def flash_attention_variant(dtype: torch.dtype, hd: int,
+                            aligned: bool = True) -> str:
+    """The kernel a CUDA call runs, by a fixed rule: ``"tensor_core"``
+    (``csrc/flash_attention_tc.cu``) for bfloat16 with hd a multiple of 8
+    and 16-byte aligned tensors (its copies are 16 bytes); ``"simt"``
+    (``csrc/flash_attention.cu``) for everything else.  float32 never takes
+    the tensor cores: they would compute in TF32."""
+    if dtype == torch.bfloat16 and hd % 8 == 0 and aligned:
+        return "tensor_core"
+    return "simt"
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0) -> torch.Tensor:
-    """The CUDA kernel (``csrc/flash_attention.cu``).  q, k, v are CUDA
-    tensors of one type, float32 or bfloat16, ``hd <= 256``; they are made
-    contiguous (the projections' reshapes already are).  Launches the
+    """The CUDA kernel :func:`flash_attention_variant` names.  q, k, v are
+    CUDA tensors of one type, float32 or bfloat16, ``hd <= 256``; they are
+    made contiguous (the projections' reshapes already are).  Launches the
     kernel or raises."""
     from repro_torch.kernels import _build
 
@@ -95,15 +110,24 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if q.numel() == 0:
         return out
     dev = q.device
+    variant = flash_attention_variant(
+        q.dtype, hd,
+        aligned=all(x.data_ptr() % 16 == 0 for x in (q, k, v, out)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, t, nh, nkv, hd, float(hd ** -0.5), int(causal),
+            int(window), float(softcap))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, t, nh, nkv, hd, float(hd ** -0.5), int(causal), int(window),
-        float(softcap), int(q.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "flash_attention")
+    if variant == "tensor_core":
+        err = lib.flash_attention_tc_launch(*args, dev.index or 0, stream)
+    else:
+        err = lib.flash_attention_launch(
+            *args, int(q.dtype == torch.bfloat16), dev.index or 0, stream)
+    _build.check(err, f"flash_attention ({variant})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_variant[variant] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

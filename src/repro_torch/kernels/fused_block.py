@@ -16,10 +16,13 @@ Two implementations of the same function:
   ``kernels/ref.py::fused_block_ref`` in torch: the normalised tile and
   ``h`` are rounded to the input type, the products are taken in float32
   (``preferred_element_type=float32`` there).
-* :func:`fused_block_cuda` -- the hand-written kernel
-  (``csrc/fused_block.cu``), which replaces the TPU kernel
-  ``repro/kernels/fused_block.py::_kernel``.  It keeps the rounding points
-  of the TPU kernel; the design, and what bounds it, are in the source.
+* :func:`fused_block_cuda` -- the hand-written kernels, which replace the
+  TPU kernel ``repro/kernels/fused_block.py::_kernel``: on bfloat16 two
+  tiled tensor-core products (``csrc/fused_block_tc.cu``), on float32 SIMT
+  row tiles (``csrc/fused_block.cu``).
+  :func:`fused_block_variant` is the fixed rule that picks one.  Both keep
+  the rounding points of the TPU kernel; the designs, and what bounds
+  them, are in the sources.
 
 On bfloat16 inputs the two agree to bfloat16 tolerance (2e-2), in float32 to
 2e-5; ``mlp_apply`` in the JAX package rounds at other points, so the kernel
@@ -31,8 +34,9 @@ import torch
 import torch.nn.functional as F
 
 EPS = 1e-6
-MAX_D = 2560            # the kernel keeps at most 10 columns per thread
+MAX_D = 2560            # the SIMT kernel keeps at most 10 columns a thread
 BLOCK_M = 8             # rows per block (csrc/fused_block.cu: BM)
+VARIANTS = ("tensor_core", "simt", "simt_split")
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -85,13 +89,46 @@ def fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale=None, *,
 
 
 # ------------------------------------------------------------------- kernel
+def fused_block_variant(dtype: torch.dtype, m: int, d: int, f: int,
+                        sms: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call of ``m`` rows runs, by a fixed rule:
+
+    * ``"tensor_core"`` (``csrc/fused_block_tc.cu``) -- bfloat16 with d
+      and F multiples of 8 and every tensor 16-byte aligned (its copies are
+      16 bytes): prefill and decode alike (at decode, M = 2, it is faster
+      than the split SIMT kernel too: ``PERF.md``);
+    * ``"simt"`` (``csrc/fused_block.cu``, one block per 8 rows) -- any
+      other input with a row tile for every one of the ``sms`` SMs (a
+      float32 prefill);
+    * ``"simt_split"`` (the same kernel with F split across blocks and a
+      second pass) -- the rest: a float32 decode (M = batch), short
+      unaligned bfloat16 inputs.
+
+    float32 never takes the tensor cores: they would compute in TF32.
+    """
+    if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
+            and aligned):
+        return "tensor_core"
+    return "simt" if -(-m // BLOCK_M) >= sms else "simt_split"
+
+
+def simt_slabs(variant: str, m: int, f: int, sms: int) -> tuple:
+    """``(bf, splits)`` of the SIMT kernel: ``"simt"`` walks F in slabs of
+    256 in one block per 8 rows; ``"simt_split"`` splits F across blocks in
+    slabs of 64 (aiming at two blocks per SM), added in a second pass."""
+    if variant == "simt":
+        return 256, 1
+    return 64, min(-(-f // 64), -(-2 * sms // -(-m // BLOCK_M)))
+
+
 def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                      act: str = "silu", gated: bool = True,
                      sandwich: bool = False,
                      eps: float = EPS) -> torch.Tensor:
-    """The CUDA block (``csrc/fused_block.cu``).  ``x`` and the weights are
-    contiguous CUDA tensors of one type, float32 or bfloat16; the scales
-    may be of any float type.  Launches the kernel or raises."""
+    """The CUDA block, the kernel :func:`fused_block_variant` names.  ``x``
+    and the weights are contiguous CUDA tensors of one type, float32 or
+    bfloat16; the scales may be of any float type.  Launches the kernel or
+    raises."""
     from repro_torch.kernels import _build
 
     _check(x, scale, w_gate, w_up, w_down, post_scale, gated, sandwich)
@@ -108,39 +145,52 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
         raise ValueError(act)
     m, d = x.shape
     f = w_up.shape[1]
-    if d > MAX_D:
-        raise ValueError(f"fused_block_cuda takes d <= {MAX_D}, got {d}")
     dev = x.device
     out = torch.empty_like(x)
     if m == 0:
         return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    variant = fused_block_variant(
+        x.dtype, m, d, f, sms,
+        aligned=all(t.data_ptr() % 16 == 0 for t in mats))
+    if variant != "tensor_core" and d > MAX_D:
+        raise ValueError(f"fused_block_cuda takes d <= {MAX_D} on the SIMT "
+                         f"kernel, got {d}")
     scale32 = scale.to(device=dev, dtype=torch.float32).contiguous()
     post32 = (post_scale.to(device=dev, dtype=torch.float32).contiguous()
               if sandwich else None)
-    m_tiles = -(-m // BLOCK_M)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # enough row tiles fill the card; otherwise F is split across blocks in
-    # slabs of 64 columns (aiming at two blocks per SM), added in a second
-    # pass
-    if m_tiles >= sms:
-        bf, splits = 256, 1
-    else:
-        bf = 64
-        splits = min(-(-f // bf), -(-2 * sms // m_tiles))
-    part = (torch.empty((splits, m, d), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    wg_ptr = w_gate.data_ptr() if gated else None
+    post_ptr = post32.data_ptr() if sandwich else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
-    err = lib.fused_block_launch(
-        x.data_ptr(), scale32.data_ptr(),
-        w_gate.data_ptr() if gated else None, w_up.data_ptr(),
-        w_down.data_ptr(), post32.data_ptr() if sandwich else None,
-        out.data_ptr(), part.data_ptr() if part is not None else None,
-        m, d, f, bf, splits, int(gated), int(act == "gelu"), int(sandwich),
-        float(eps), int(x.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "fused_block")
+    if variant == "tensor_core":
+        # scratch: the normalised rows, h, and (sandwich) y in float32
+        n = torch.empty_like(x)
+        h = torch.empty((m, f), dtype=x.dtype, device=dev)
+        y = (torch.empty((m, d), dtype=torch.float32, device=dev)
+             if sandwich else None)
+        err = lib.fused_block_tc_launch(
+            x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
+            w_down.data_ptr(), post_ptr, out.data_ptr(), n.data_ptr(),
+            h.data_ptr(), y.data_ptr() if sandwich else None, m, d, f,
+            int(gated), int(act == "gelu"), int(sandwich), float(eps),
+            dev.index or 0, stream)
+    else:
+        bf, splits = simt_slabs(variant, m, f, sms)
+        part = (torch.empty((splits, m, d), dtype=torch.float32, device=dev)
+                if splits > 1 else None)
+        err = lib.fused_block_launch(
+            x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
+            w_down.data_ptr(), post_ptr, out.data_ptr(),
+            part.data_ptr() if part is not None else None, m, d, f, bf,
+            splits, int(gated), int(act == "gelu"), int(sandwich),
+            float(eps), int(x.dtype == torch.bfloat16), dev.index or 0,
+            stream)
+    _build.check(err, f"fused_block ({variant})")
     fused_block_cuda.launches += 1
+    fused_block_cuda.launches_by_variant[variant] += 1
     return out
 
 
 fused_block_cuda.launches = 0
+fused_block_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -12,6 +12,9 @@ wrappers refuse CPU tensors (they launch or raise), and the kernels
 themselves are held against the plain versions on the card by
 ``chip_smoke.py``.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +30,7 @@ from repro.models.rglru import rglru_scan
 
 jax_rglru_model = jax.jit(rglru_scan)
 
-from repro_torch.kernels import kernel_wrappers, ops
+from repro_torch.kernels import _build, kernel_wrappers, ops
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
 from repro_torch.kernels.fused_block import (fused_block_cuda,
@@ -230,10 +233,153 @@ def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
 ], ids=["flash_attention", "fused_block", "rglru_scan", "ssd_scan"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: given CPU tensors it raises
-    before building anything, and counts no launch."""
-    from repro_torch.kernels import _build
+    before building anything, and counts no launch of any variant."""
+    from repro_torch.kernels import launch_counts_by_variant
     before = {n: fn.launches for n, fn in kernel_wrappers().items()}
+    variants = launch_counts_by_variant()
     with pytest.raises(ValueError, match="CUDA tensors"):
         call(torch.zeros)
     assert {n: fn.launches for n, fn in kernel_wrappers().items()} == before
+    assert launch_counts_by_variant() == variants
     assert _build._LIB is None
+
+
+# ------------------------------------------------- variants and the build
+SMS = 132                      # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("dtype,m,d,f,aligned,want", [
+    # the bfloat16 prefill of recurrentgemma-2b and gemma2's widths
+    (torch.bfloat16, 6144, 2560, 7680, True, "tensor_core"),
+    (torch.bfloat16, 300, 2304, 9216, True, "tensor_core"),
+    (torch.bfloat16, 333, 200, 344, True, "tensor_core"),
+    (torch.bfloat16, 64, 8, 8, True, "tensor_core"),
+    # decode (M = batch) too
+    (torch.bfloat16, 2, 2560, 7680, True, "tensor_core"),
+    (torch.bfloat16, 1, 8, 8, True, "tensor_core"),
+    # rows that 16-byte copies cannot take
+    (torch.bfloat16, 6144, 2560, 7684, True, "simt"),
+    (torch.bfloat16, 333, 200, 333, True, "simt_split"),
+    (torch.bfloat16, 333, 204, 344, True, "simt_split"),
+    (torch.bfloat16, 6144, 2560, 7680, False, "simt"),
+    # float32 never takes the tensor cores (TF32)
+    (torch.float32, 6144, 2560, 7680, True, "simt"),
+    (torch.float32, 2048, 2560, 7680, True, "simt"),
+    (torch.float32, 8 * SMS - 1, 2560, 7680, True, "simt"),
+    (torch.float32, 8 * SMS - 7, 2560, 7680, True, "simt"),
+    (torch.float32, 8 * SMS - 8, 2560, 7680, True, "simt_split"),
+    (torch.float32, 2, 2560, 7680, True, "simt_split"),
+])
+def test_fused_block_variant_rule(dtype, m, d, f, aligned, want):
+    from repro_torch.kernels.fused_block import VARIANTS, fused_block_variant
+    got = fused_block_variant(dtype, m, d, f, SMS, aligned=aligned)
+    assert got == want and got in VARIANTS
+
+
+@pytest.mark.parametrize("variant,m,f,want", [
+    ("simt", 2048, 7680, (256, 1)),
+    ("simt_split", 2, 7680, (64, 120)),       # F's 120 slabs cap the split
+    ("simt_split", 37, 333, (64, 6)),
+    ("simt_split", 3, 9216, (64, 144)),       # two blocks a SM
+])
+def test_fused_block_simt_slabs(variant, m, f, want):
+    from repro_torch.kernels.fused_block import simt_slabs
+    assert simt_slabs(variant, m, f, SMS) == want
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    (torch.bfloat16, 256, True, "tensor_core"),
+    (torch.bfloat16, 96, True, "tensor_core"),
+    (torch.bfloat16, 16, True, "tensor_core"),
+    (torch.bfloat16, 20, True, "simt"),
+    (torch.bfloat16, 256, False, "simt"),
+    (torch.float32, 256, True, "simt"),
+    (torch.float32, 16, True, "simt"),
+])
+def test_flash_attention_variant_rule(dtype, hd, aligned, want):
+    from repro_torch.kernels.flash_attention import (
+        VARIANTS, flash_attention_variant)
+    got = flash_attention_variant(dtype, hd, aligned=aligned)
+    assert got == want and got in VARIANTS
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    import importlib.util
+    path = REPO / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _global_functions():
+    pattern = re.compile(r"__global__\s+void\s+"
+                         r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {path.name: pattern.findall(path.read_text())
+            for path in sorted(_build.CSRC.glob("*.cu"))}
+
+
+def test_every_kernel_is_named_in_the_trace_names():
+    """chip_smoke.py sums each wrapper's device time over the trace entries
+    that name one of its kernels: a __global__ function missing there would
+    drop its time silently."""
+    smoke = _chip_smoke()
+    names = {n for names in smoke.TRACE_NAMES.values() for n in names}
+    found = _global_functions()
+    for source, kernels in found.items():
+        for kernel in kernels:
+            assert kernel in names, f"{source}: {kernel}"
+    # and no trace name is stale
+    assert names == {k for kernels in found.values() for k in kernels}
+    assert set(smoke.TRACE_NAMES) == set(kernel_wrappers())
+    # no name is a substring of another wrapper's kernel
+    for wrapper, own in smoke.TRACE_NAMES.items():
+        for other, theirs in smoke.TRACE_NAMES.items():
+            if other != wrapper:
+                assert not any(a in b for a in own for b in theirs)
+
+
+def test_every_cuda_source_is_built():
+    sources = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.SOURCES)
+    assert {"flash_attention_tc.cu", "fused_block_tc.cu"} <= sources
+    assert (_build.CSRC / "tensor_core.cuh").exists()
+
+
+def test_chip_smoke_names_each_variant_it_expects():
+    from repro_torch.kernels.flash_attention import VARIANTS as FA
+    from repro_torch.kernels.fused_block import VARIANTS as FB
+    smoke = _chip_smoke()
+    known = {"flash_attention": set(FA), "fused_block": set(FB)}
+    for arch, serve in smoke.LM_SERVES.items():
+        for key in ("launches_by_variant", "check_launches_by_variant"):
+            total = "launches" if key == "launches_by_variant" else \
+                "check_launches"
+            for name, by_variant in serve.get(key, {}).items():
+                assert set(by_variant) <= known[name], (arch, key)
+                assert sum(by_variant.values()) == serve[total][name]
+    rg = smoke.LM_SERVES["recurrentgemma-2b"]
+    assert rg["launches_by_variant"]["flash_attention"] == {"tensor_core": 8}
+    assert rg["check_launches_by_variant"]["fused_block"].get(
+        "tensor_core", 0) == 0
+    for name, info in smoke.KERNEL_INFO.items():
+        for source in [info["source"], *info.get("variants", {}).values()]:
+            assert (REPO / source).exists(), (name, source)
+
+
+def test_per_variant_counts_start_at_zero_after_reset():
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     reset_launch_counts)
+    flash_attention_cuda.launches_by_variant["tensor_core"] += 3
+    fused_block_cuda.launches_by_variant["simt_split"] += 2
+    fused_block_cuda.launches += 2
+    reset_launch_counts()
+    by_variant = launch_counts_by_variant()
+    assert set(by_variant) == {"flash_attention", "fused_block"}
+    assert all(n == 0 for v in by_variant.values() for n in v.values())
+    assert all(n == 0 for n in launch_counts().values())
+    assert set(by_variant["fused_block"]) == {"tensor_core", "simt",
+                                              "simt_split"}
