@@ -12,9 +12,11 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                kernels/csrc`` with ``nvcc`` (reported as set-up seconds).
 2. kernels  -- each of the nine kernels against its plain torch version on
                the GPU, at the shapes its path gives it.  K1-K4: yolov2
-               (26 groups), resnet152 (160) and efficientnet-b1 (139, with
-               SE side groups); cut-derived and random frame masks, all
-               three objectives, duplicated argmin keys.  K5, the float32
+               (26 groups), resnet152 (160), retinanet (119, the widest
+               slot map of K1's on-chip state: 7 lanes live at once) and
+               efficientnet-b1 (139, with SE side groups); cut-derived and
+               random frame masks, all three objectives, duplicated argmin
+               keys.  K5, the float32
                scorer: the engine's default batch of 1,024 candidates at
                resnet152's 160 groups, a chunk of 1,048,576 at yolov2's 26
                and 8 candidates at efficientnet-b1's 139 (the largest batch
@@ -37,14 +39,17 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                mamba2-2.7b's serving shape (batch 4, 2,048 tokens, 80 heads
                of 64, state 128, chunk 256) in bfloat16 and float32,
                at a ragged 2,000 tokens from a random initial state, with 8
-               groups of heads, and at a ragged chunk, head and state dim:
-               within 1e-4 in float32 and 2e-2 in bfloat16.  Each kernel and
+               groups of heads, and at a ragged chunk, head and state dim,
+               each in both types: y within 1e-4 in float32 and 2e-2 in
+               bfloat16, the state within 1e-4 in both.  K8 too picks its
+               kernel by a fixed rule (``ssd_scan_variant``: bfloat16 on
+               the tensor cores, float32 on the SIMT kernel).  Each kernel and
                its plain version are timed with CUDA events; K6 also beside
                ``scaled_dot_product_attention``, K7's prefill beside its
                three bfloat16 products alone in ``torch.matmul``
-               (``matmul_ms``); K6 and K7 also beside their SIMT kernels
-               on the same bfloat16 inputs, launched by their C entry
-               points (``earlier_design_ms``).
+               (``matmul_ms``); K6, K7 and K8 also beside their SIMT
+               kernels on the same bfloat16 inputs, launched by their C
+               entry points (``earlier_design_ms``).
 3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
                options (``engine="pipeline"`` on ``device="cuda"``, among
                them yolov2@416 with its full space of 7,962,624 cut tuples),
@@ -78,7 +83,7 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K9 18, K7 416 (K6 and K7 all on the tensor-core kernels);
                then mamba2-2.7b (64 layers, d 2,560, 80 heads of 64, state
                128), batch 4, a 2,048-token prompt, 16 tokens, exactly K8 64
-               and every other kernel 0.  Each: prefill / decode seconds,
+               (all on the tensor-core kernel) and every other kernel 0.  Each: prefill / decode seconds,
                tokens per second and peak memory; two more runs on the same
                weights, one traced for the kernels' device time.  Then
                each model at full width in float32, depth 4 (recurrentgemma
@@ -153,8 +158,8 @@ KERNEL_INFO = {
     "score_batch": {
         "source": "src/repro_torch/kernels/csrc/score_batch.cu",
         "replaces": "src/repro/kernels/score_batch.py:149"},
-    # K6 and K7: "source" is the kernel of the bfloat16 prefill (the serve's
-    # main path); "variants" every source the wrapper picks from
+    # K6, K7 and K8: "source" is the kernel of the bfloat16 prefill (the
+    # serve's main path); "variants" every source the wrapper picks from
     "flash_attention": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
@@ -170,8 +175,11 @@ KERNEL_INFO = {
             "simt": "src/repro_torch/kernels/csrc/fused_block.cu",
             "simt_split": "src/repro_torch/kernels/csrc/fused_block.cu"}},
     "ssd_scan": {
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:26"},
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:26",
+        "variants": {
+            "tensor_core": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
+            "simt": "src/repro_torch/kernels/csrc/ssd_scan.cu"}},
     "rglru_scan": {
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:25"},
@@ -435,7 +443,7 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
     torch.cuda.synchronize()
 
     out = {"net": net, "B": B, "G": G, "runs": nr, "L": rows_main.shape[1],
-           "errs": errs}
+           "alloc_slots": at.slots.width, "errs": errs}
     if not timed:
         return out
     frame, res_k, res_p = runs["cut masks"]
@@ -573,9 +581,13 @@ LM_SERVES = {
         # an SSD scan per layer (64) in the prefill (8 chunks of 256); the
         # ssm layers have no MLP, and decode is plain torch
         "launches": {"ssd_scan": 64},
+        # bfloat16: all on the tensor cores
+        "launches_by_variant": {"ssd_scan": {"tensor_core": 64}},
         # depth 4, 1,000 tokens: three chunks of 256 and a ragged one of 232
         "check": {"n_layers": 4, "batch": 2, "prompt_len": 1000},
-        "check_launches": {"ssd_scan": 4}},
+        "check_launches": {"ssd_scan": 4},
+        # float32 runs on the SIMT kernel
+        "check_launches_by_variant": {"ssd_scan": {"simt": 4}}},
 }
 LM_ARCH = "recurrentgemma-2b"        # K6, K7, K9 are checked at its shapes
 SSD_ARCH = "mamba2-2.7b"             # K8 at its shapes
@@ -662,12 +674,13 @@ def ssd_multiply_adds(b, s, h, g, p, n, chunk):
 def ssd_bound(b, s, h, g, p, n, chunk, itemsize):
     """K8 from a given state (the serve passes its cache's): x, B, C, dt,
     A, D and h0 read and y and the state written once; two operations a
-    multiply-add at the float32 vector rate (the function takes every
-    input to float32 before its products, as the TPU kernel does)."""
+    multiply-add at the tensor-core rate of the input type (bfloat16: its
+    products of bfloat16 x, B and C are exact there; float32: the vector
+    rate), as ``flash_bound``."""
     n_bytes = (itemsize * (2 * b * s * h * p + 2 * b * s * g * n)
                + 4 * (b * s * h + 2 * h) + 4 * 2 * b * h * p * n)
     return bound(n_bytes, 2 * ssd_multiply_adds(b, s, h, g, p, n, chunk),
-                 PEAK_F32_OPS_PER_S)
+                 lm_peak(itemsize))
 
 
 def ran_variant(wrapper, call):
@@ -1000,12 +1013,14 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
     state: at the full-width shape of SSD_ARCH's serve in bfloat16 and in
     float32, at a ragged length with a non-zero initial state, with 8
     groups (the head -> group map), and at a ragged chunk, head dim and
-    state dim.  B and C are the two halves of one projection, read in
-    place, as the model hands them over.  Returns ``{"errs", "cases"[,
-    "times"]}``; the time is a launch through the wrapper by CUDA events
-    at the serve's shape, from the zero state of a fresh cache, beside the
-    plain version's.  No single PyTorch call computes the scan (no
-    library time)."""
+    state dim, each in both types; every case names the variant it must
+    run (bfloat16: the tensor cores).  B and C are the two halves of one
+    projection, read in place, as the model hands them over.  Returns
+    ``{"errs", "cases", "against_float64"[, "times"]}``; the time is a
+    launch through the wrapper by CUDA events at the serve's shape, from
+    the zero state of a fresh cache, beside the plain version's and the
+    SIMT kernel's on the same bfloat16 inputs (``earlier_design_ms``).  No
+    single PyTorch call computes the scan (no library time)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -1038,32 +1053,43 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
 
     errs, cases = {"ssd_scan": 0.0}, []
     serve_in = inputs(b, s, h, g, p, n, bf16, "zero")
+    tc, simt = "tensor_core", "simt"
     ssd_cases = [
-        ("serve shape bf16, the zero state of a fresh cache", serve_in, q),
+        ("serve shape bf16, the zero state of a fresh cache", serve_in, q,
+         tc),
         ("serve shape float32, no state", inputs(b, s, h, g, p, n, f32, None),
-         q),
+         q, simt),
         ("ragged S 2000, random h0, bf16",
-         inputs(b, 2000, h, g, p, n, bf16, "random"), q),
+         inputs(b, 2000, h, g, p, n, bf16, "random"), q, tc),
         ("ragged S 2000, random h0, float32",
-         inputs(2, 2000, h, g, p, n, f32, "random"), q),
+         inputs(2, 2000, h, g, p, n, f32, "random"), q, simt),
         ("8 groups of 10 heads, S 777, random h0, float32",
-         inputs(2, 777, h, 8, p, n, f32, "random"), q),
+         inputs(2, 777, h, 8, p, n, f32, "random"), q, simt),
         ("8 groups of 10 heads, S 777, random h0, bf16",
-         inputs(2, 777, h, 8, p, n, bf16, "random"), q),
+         inputs(2, 777, h, 8, p, n, bf16, "random"), q, tc),
         ("p 24, n 40, 6 heads in 3 groups, chunk 100, S 333, float32",
-         inputs(3, 333, 6, 3, 24, 40, f32, "random"), 100),
+         inputs(3, 333, 6, 3, 24, 40, f32, "random"), 100, simt),
+        # every dimension off the tensor-core kernel's tiles
+        ("p 24, n 40, 6 heads in 3 groups, chunk 100, S 333, bf16",
+         inputs(3, 333, 6, 3, 24, 40, bf16, "random"), 100, tc),
     ]
     float64 = {}
-    for what, args, chunk in ssd_cases:
+    for what, args, chunk, variant in ssd_cases:
         tol = SSD_TOL[str(args[0].dtype).split(".")[-1]]
-        y_k, st_k = ss.ssd_scan_cuda(*args, chunk=chunk)
+        (y_k, st_k), ran = ran_variant(
+            ss.ssd_scan_cuda, lambda: ss.ssd_scan_cuda(*args, chunk=chunk))
+        log(f"  ssd_scan {what}: ran the {ran} kernel")
+        require(ran == variant,
+                f"ssd_scan {what}: ran the {ran} kernel, not {variant}")
         y_p, st_p = ss.ssd_scan_torch(*args, chunk=chunk)
         require_close("ssd_scan", y_k, y_p, what + ": y", tol, errs, cases)
+        cases[-1]["variant"] = ran
         require_close("ssd_scan", st_k, st_p, what + ": state",
                       SSD_TOL["float32"], errs, cases)
-        if what.startswith("serve shape float32"):
+        cases[-1]["variant"] = ran
+        if what.startswith("serve shape"):
             y_64, st_64 = ssd_float64(*args, chunk)
-            float64 = {
+            float64[ran] = {
                 "case": what, "max_abs_y": float(y_64.abs().max()),
                 "kernel_y": max_abs_err(y_k, y_64),
                 "plain_y": max_abs_err(y_p, y_64),
@@ -1071,7 +1097,7 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
                 "plain_state": max_abs_err(st_p, st_64)}
             del y_64, st_64
             log(f"  ssd_scan against a float64 evaluation: "
-                f"{json.dumps(float64)}")
+                f"{json.dumps(float64[ran])}")
     torch.cuda.synchronize()
     out = {"errs": errs, "cases": cases, "against_float64": float64}
     if not timed:
@@ -1089,13 +1115,51 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
     k2 = time_ms(kernel, reps=reps, warmup=0)
     p2 = time_ms(plain, reps=2, warmup=0)
     bnd = ssd_bound(b, s, h, g, p, n, q, 2)
+    earlier_ms, earlier_err = ssd_earlier_design_time(serve_in, q, reps)
     out["times"] = {"ssd_scan": {
         "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bnd[0],
         "bound_by": bnd[1], "library_ms": None,
+        "earlier_design_ms": earlier_ms,
+        "earlier_design_max_abs_err": earlier_err,
         "multiply_adds": ssd_multiply_adds(b, s, h, g, p, n, q),
         "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
-                      dtype="bfloat16", h0="zero")}}
+                      dtype="bfloat16", h0="zero",
+                      variant=ran_variant(ss.ssd_scan_cuda, kernel)[1])}}
     return out
+
+
+def ssd_earlier_design_time(serve_in, chunk, reps):
+    """``(ms, max abs err of y against the plain version)`` of the SIMT
+    kernel (``csrc/ssd_scan.cu``) on the bfloat16 serve inputs that the
+    tensor-core kernel now takes, launched through its C entry point with
+    the arguments the wrapper gave it: the earlier design, timed in the same
+    run.  These launches go through no wrapper and count nowhere."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ssd_scan as ss
+
+    x, dt, A, Bm, Cm, D, h0 = serve_in
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    lib = _build.load()
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+
+    def run():
+        _build.check(lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            state.data_ptr(), b, s, h, g, p, n, chunk, Bm.stride(1), 1, dev,
+            stream), "ssd_scan (earlier design)")
+        return y
+    want = ss.ssd_scan_torch(*serve_in, chunk=chunk)[0]
+    err = max_abs_err(run(), want)
+    rtol, atol = SSD_TOL["bfloat16"]
+    require(torch.allclose(run().float(), want.float(), rtol=rtol, atol=atol),
+            f"ssd_scan, earlier design: max abs err {err}")
+    return min(time_ms(run, reps=reps, warmup=1) for _ in range(2)), err
 
 
 # ------------------------------------------------------------------ serve
@@ -1119,7 +1183,8 @@ TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
                                "fused_block_up_kernel",
                                "fused_block_down_kernel",
                                "fused_block_post_kernel"),
-               "ssd_scan": ("ssd_scan_kernel",),
+               "ssd_scan": ("ssd_scan_kernel", "ssd_tc_chunk_state_kernel",
+                            "ssd_tc_output_kernel"),
                "rglru_scan": ("rglru_scan_kernel",)}
 
 
@@ -1557,7 +1622,7 @@ def main(argv=None) -> int:
     log(f"set-up: kernels built in {_build.build_seconds:.1f} s")
 
     if args.kernels_only:
-        for net in ("yolov2", "resnet152", "efficientnet-b1"):
+        for net in ("yolov2", "resnet152", "retinanet", "efficientnet-b1"):
             r = check_kernels(net, target=20000, timed=False, reps=0)
             log(f"kernels equal their plain versions: {json.dumps(r)}")
         r = check_scorer((("resnet152", 1024), ("yolov2", 20000)),
@@ -1574,12 +1639,14 @@ def main(argv=None) -> int:
     checks = {}
     for net, target, timed in (("yolov2", CHUNK * 8, True),
                                ("resnet152", CHUNK, True),
+                               ("retinanet", CHUNK, True),
                                ("efficientnet-b1", 200000, False)):
         t0 = time.perf_counter()
         checks[net] = check_kernels(net, target, timed, reps=10)
         c = checks[net]
         log(f"kernels == plain versions at {net} shapes "
-            f"(B={c['B']}, G={c['G']}, runs={c['runs']}): max abs err "
+            f"(B={c['B']}, G={c['G']}, runs={c['runs']}, K1 slots "
+            f"{c['alloc_slots']}): max abs err "
             f"{c['errs']} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     scorer = check_scorer(SCORER_SHAPES, timed=True, reps=20)
@@ -1638,10 +1705,11 @@ def main(argv=None) -> int:
             "backend": backend, "path": sig["path"],
             "evaluated": sig["evaluated"], "wall_s": seconds,
             "candidates_per_s": sig["evaluated"] / seconds}))
-    for net in ("yolov2", "resnet152"):
+    for net in ("yolov2", "resnet152", "retinanet"):
         c = checks[net]
         log(json.dumps({"kernel_times_at": net, "B": c["B"], "G": c["G"],
-                        "L": c["L"], "alloc_ops_per_candidate":
+                        "L": c["L"], "alloc_slots": c["alloc_slots"],
+                        "alloc_ops_per_candidate":
                             c["alloc_ops_per_candidate"],
                         "times": c["times"]}))
     by_sweep = {name: {f"{e}+{b}": launches[e, b][name]
@@ -1662,6 +1730,13 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": {"B": main_shape["B"], "G": main_shape["G"],
                       "L": main_shape["L"]}})
+        if name == "alloc_scan":
+            kernels[-1]["slots"] = main_shape["alloc_slots"]
+            kernels[-1]["at_other_shapes"] = {
+                net: {"B": checks[net]["B"], "G": checks[net]["G"],
+                      "slots": checks[net]["alloc_slots"],
+                      **checks[net]["times"][name]}
+                for net in ("resnet152", "retinanet")}
     info = KERNEL_INFO["score_batch"]
     t, chunk, descent = (scorer[net] for net, _b in SCORER_SHAPES)
     kernels.append({

@@ -15,7 +15,8 @@ beside its plain torch version:
                           the tensor cores in bfloat16)
     fused_block.py     -- the fused residual MLP block of every LM layer
                           (two tensor-core products in bfloat16)
-    ssd_scan.py        -- the Mamba-2 SSD chunked scan of a prefill
+    ssd_scan.py        -- the Mamba-2 SSD chunked scan of a prefill (on
+                          the tensor cores in bfloat16)
     rglru_scan.py      -- the RG-LRU linear recurrence of a prefill
     ops.py             -- the LM kernels' dispatch: kernel on CUDA, plain
                           version on the CPU
@@ -30,7 +31,7 @@ from __future__ import annotations
 def kernel_wrappers() -> dict:
     """name -> the wrapper that launches that kernel.  Each wrapper counts
     its launches in its ``launches`` attribute; a wrapper that picks one of
-    several kernels (K6, K7) also counts them apart in
+    several kernels (K6, K7, K8) also counts them apart in
     ``launches_by_variant``."""
     from repro_torch.kernels.alloc_scan import alloc_scan_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda

@@ -32,8 +32,8 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # results must equal the host's IEEE arithmetic bit for bit, and
 # score_batch.cu the float32 scorer, held bit-equal to its plain torch
 # version: no fused multiply-add contraction, and no fast-math anywhere.
-# The LM kernels (flash attention and the fused MLP block, each as a SIMT
-# and a tensor-core source, the SSD scan, the RG-LRU scan) are held to their
+# The LM kernels (flash attention, the fused MLP block and the SSD scan,
+# each as a SIMT and a tensor-core source, the RG-LRU scan) are held to their
 # plain versions within a tolerance; rglru_scan.cu spells its rounding out
 # with intrinsics.  Headers (*.cuh: tensor_core.cuh, the tensor-core
 # sources' PTX helpers) are hashed with the sources.
@@ -46,6 +46,7 @@ SOURCES = {
     "fused_block.cu": (),
     "fused_block_tc.cu": (),
     "ssd_scan.cu": (),
+    "ssd_scan_tc.cu": (),
     "rglru_scan.cu": (),
 }
 
@@ -141,9 +142,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
     lib.alloc_scan_launch.argtypes = [
-        p, p, p, p, p,              # frame, steps, wr_cand, rem0, loc0
-        p, p, p, p, p,              # rem, loc, bw, io, stats
-        ll, i, i, i, p]             # B, n, k, device, stream
+        p, p, p, p, p,              # frame, steps, slots, io, stats
+        ll, i, i, i,                # B, n, k, lw
+        i, i, i,                    # input_slot, input_meta, W
+        i, p]                       # device, stream
     lib.enum_frames_launch.argtypes = [
         p, p, p, p, p,              # digits, run_of, pos_of, dir_neg, frame
         ll, ll, i, i, i, p]         # lo, B, n, nr, device, stream
@@ -184,6 +186,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,                       # y, hout
         i, i, i, i, i, i, i,        # B, S, H, G, P, N, Q
         ll, i, i, p]                # bc_stride, is_bf16, device, stream
+    lib.ssd_scan_tc_launch.argtypes = [
+        p, p, p, p, p, p, p,        # x, dt, A, Bm, Cm, D, h0
+        p, p, p, p,                 # y, hout, scratch states, sync
+        i, i, i, i, i, i, i,        # B, S, H, G, P, N, Q
+        ll, i, p]                   # bc_stride, device, stream
     lib.rglru_scan_launch.argtypes = [p, p, p, i, i, i, i, p]  # a, b, h,
     #                                                  B, S, W, device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
@@ -191,7 +198,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.score_batch_launch, lib.flash_attention_launch,
                lib.flash_attention_tc_launch, lib.fused_block_launch,
                lib.fused_block_tc_launch, lib.ssd_scan_launch,
-               lib.rglru_scan_launch):
+               lib.ssd_scan_tc_launch, lib.rglru_scan_launch):
         fn.restype = ctypes.c_int
 
 

@@ -37,17 +37,19 @@ Two implementations of the same function, bit-identical on every integer:
 ``repro/kernels/alloc_scan.py::_alloc_kernel``.  That version runs the
 group axis as the sequential trailing grid dimension with the state in
 scratch memory and addresses per-gid lanes with one-hot masks.  Here one
-thread replays one candidate with the loop over groups inside the kernel,
-and every lane the rule touches at step g is a per-group constant, so the
-state rows are stored lane-major ``[n+2][B]`` and a warp's 32 candidates
-read and write 32 neighbouring addresses.  What bounds it on the card: the
-least it must move is the frame bits in and ``io`` and seven stats out
-(about ``5 * n + 28`` bytes per candidate), and each step costs on the order
+thread replays one candidate with the loop over groups inside the kernel.
+Every lane the rule touches at step g is a per-group constant, and only a
+few lanes are live at once: a lane lives from its producer's step (the
+graph input from the start) to its last reader.  :func:`lane_slots`
+colours those live ranges with W slots -- the paper's reuse-aware static
+allocation, applied to the replay's own state -- and the kernel keeps each
+candidate's ``rem`` / ``loc`` / ``bw`` / ``io`` for the W slots in shared
+memory (W is 2-7 on the zoo).  Global memory sees only the function's own
+traffic: the frame bits in, each lane's ``io`` out when its range ends,
+seven stats out.  What bounds it on the card: the least it must move is
+about ``5 * n + 28`` bytes per candidate, and each step costs on the order
 of a hundred integer operations per candidate, which at the card's integer
-rate is the larger of the two times -- so the design keeps the per-step
-work to compares and selects on registers, and spends memory traffic
-instead: its own state rows (about ``10 * (n+2)`` bytes per candidate) go
-through global memory, coalesced.
+rate is the larger of the two times.
 """
 from __future__ import annotations
 
@@ -79,6 +81,88 @@ _STEP_FIXED = 8
 
 TABLE_FIELDS = ("is_side", "gin", "src_size", "main", "sc", "sc_size",
                 "in_size", "out_size", "wr_cand", "spill_ok", "rem0", "loc0")
+
+# the most slots the kernel's wrapper takes (W x 8 bytes a candidate of
+# shared memory, csrc/alloc_scan.cu: 128 KB a block of 128 candidates at
+# 128), and the widest fan-in its step loops are unrolled to
+MAX_SLOTS = 128
+MAX_FAN_IN = 64
+
+
+@dataclass(frozen=True)
+class LaneSlots:
+    """A static slot map of the replay's lanes (see :func:`lane_slots`)."""
+    start: np.ndarray          # (n+2,) first step the lane is live (sink: -1)
+    end: np.ndarray            # (n+2,) its last reader's step (sink: -1)
+    slot: np.ndarray           # (n+2,) int32 slot (sink: -1)
+    width: int                 # W: slots in use, the most lanes live at once
+    ends: tuple                # per step, the lanes < n whose range ends there
+
+
+def lane_slots(gin: np.ndarray, main: np.ndarray,
+               sc: np.ndarray) -> LaneSlots:
+    """Colour the lanes' live ranges with the fewest slots.
+
+    Lane ``g < n`` lives from step g, which produces it, to the last step
+    that reads it as a producer (``gin``), main operand or shortcut source;
+    the graph-input lane ``n`` from step 0; the sink ``n + 1`` holds no
+    state.  Two lanes live at one step never share a slot (both are read or
+    written in it).  The ranges form an interval graph, so greedy colouring
+    by start, lowest free slot first, uses exactly as many slots as the
+    most ranges that overlap."""
+    n = gin.shape[0]
+    ni, sink = n, n + 1
+    start = np.full(n + 2, -1, dtype=np.int64)
+    start[:n + 1] = np.append(np.arange(n), 0)
+    end = start.copy()
+    for g in range(n):
+        for lane in (*gin[g], main[g], sc[g]):
+            if lane != sink:
+                end[lane] = max(end[lane], g)
+    slot = np.full(n + 2, -1, dtype=np.int32)
+    free_at = []                   # per slot: the step after its lane's end
+    for lane in sorted(range(n + 1), key=lambda x: (start[x], x)):
+        s = next((i for i, f in enumerate(free_at) if f <= start[lane]),
+                 len(free_at))
+        if s == len(free_at):
+            free_at.append(0)
+        free_at[s] = end[lane] + 1
+        slot[lane] = s
+    ends = tuple(tuple(int(x) for x in np.flatnonzero(end[:n] == g))
+                 for g in range(n))
+    return LaneSlots(start=start, end=end, slot=slot, width=len(free_at),
+                     ends=ends)
+
+
+def _meta(rem0, loc0):
+    """A lane's packed state as the kernel keeps it in a slot: ``rem << 8 |
+    bw << 4 | loc`` (bw 0 at the start; rem is a consumer count, at most
+    n, and loc a code below 16)."""
+    return (np.asarray(rem0, np.int64) << 8) | np.asarray(loc0, np.int64)
+
+
+def _slot_table(gin, main, sc, rem0, loc0, wr_cand,
+                slots: LaneSlots) -> np.ndarray:
+    """The kernel's per-step table of what a step reads beside the step
+    table: the slots of its own lane, main operand and shortcut (-1: the
+    sink), its lane's initial packed state (:func:`_meta`), its k
+    producers' slots and frame write-buffer candidates, then how many
+    lanes end at the step, their lanes and their slots (padded with -1)."""
+    n, k = gin.shape
+    e = max([1] + [len(x) for x in slots.ends])
+    out = np.full((n, 5 + 2 * k + 2 * e), -1, dtype=np.int64)
+    out[:, 0] = slots.slot[:n]
+    out[:, 1] = slots.slot[main]
+    out[:, 2] = slots.slot[sc]              # the sink's slot is -1
+    out[:, 3] = _meta(rem0[:n], loc0[:n])
+    out[:, 4:4 + k] = slots.slot[gin]
+    out[:, 4 + k:4 + 2 * k] = wr_cand[gin]
+    for g, ended in enumerate(slots.ends):
+        out[g, 4 + 2 * k] = len(ended)
+        out[g, 5 + 2 * k:5 + 2 * k + len(ended)] = ended
+        out[g, 5 + 2 * k + e:5 + 2 * k + e + len(ended)] = \
+            slots.slot[list(ended)]
+    return out
 
 
 @dataclass(frozen=True)
@@ -112,6 +196,7 @@ class AllocScanTables:
     # integer width): the DRAM boundary total ``bfm`` adds at most each
     # group's producer bytes plus its own output bytes
     fits_int32: bool
+    slots: LaneSlots           # the kernel's static slot map of the lanes
 
     @classmethod
     def from_numpy(cls, fields: dict, device="cpu") -> "AllocScanTables":
@@ -137,6 +222,7 @@ class AllocScanTables:
         steps[:, _STEP_FIXED:_STEP_FIXED + k] = f["gin"]
         steps[:, _STEP_FIXED + k:] = src_size
         rem0 = f["rem0"].astype(np.int64)
+        slots = lane_slots(f["gin"], f["main"], f["sc"])
 
         def i32(a):
             return torch.from_numpy(
@@ -146,9 +232,9 @@ class AllocScanTables:
             "rem0": torch.from_numpy(rem0).to(device),
             "loc0": torch.from_numpy(f["loc0"].astype(np.int64)).to(device),
             "steps32": i32(steps),
-            "wr_cand32": i32(f["wr_cand"].astype(np.int64)),
-            "rem032": i32(rem0),
-            "loc08": torch.from_numpy(f["loc0"].astype(np.int8)).to(device),
+            "slots32": i32(_slot_table(
+                f["gin"], f["main"], f["sc"], rem0, f["loc0"].astype(np.int64),
+                f["wr_cand"].astype(np.int64), slots)),
         }
         # the tensors' own device: "cuda" has become "cuda:0" by now
         device = dev["rem0"].device
@@ -162,7 +248,7 @@ class AllocScanTables:
                    wr_cand=f["wr_cand"].astype(np.int64),
                    spill_ok=f["spill_ok"].astype(bool), rem0=rem0,
                    loc0=f["loc0"].astype(np.int8), device=device, dev=dev,
-                   fits_int32=biggest <= _INT32_MAX)
+                   fits_int32=biggest <= _INT32_MAX, slots=slots)
 
 
 @dataclass(frozen=True)
@@ -424,10 +510,20 @@ def alloc_scan_cuda(t: AllocScanTables,
 
     ``frame`` is a (B, G) bool or uint8 CUDA tensor; lane-major storage
     (as :func:`~repro_torch.kernels.search_pipeline.enum_frames_cuda`
-    writes it) is read in place, anything else is copied once.  Launches
-    the kernel or raises -- there is no other path."""
+    writes it) is read in place, anything else is copied once.  A graph
+    whose live lanes need more than ``MAX_SLOTS`` slots is refused.
+    Launches the kernel or raises -- there is no other path."""
     from repro_torch.kernels import _build
 
+    if t.slots.width > MAX_SLOTS:
+        raise ValueError(
+            f"alloc_scan_cuda: this graph keeps {t.slots.width} lanes live "
+            f"at once, more than the {MAX_SLOTS} slots of shared memory the "
+            f"kernel holds a candidate's state in; use the plain version")
+    if t.k > MAX_FAN_IN:
+        raise ValueError(f"alloc_scan_cuda: a group reads {t.k} producers, "
+                         f"more than the kernel's {MAX_FAN_IN}; use the "
+                         f"plain version")
     if not frame.is_cuda or frame.device != t.device:
         raise ValueError(f"alloc_scan_cuda wants a CUDA frame on the "
                          f"tables' device {t.device}, got {frame.device}")
@@ -442,25 +538,24 @@ def alloc_scan_cuda(t: AllocScanTables,
             "integer width; use the plain version (int64)")
     B, n = frame.shape
     dev = t.device
-    io = torch.empty((n + 2, B), dtype=torch.int32, device=dev)
+    io = torch.empty((n, B), dtype=torch.int32, device=dev)
     stats = torch.empty((N_STATS, B), dtype=torch.int32, device=dev)
     if B == 0:
-        return AllocScanResult(io=io[:n].t(), stats=stats.t())
+        return AllocScanResult(io=io.t(), stats=stats.t())
     frame_lm = lane_major(frame.view(torch.uint8)
                           if frame.dtype == torch.bool else frame)
-    rem = torch.empty((n + 2, B), dtype=torch.int32, device=dev)
-    loc = torch.empty((n + 2, B), dtype=torch.int8, device=dev)
-    bw = torch.empty((n + 2, B), dtype=torch.uint8, device=dev)
+    slots = t.dev["slots32"]
     lib = _build.load()
+    ni = t.input_idx
     err = lib.alloc_scan_launch(
-        frame_lm.data_ptr(), t.dev["steps32"].data_ptr(),
-        t.dev["wr_cand32"].data_ptr(), t.dev["rem032"].data_ptr(),
-        t.dev["loc08"].data_ptr(), rem.data_ptr(), loc.data_ptr(),
-        bw.data_ptr(), io.data_ptr(), stats.data_ptr(), B, n, t.k,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+        frame_lm.data_ptr(), t.dev["steps32"].data_ptr(), slots.data_ptr(),
+        io.data_ptr(), stats.data_ptr(), B, n, t.k, slots.shape[1],
+        int(t.slots.slot[ni]), int(_meta(t.rem0[ni], t.loc0[ni])),
+        t.slots.width, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "alloc_scan")
     alloc_scan_cuda.launches += 1
-    return AllocScanResult(io=io[:n].t(), stats=stats.t())
+    return AllocScanResult(io=io.t(), stats=stats.t())
 
 
 alloc_scan_cuda.launches = 0

@@ -25,14 +25,19 @@ Two implementations of the same function:
   order, the quadratic form within a chunk and the state carried across,
   float32 throughout; a ragged last chunk is padded with ``dt = 0`` (no
   state change, no contribution).
-* :func:`ssd_scan_cuda` -- the hand-written kernel (``csrc/ssd_scan.cu``),
-  which replaces the TPU kernel ``repro/kernels/ssd_scan.py::_kernel``: the
-  same chunked form, reading ``h0`` and writing the final state (the TPU
-  kernel starts from 0 and keeps its state on chip), the ragged chunk
-  masked in place; the design, and what bounds it, are in the source.
+* :func:`ssd_scan_cuda` -- the hand-written kernels, which replace the TPU
+  kernel ``repro/kernels/ssd_scan.py::_kernel``: the same chunked form,
+  reading ``h0`` and writing the final state (the TPU kernel starts from 0
+  and keeps its state on chip), the ragged chunk masked in place; on the
+  tensor cores for bfloat16 (``csrc/ssd_scan_tc.cu``: the chunks' states,
+  chained in chunk order, then the outputs; the float32 operands split
+  into bfloat16 hi + lo), SIMT float32 otherwise (``csrc/ssd_scan.cu``).
+  :func:`ssd_scan_variant` is the fixed rule that picks one; the designs,
+  and what bounds them, are in the sources.
 
 They agree to 1e-4 in float32 and to 2e-2 in bfloat16 (the sums run in
-other orders; ``y`` is rounded at the same point).
+other orders; ``y`` is rounded at the same point); the final state to 1e-4
+on both.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 MAX_P = 64              # csrc/ssd_scan.cu: PMAX
 MAX_N = 128             # csrc/ssd_scan.cu: NMAX
 MAX_CHUNK = 4096        # the chunk's four float32 rows fit in shared memory
+VARIANTS = ("tensor_core", "simt")
 
 
 def _check(x, dt, A, Bm, Cm, D, h0):
@@ -129,13 +135,23 @@ def _token_major(t: torch.Tensor) -> bool:
     return st[3] == 1 and (g == 1 or st[2] == n) and st[0] == s * st[1]
 
 
+def ssd_scan_variant(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call runs, by a fixed rule: ``"tensor_core"``
+    (``csrc/ssd_scan_tc.cu``) for bfloat16 x, B and C; ``"simt"``
+    (``csrc/ssd_scan.cu``) for float32, which the tensor cores would take in
+    TF32."""
+    return "tensor_core" if dtype == torch.bfloat16 else "simt"
+
+
 def ssd_scan_cuda(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int):
-    """The CUDA kernel (``csrc/ssd_scan.cu``).  x, Bm, Cm are CUDA tensors
-    of one type, float32 or bfloat16; dt, A, D, h0 float32; ``p <= 64``,
-    ``n <= 128``.  Bm and Cm are read in place when their tokens lie at one
-    stride (a slice of the model's projection), x and dt are made
-    contiguous.  Returns ``(y, final_state)``.  Launches the kernel or
-    raises."""
+    """The CUDA kernel :func:`ssd_scan_variant` names.  x, Bm, Cm are CUDA
+    tensors of one type, float32 or bfloat16; dt, A, D, h0 float32; ``p <=
+    64``, ``n <= 128``.  Bm and Cm are read in place when their tokens lie
+    at one stride (a slice of the model's projection), x and dt are made
+    contiguous.  The tensor-core kernel takes a float32 scratch of the
+    state after each chunk, ``b * h * ceil(s / chunk) * p * n`` (84 MB at
+    mamba2-2.7b's serve), and the chunks' zeroed tickets and flags.
+    Returns ``(y, final_state)``.  Launches the kernel or raises."""
     from repro_torch.kernels import _build
 
     _check(x, dt, A, Bm, Cm, D, h0)
@@ -164,16 +180,32 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, h0=None, *, chunk: int):
     if x.numel() == 0:
         return y, (torch.zeros_like(state) if h0 is None else h0.clone())
     dev = x.device
+    variant = ssd_scan_variant(x.dtype)
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            state.data_ptr())
+    shape = (b, s, h, g, p, n, chunk, Bm.stride(1))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, s, h, g, p, n, chunk,
-        Bm.stride(1), int(x.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ssd_scan")
+    if variant == "tensor_core":
+        # the state after each chunk, and the chunks' tickets and flags
+        nc = -(-s // chunk)
+        states = torch.empty((b * h * nc * p * n,), dtype=torch.float32,
+                             device=dev)
+        sync = torch.zeros((1 + b * h * nc,), dtype=torch.int32, device=dev)
+        err = lib.ssd_scan_tc_launch(*args, states.data_ptr(),
+                                     sync.data_ptr(), *shape,
+                                     dev.index or 0, stream)
+    else:
+        err = lib.ssd_scan_launch(*args, *shape,
+                                  int(x.dtype == torch.bfloat16),
+                                  dev.index or 0, stream)
+    _build.check(err, f"ssd_scan ({variant})")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.launches_by_variant[variant] += 1
     return y, state
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)

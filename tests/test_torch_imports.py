@@ -86,7 +86,7 @@ def test_port_has_the_modules_of_the_slice():
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",
                     "flash_attention.cu", "flash_attention_tc.cu",
                     "fused_block.cu", "fused_block_tc.cu", "rglru_scan.cu",
-                    "ssd_scan.cu"}
+                    "ssd_scan.cu", "ssd_scan_tc.cu"}
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == csrc
 

@@ -345,15 +345,18 @@ def test_every_kernel_is_named_in_the_trace_names():
 def test_every_cuda_source_is_built():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
     assert sources == set(_build.SOURCES)
-    assert {"flash_attention_tc.cu", "fused_block_tc.cu"} <= sources
+    assert {"flash_attention_tc.cu", "fused_block_tc.cu",
+            "ssd_scan_tc.cu"} <= sources
     assert (_build.CSRC / "tensor_core.cuh").exists()
 
 
 def test_chip_smoke_names_each_variant_it_expects():
     from repro_torch.kernels.flash_attention import VARIANTS as FA
     from repro_torch.kernels.fused_block import VARIANTS as FB
+    from repro_torch.kernels.ssd_scan import VARIANTS as SS
     smoke = _chip_smoke()
-    known = {"flash_attention": set(FA), "fused_block": set(FB)}
+    known = {"flash_attention": set(FA), "fused_block": set(FB),
+             "ssd_scan": set(SS)}
     for arch, serve in smoke.LM_SERVES.items():
         for key in ("launches_by_variant", "check_launches_by_variant"):
             total = "launches" if key == "launches_by_variant" else \
@@ -365,6 +368,9 @@ def test_chip_smoke_names_each_variant_it_expects():
     assert rg["launches_by_variant"]["flash_attention"] == {"tensor_core": 8}
     assert rg["check_launches_by_variant"]["fused_block"].get(
         "tensor_core", 0) == 0
+    m2 = smoke.LM_SERVES["mamba2-2.7b"]
+    assert m2["launches_by_variant"]["ssd_scan"] == {"tensor_core": 64}
+    assert m2["check_launches_by_variant"]["ssd_scan"] == {"simt": 4}
     for name, info in smoke.KERNEL_INFO.items():
         for source in [info["source"], *info.get("variants", {}).values()]:
             assert (REPO / source).exists(), (name, source)
@@ -376,10 +382,40 @@ def test_per_variant_counts_start_at_zero_after_reset():
     flash_attention_cuda.launches_by_variant["tensor_core"] += 3
     fused_block_cuda.launches_by_variant["simt_split"] += 2
     fused_block_cuda.launches += 2
+    ssd_scan_cuda.launches_by_variant["tensor_core"] += 1
+    ssd_scan_cuda.launches += 1
     reset_launch_counts()
     by_variant = launch_counts_by_variant()
-    assert set(by_variant) == {"flash_attention", "fused_block"}
+    assert set(by_variant) == {"flash_attention", "fused_block", "ssd_scan"}
     assert all(n == 0 for v in by_variant.values() for n in v.values())
     assert all(n == 0 for n in launch_counts().values())
     assert set(by_variant["fused_block"]) == {"tensor_core", "simt",
                                               "simt_split"}
+    assert set(by_variant["ssd_scan"]) == {"tensor_core", "simt"}
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),
+                                        (torch.float32, "simt")])
+def test_ssd_scan_variant_rule(dtype, want):
+    from repro_torch.kernels.ssd_scan import VARIANTS, ssd_scan_variant
+    got = ssd_scan_variant(dtype)
+    assert got == want and got in VARIANTS
+
+
+def test_per_variant_counts_are_read_by_variant():
+    """``launch_counts_by_variant`` reads each wrapper's own per-variant
+    counter: what one variant counts shows under its name only."""
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     reset_launch_counts)
+    reset_launch_counts()
+    ssd_scan_cuda.launches_by_variant["tensor_core"] += 2
+    ssd_scan_cuda.launches_by_variant["simt"] += 1
+    ssd_scan_cuda.launches += 3
+    assert launch_counts_by_variant()["ssd_scan"] == {"tensor_core": 2,
+                                                      "simt": 1}
+    assert launch_counts()["ssd_scan"] == 3
+    assert launch_counts_by_variant()["fused_block"] == {
+        "tensor_core": 0, "simt": 0, "simt_split": 0}
+    reset_launch_counts()
+    assert launch_counts_by_variant()["ssd_scan"] == {"tensor_core": 0,
+                                                      "simt": 0}

@@ -323,3 +323,143 @@ def test_ops_ssd_scan_on_the_cpu_runs_the_plain_version():
             want = ssd_scan_torch(*args, chunk=8)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ssd_scan_cuda.launches == before
+
+
+# ---------------------------------- the tensor-core kernel's rounding plan
+# (rtol, atol) the kernel is held to against its plain version on the card
+# (chip_smoke.py: SSD_TOL): y in its own type, the state in float32
+SSD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def split_bf16(v):
+    """A float32 operand as the kernel feeds it to mma.sync: bfloat16 hi
+    (the rounding of v) and lo (the rounding of v - hi), in float32."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    return hi, (v - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def ssd_tc_emulation(x, dt, A, Bm, Cm, D, h0=None, *, chunk):
+    """csrc/ssd_scan_tc.cu's arithmetic in torch on the CPU, stage by
+    stage: cum in float64 rounded once a position; (1) every chunk's own
+    state from zero, (w x)^T B with w x split into hi + lo; (2) the chain
+    over the chunks from h0; (3) exp(cum_i) (C . state) with the state
+    split, then M = (C B^T) exp(cum_i - cum_j) dt_j for j <= i, split, times
+    x; y = that + D x, rounded once.  Products of bfloat16 operands,
+    accumulated in float32."""
+    f32 = torch.float32
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hg, nc = h // g, -(-s // chunk)
+    xf, Bf, Cf = x.to(f32), Bm.to(f32), Cm.to(f32)
+    states, decays, cums = [], [], []
+    for c in range(nc):                                   # stage 1
+        t0, L = c * chunk, min(chunk, s - c * chunk)
+        dtc = torch.zeros((b, chunk, h), dtype=f32)
+        dtc[:, :L] = dt[:, t0:t0 + L]
+        cum = torch.cumsum((dtc * A).to(torch.float64), dim=1).to(f32)
+        w = dtc * torch.exp(cum[:, -1:] - cum)            # [b, q, h]
+        hi, lo = split_bf16(xf[:, t0:t0 + L] * w[:, :L, :, None])
+        Bh = Bf[:, t0:t0 + L].repeat_interleave(hg, dim=2)
+        states.append(torch.einsum("blhp,blhn->bhpn", hi, Bh)
+                      + torch.einsum("blhp,blhn->bhpn", lo, Bh))
+        decays.append(torch.exp(cum[:, -1]))              # [b, h]
+        cums.append(cum)
+    state = torch.zeros((b, h, p, n), dtype=f32) if h0 is None else h0
+    entering = []
+    for c in range(nc):                                   # stage 2: chain
+        entering.append(state)
+        state = state * decays[c][:, :, None, None] + states[c]
+    ys = []
+    causal = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    for c in range(nc):                                   # stage 3
+        t0, L = c * chunk, min(chunk, s - c * chunk)
+        cum = cums[c][:, :L]                              # [b, l, h]
+        Ch = Cf[:, t0:t0 + L].repeat_interleave(hg, dim=2)
+        Bh = Bf[:, t0:t0 + L].repeat_interleave(hg, dim=2)
+        st_hi, st_lo = split_bf16(entering[c])
+        y_off = (torch.einsum("blhn,bhpn->blhp", Ch, st_hi)
+                 + torch.einsum("blhn,bhpn->blhp", Ch, st_lo)) \
+            * torch.exp(cum)[..., None]
+        scores = torch.einsum("blhn,bmhn->blmh", Ch, Bh)
+        seg = (cum[:, :, None] - cum[:, None]).masked_fill(
+            ~causal[:L, :L, None], float("-inf"))
+        m = scores * torch.exp(seg) * dt[:, None, t0:t0 + L]
+        m_hi, m_lo = split_bf16(m)
+        xc = xf[:, t0:t0 + L]
+        ys.append(y_off + torch.einsum("blmh,bmhp->blhp", m_hi, xc)
+                  + torch.einsum("blmh,bmhp->blhp", m_lo, xc))
+    y = torch.cat(ys, dim=1) + xf * D[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+EMULATED = [(2, 64, 4, 16, 1, 32, 16, False),     # whole chunks, one group
+            (1, 45, 4, 8, 2, 8, 16, True),        # ragged chunk, two groups
+            (2, 37, 6, 24, 3, 40, 10, True),      # every width off the tiles
+            (1, 70, 8, 16, 8, 16, 32, True)]      # a group a head
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,with_h0", EMULATED)
+def test_tc_rounding_plan_holds_to_the_plain_version(dtype, b, s, h, p, g,
+                                                     n, chunk, with_h0):
+    """The split float32 operands add no rounding point: y within the
+    kernel's tolerance of the plain version, the state within 1e-4."""
+    inp = ssd_inputs(b, s, h, p, g, n, seed=7 * s + h, with_h0=with_h0)
+    pa = port_args(inp, dtype)
+    args = [pa[k] for k in ("x", "dt", "A", "Bm", "Cm", "D", "h0")]
+    y, state = ssd_tc_emulation(*args, chunk=chunk)
+    py, pstate = ssd_scan_torch(*args, chunk=chunk)
+    assert y.dtype == py.dtype and y.shape == py.shape
+    close(y, py, **SSD_TOL[dtype])
+    close(state, pstate, **SSD_TOL["float32"])
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,with_h0", EMULATED)
+def test_tc_rounding_plan_matches_jax_ssd_chunked(b, s, h, p, g, n, chunk,
+                                                  with_h0):
+    inp = ssd_inputs(b, s, h, p, g, n, seed=3 * s + g, with_h0=with_h0)
+    pa, ja = port_args(inp, "bfloat16"), jax_args(inp, "bfloat16")
+    y, state = ssd_tc_emulation(*(pa[k] for k in ("x", "dt", "A", "Bm", "Cm",
+                                                  "D", "h0")), chunk=chunk)
+    jy, jstate = jax_ssd_chunked(ja["x"], ja["dt"], ja["A"], ja["Bm"],
+                                 ja["Cm"], ja["D"], chunk, ja["h0"])
+    close(y, jy, **TOL["bfloat16"])
+    close(state, jstate, **STATE_TOL)
+
+
+@pytest.mark.parametrize("BH,S,P,N,G,chunk", [(4, 64, 16, 8, 1, 16),
+                                              (6, 128, 8, 16, 2, 32)])
+def test_tc_rounding_plan_matches_pallas_kernel(BH, S, P, N, G, chunk):
+    """The TPU kernel in interpret mode (zero state, y only), bfloat16."""
+    inp = ssd_inputs(1, S, BH, P, G, N, seed=BH * S)
+    ja = jax_args(inp, "bfloat16")
+    out = jax_ssd_kernel(
+        ja["x"][0].transpose(1, 0, 2), ja["dt"][0].T, ja["A"][:, None],
+        ja["D"][:, None], ja["Bm"][0].transpose(1, 0, 2),
+        ja["Cm"][0].transpose(1, 0, 2), chunk=chunk, nheads=BH // G,
+        interpret=True)
+    pa = port_args(inp, "bfloat16")
+    y, _ = ssd_tc_emulation(pa["x"], pa["dt"], pa["A"], pa["Bm"], pa["Cm"],
+                            pa["D"], chunk=chunk)
+    close(y[0].transpose(0, 1), out, **TOL["bfloat16"])
+
+
+def test_one_pass_bfloat16_rounding_would_miss_the_state_tolerance():
+    """Why the float32 operands are split: rounded once to bfloat16, the
+    chunk states alone leave the float32 tolerance at chunk 256."""
+    inp = ssd_inputs(1, 256, 2, 16, 1, 32, seed=11)
+    pa = port_args(inp, "bfloat16")
+    args = [pa[k] for k in ("x", "dt", "A", "Bm", "Cm", "D", "h0")]
+    _, pstate = ssd_scan_torch(*args, chunk=256)
+    cum = torch.cumsum((pa["dt"] * pa["A"]).double(), dim=1).float()
+    w = pa["dt"] * torch.exp(cum[:, -1:] - cum)
+    xw = pa["x"].float() * w[..., None]
+    Bh = pa["Bm"].float().repeat_interleave(2, dim=2)
+    once = torch.einsum("blhp,blhn->bhpn", xw.to(torch.bfloat16).float(), Bh)
+    hi, lo = split_bf16(xw)
+    split = (torch.einsum("blhp,blhn->bhpn", hi, Bh)
+             + torch.einsum("blhp,blhn->bhpn", lo, Bh))
+    tol = SSD_TOL["float32"]
+    assert torch.allclose(split, pstate, **tol)
+    assert not torch.allclose(once, pstate, **tol)
