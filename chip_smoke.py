@@ -16,7 +16,9 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                slot map of K1's on-chip state: 7 lanes live at once) and
                efficientnet-b1 (139, with SE side groups); cut-derived and
                random frame masks, all three objectives, duplicated argmin
-               keys.  K5, the float32
+               keys; K3 under both of its plans (a thread a candidate, and
+               four, ``cost_rows_plan``) and on a ragged batch (B odd, an
+               odd ``lo``).  K5, the float32
                scorer: the engine's default batch of 1,024 candidates at
                resnet152's 160 groups, a chunk of 1,048,576 at yolov2's 26
                and 8 candidates at efficientnet-b1's 139 (the largest batch
@@ -28,9 +30,12 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                3,072 tokens, window 2,048; K7 also at decode, M = 2), K6 and
                K7 there in bfloat16 and in float32, at ragged shapes, K6
                with gemma2's soft cap and GQA, K7 ungated and with the
-               sandwich norm: within 2e-5 in float32 (K9 1e-4) and 2e-2 in
-               bfloat16.  K6 and K7 each pick a kernel by a fixed rule
-               (``flash_attention_variant``, ``fused_block_variant``):
+               sandwich norm: within 2e-5 in float32 and 2e-2 in
+               bfloat16.  K9 bit for bit at the serve's shape, at S shorter
+               than its ring, S 3,071, W 2,561, B 1 x W 16 and on unaligned
+               rows (its 4-byte copies).  K6 and K7 each pick a kernel by a
+               fixed rule (``flash_attention_variant``,
+               ``fused_block_variant``):
                bfloat16 runs on the tensor cores, float32 on the SIMT
                kernels; every case states the variant it
                must run, and a ragged bfloat16 case of each reaches the
@@ -346,6 +351,10 @@ def check_space(engine, target: int):
     return SubSpace.make(prefix, dims[q:], "cuda")
 
 
+# K3's two kernels, by the plan's ``split``
+COST_PLANS = {False: "a thread a candidate", True: "split"}
+
+
 def fuzz_lanes(gen, n: int):
     """Key lanes designed to tie (tiny value sets), (4, n) float64."""
     import torch
@@ -427,12 +436,32 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
             want = pipe.cost_rows_torch(tbl, frame, res_p.io, res_p.stats,
                                         lo, objective)
             for feed, res in (("kernel-fed", res_k), ("plain-fed", res_p)):
-                got = pipe.cost_rows_cuda(tbl, frame, res.io, res.stats, lo,
-                                          objective)
-                same("cost_rows", got, want, f"{what} {objective} {feed}",
-                     bits=True)
+                for split in (False, True):
+                    got = pipe.cost_rows_cuda(tbl, frame, res.io, res.stats,
+                                              lo, objective, split=split)
+                    same("cost_rows", got, want,
+                         f"{what} {objective} {feed}, {COST_PLANS[split]}",
+                         bits=True)
             if what == "cut masks" and objective == "latency":
                 rows_main = want
+    # a ragged batch from an odd lo: B odd (a multiple of neither 4 nor 16),
+    # the last block short
+    frame, res_k, res_p = runs["random masks"]
+    off = 7 if lo % 2 == 0 else 8
+    n_odd = B - off - (B - off + 1) % 2
+    if n_odd > 0:
+        sub = slice(off, off + n_odd)
+        for objective in pipe.OBJECTIVES:
+            want = pipe.cost_rows_torch(tbl, frame[sub], res_p.io[sub],
+                                        res_p.stats[sub], lo + off,
+                                        objective)
+            for split in (False, True):
+                got = pipe.cost_rows_cuda(tbl, frame[sub], res_k.io[sub],
+                                          res_k.stats[sub], lo + off,
+                                          objective, split=split)
+                same("cost_rows", got, want,
+                     f"ragged B={n_odd} lo={lo + off} {objective}, "
+                     f"{COST_PLANS[split]}", bits=True)
 
     # K4 argmin: the cost stage's rows, and keys stuffed with duplicates
     lanes_list = [rows_main] + [fuzz_lanes(gen, n)
@@ -473,6 +502,36 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
         out["times"][name] = {
             "ms": min(k1, k2), "plain_ms": min(p1, p2),
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+    # K3 under each of its plans (the plan's own is "ms")
+    out["times"]["cost_rows"]["plan"] = COST_PLANS[
+        pipe.cost_rows_plan(B, sms=pipe._sm_count(0)).split]
+    out["times"]["cost_rows"]["at_plans"] = {
+        COST_PLANS[split]: min(time_ms(lambda: pipe.cost_rows_cuda(
+            tbl, frame, res_k.io, res_k.stats, lo, "latency", split=split),
+            reps=reps, warmup=1) for _ in range(2))
+        for split in (False, True)}
+    # K3 against the groups it prices: the same candidates, the first k
+    # groups only (k = 0 leaves the stats, the block argmin and the launch)
+    by_groups = {}
+    for k in sorted({0, G // 4, G // 2, G}):
+        part = dataclasses.replace(tbl, n=k, tab=tbl.tab[:, :k].contiguous())
+        f_k, io_k = frame[:, :k], res_k.io[:, :k]
+        by_groups[k] = min(time_ms(lambda: pipe.cost_rows_cuda(
+            part, f_k, io_k, res_k.stats, lo, "latency"), reps=reps,
+            warmup=1) for _ in range(2))
+    out["times"]["cost_rows"]["by_groups"] = by_groups
+    # and its device time alone, from a trace (at a small B the wrapper's
+    # host time exceeds the kernel's, and "ms" times the wrapper)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cases["cost_rows"][0]()
+        torch.cuda.synchronize()
+    traced = [v for name, v in device_time_by_kernel(prof).items()
+              if name in TRACE_NAMES["cost_rows"]]
+    out["times"]["cost_rows"]["device_ms"] = (
+        sum(v["device_ms"] for v in traced) / sum(v["count"] for v in traced)
+        if traced else "not measured")
     return out
 
 
@@ -595,7 +654,6 @@ LM_KERNELS = ("flash_attention", "fused_block", "ssd_scan", "rglru_scan")
 # (rtol, atol) as tests/test_kernels.py holds the TPU kernels; K8 in
 # bfloat16 as K6 and K7 (the output is rounded once, at the same point)
 LM_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
-RGLRU_TOL = (1e-4, 1e-4)
 SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 
 
@@ -617,6 +675,23 @@ def require_close(name, got, want, what, tol, errs, cases):
                            atol=tol[1]),
             f"{name} {what}: kernel != plain version (max abs err {err}, "
             f"tolerance {tol})")
+
+
+def require_same(name, got, want, what, errs, cases):
+    """Hold a kernel's output against its plain version's bit for bit (the
+    kernels whose arithmetic and order are the plain version's)."""
+    import torch
+    err = max_abs_err(got, want)
+    errs[name] = max(errs.get(name, 0.0), err)
+    cases.append({"kernel": name, "case": what, "max_abs_err": err})
+    log(f"  {name} {what}: max abs err {err:.3g}")
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name} {what}: {tuple(got.shape)} {got.dtype} != "
+            f"{tuple(want.shape)} {want.dtype}")
+    require(torch.equal(got.contiguous().view(torch.uint8),
+                        want.contiguous().view(torch.uint8)),
+            f"{name} {what}: kernel != plain version bit for bit (max abs "
+            f"err {err})")
 
 
 def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
@@ -817,16 +892,38 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
                       what, variant)
 
-    # ---- K9
+    # ---- K9: equal bit for bit
     def scan(b, s, width):
         return (torch.sigmoid(randn((b, s, width), f32)),
                 randn((b, s, width), f32))
 
+    def unaligned(x):
+        """``x``'s numbers in a contiguous tensor 4 bytes off a 16-byte
+        boundary: the kernel's 4-byte copies."""
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
     full_scan = scan(B, S, w)
-    for what, (a, bb) in (("full width", full_scan),
-                          ("ragged B 3, S 77, W 100", scan(3, 77, 100))):
-        close("rglru_scan", rs.rglru_scan_cuda(a, bb),
-              rs.rglru_scan_torch(a, bb), what, RGLRU_TOL)
+    ring = rs.RING_STAGES * rs.STAGE_STEPS
+    short = scan(B, ring // 2 + 3, w)
+    scan_cases = [
+        ("full width", full_scan),
+        ("ragged B 3, S 77, W 100", scan(3, 77, 100)),
+        (f"S {ring // 2 + 3} shorter than the ring of {ring} steps", short),
+        ("S 1", scan(2, 1, 64)),
+        (f"S {S - 1}", scan(B, S - 1, w)),
+        (f"W {w + 1}", scan(B, 700, w + 1)),
+        ("B 1, W 16", scan(1, 500, 16)),
+        ("unaligned rows", tuple(unaligned(t) for t in short)),
+    ]
+    for what, (a, bb) in scan_cases:
+        plan = rs.rglru_scan_plan(*a.shape, aligned=all(
+            t.data_ptr() % 16 == 0 for t in (a, bb)))
+        require_same("rglru_scan", rs.rglru_scan_cuda(a, bb),
+                     rs.rglru_scan_torch(a, bb),
+                     f"{what}, {4 * plan.vec}-byte copies", errs, cases)
     torch.cuda.synchronize()
     out = {"errs": errs, "cases": cases}
     if not timed:
@@ -1172,7 +1269,7 @@ MODEL_CHECK_TOL = 1e-3
 # them is a substring of its name
 TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
                "enum_frames": ("enum_frames_kernel",),
-               "cost_rows": ("cost_rows_kernel",),
+               "cost_rows": ("cost_rows_kernel", "cost_rows_split_kernel"),
                "argmin_rows": ("argmin_rows_kernel",),
                "score_batch": ("score_batch_kernel",),
                "flash_attention": ("flash_attention_kernel",
@@ -1730,13 +1827,17 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": {"B": main_shape["B"], "G": main_shape["G"],
                       "L": main_shape["L"]}})
-        if name == "alloc_scan":
-            kernels[-1]["slots"] = main_shape["alloc_slots"]
+        if name == "cost_rows":
+            kernels[-1].update({k: t[k] for k in ("plan", "at_plans",
+                                                  "by_groups", "device_ms")})
+        if name in ("alloc_scan", "cost_rows"):
             kernels[-1]["at_other_shapes"] = {
                 net: {"B": checks[net]["B"], "G": checks[net]["G"],
                       "slots": checks[net]["alloc_slots"],
                       **checks[net]["times"][name]}
                 for net in ("resnet152", "retinanet")}
+        if name == "alloc_scan":
+            kernels[-1]["slots"] = main_shape["alloc_slots"]
     info = KERNEL_INFO["score_batch"]
     t, chunk, descent = (scorer[net] for net, _b in SCORER_SHAPES)
     kernels.append({

@@ -33,10 +33,11 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # score_batch.cu the float32 scorer, held bit-equal to its plain torch
 # version: no fused multiply-add contraction, and no fast-math anywhere.
 # The LM kernels (flash attention, the fused MLP block and the SSD scan,
-# each as a SIMT and a tensor-core source, the RG-LRU scan) are held to their
-# plain versions within a tolerance; rglru_scan.cu spells its rounding out
-# with intrinsics.  Headers (*.cuh: tensor_core.cuh, the tensor-core
-# sources' PTX helpers) are hashed with the sources.
+# each as a SIMT and a tensor-core source) are held to their plain versions
+# within a tolerance; the RG-LRU scan bit for bit, and rglru_scan.cu spells
+# its rounding out with intrinsics.  Headers (*.cuh: tensor_core.cuh, the
+# PTX helpers of the tensor-core sources and of the RG-LRU scan's ring) are
+# hashed with the sources.
 SOURCES = {
     "alloc_scan.cu": (),
     "search_pipeline.cu": ("-fmad=false",),
@@ -153,7 +154,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p,              # frame, io, stats, tab, out
         ll, ll, ll, i,              # lo, S, B, n
         d, d, d, d, d,              # bpc, goc, budget, wbytes, row_buff
-        i, i, p]                    # objective, device, stream
+        i, i,                       # objective, split
+        i, p]                       # device, stream
     lib.argmin_rows_launch.argtypes = [p, p, ll, i, p]   # lanes, out, L,
     #                                                      device, stream
     f = ctypes.c_float
@@ -191,8 +193,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p,                 # y, hout, scratch states, sync
         i, i, i, i, i, i, i,        # B, S, H, G, P, N, Q
         ll, i, p]                   # bc_stride, device, stream
-    lib.rglru_scan_launch.argtypes = [p, p, p, i, i, i, i, p]  # a, b, h,
-    #                                                  B, S, W, device, stream
+    lib.rglru_scan_launch.argtypes = [
+        p, p, p,                    # a, b, h
+        i, i, i, i,                 # B, S, W, vec
+        i, p]                       # device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
                lib.cost_rows_launch, lib.argmin_rows_launch,
                lib.score_batch_launch, lib.flash_attention_launch,

@@ -19,7 +19,7 @@
 
 namespace {
 
-constexpr int BLOCK = 256;       // threads per block in the two reductions
+constexpr int BLOCK = 256;       // threads a block: enumeration, argmin
 
 // A candidate's objective key and linear index; the order is lexicographic.
 struct Key {
@@ -38,30 +38,41 @@ __device__ __forceinline__ bool key_less(const Key& a, const Key& b) {
     return a.idx < b.idx;
 }
 
-// Block-wide first lexicographic minimum; the result is valid in thread 0.
-__device__ Key block_argmin(Key k) {
-    __shared__ double sh[4][BLOCK];
+// First lexicographic minimum of the keys of threads 0 .. NK - 1 (NK a
+// power of two), every thread of the block taking part; sh is [4][NK]
+// float64 of shared memory.  The result is valid in thread 0.
+template <int NK>
+__device__ Key block_argmin_in(Key k, double* sh) {
     const int t = threadIdx.x;
-    sh[0][t] = k.infeas;
-    sh[1][t] = k.primary;
-    sh[2][t] = k.secondary;
-    sh[3][t] = k.idx;
+    if (t < NK) {
+        sh[0 * NK + t] = k.infeas;
+        sh[1 * NK + t] = k.primary;
+        sh[2 * NK + t] = k.secondary;
+        sh[3 * NK + t] = k.idx;
+    }
     __syncthreads();
-    for (int step = BLOCK / 2; step > 0; step >>= 1) {
+    for (int step = NK / 2; step > 0; step >>= 1) {
         if (t < step) {
-            const Key a{sh[0][t], sh[1][t], sh[2][t], sh[3][t]};
-            const Key o{sh[0][t + step], sh[1][t + step], sh[2][t + step],
-                        sh[3][t + step]};
+            const Key a{sh[t], sh[NK + t], sh[2 * NK + t], sh[3 * NK + t]};
+            const Key o{sh[t + step], sh[NK + t + step], sh[2 * NK + t + step],
+                        sh[3 * NK + t + step]};
             if (key_less(o, a)) {
-                sh[0][t] = o.infeas;
-                sh[1][t] = o.primary;
-                sh[2][t] = o.secondary;
-                sh[3][t] = o.idx;
+                sh[t] = o.infeas;
+                sh[NK + t] = o.primary;
+                sh[2 * NK + t] = o.secondary;
+                sh[3 * NK + t] = o.idx;
             }
         }
         __syncthreads();
     }
-    return Key{sh[0][0], sh[1][0], sh[2][0], sh[3][0]};
+    return Key{sh[0], sh[NK], sh[2 * NK], sh[3 * NK]};
+}
+
+// The same over a block of NT threads, with its own scratch.
+template <int NT>
+__device__ Key block_argmin(Key k) {
+    __shared__ double sh[4 * NT];
+    return block_argmin_in<NT>(k, sh);
 }
 
 // ---------------------------------------------------------------- enumerate
@@ -96,11 +107,186 @@ enum_frames_kernel(const long long* __restrict__ digits,
 }
 
 // --------------------------------------------------------------------- cost
+// Replaces repro/kernels/search_pipeline.py::_cost_kernel.  A candidate's
+// latency is one float64 sum over its groups in gid order, so a candidate
+// is one chain; its terms are priced branch by branch as the host prices
+// them.  What bounds it on the card is not the bytes (5 a candidate and
+// group) but the instructions each group issues: a correctly rounded
+// float64 division where the group is framed, the maxima where it counts
+// for SRAM, and the branches between them.  So the loads are issued a
+// window ahead of the arithmetic, frame and io alike; the table is staged
+// in shared memory as one 16-byte-aligned entry a group (paired loads,
+// integer flags), padded so that the loops run whole windows; fmax is a
+// compare and a select; and a batch of too few blocks to fill the card
+// splits each candidate's groups over SPLIT threads.
+//
 // rows of the static table, [10][n] float64
 constexpr int T_COMP = 0, T_ROW = 1, T_WEIGHT = 2, T_SIDE = 3, T_ROWFM = 4,
               T_SCOMP = 5, T_SWEIGHT = 6, T_OUTF = 7, T_OUTR = 8, T_WRR = 9;
+constexpr int COST_BLOCK = 256;  // candidates a block: one output row
+constexpr int TILE = 64;         // groups of the table in shared memory
+constexpr int WIN = 4;           // groups whose loads a thread issues ahead
+constexpr int SPLIT = 4;         // threads a candidate in the split kernel
+constexpr int STEP = 2 * SPLIT;  // groups a step of the split kernel
+constexpr int AHEAD = 2;         // steps whose loads the split kernel has
+                                 // in flight
+static_assert(TILE % WIN == 0 && TILE % STEP == 0,
+              "a window or a step never straddles two tiles");
 
-__global__ void __launch_bounds__(BLOCK)
+// The larger of two numbers that are never NaN nor -0 (every operand here
+// is a finite, non-negative cycle or byte count): fmax's result in a
+// compare and a select, without its NaN handling.
+__device__ __forceinline__ double dmax(double a, double b) {
+    return a < b ? b : a;
+}
+
+// A candidate's terms that do not depend on the order of its groups:
+// integer-valued float64 below 2^53, so exact in any order.
+struct Partial {
+    double rterm, wbuff, outf, outr, wrr;
+};
+
+// A group's entry of the staged table: the eight float64 the pricing reads,
+// in the pairs it reads them (16-byte loads), and the group's two flags.
+struct alignas(16) GroupEntry {
+    double comp, row;           // compute cycles, row-mode latency
+    double weight, rowfm;       // weight bytes, row-mode DRAM bytes
+    double outf, sweight;       // the four SRAM terms
+    double outr, wrr;
+    int side, scomp;            // side group; counts for the SRAM maxima
+    int pad[2];
+};
+
+// The latency term of one group (its staged entry e) for a candidate with
+// frame bit fr and boundary word io; its order-free terms go into q.  The
+// division stays a division and nothing contracts (-fmad=false).
+__device__ __forceinline__ double price_group(const GroupEntry& e, bool fr,
+                                              int io, double bpc, double goc,
+                                              Partial& q) {
+    double per = e.row;
+    if (e.side)
+        per = e.comp;
+    else if (fr)
+        per = dmax(e.comp, (e.weight + (double)io) / bpc) + goc;
+    if (!fr) q.rterm += e.rowfm;
+    if (e.scomp) {
+        if (fr) {
+            q.outf = dmax(q.outf, e.outf);
+        } else {
+            q.wbuff = dmax(q.wbuff, e.sweight);
+            q.outr = dmax(q.outr, e.outr);
+            q.wrr = dmax(q.wrr, e.wrr);
+        }
+    }
+    return per;
+}
+
+// Groups g0 .. g0 + TILE - 1 of the table into shared memory, by the
+// block's nt threads; the caller synchronises around it.  An entry past n
+// is a side group of 0 cycles and no SRAM term: its latency term is +0.0
+// and adding it leaves a total bit for bit as it was, so the loops need not
+// stop at n.
+__device__ __forceinline__ void stage_table(GroupEntry* tabs,
+                                            const double* __restrict__ tab,
+                                            int g0, int n, int nt) {
+    for (int i = threadIdx.x; i < TILE; i += nt) {
+        const int g = g0 + i;
+        GroupEntry e{};
+        e.side = 1;
+        if (g < n) {
+            e.comp = __ldg(tab + T_COMP * n + g);
+            e.row = __ldg(tab + T_ROW * n + g);
+            e.weight = __ldg(tab + T_WEIGHT * n + g);
+            e.rowfm = __ldg(tab + T_ROWFM * n + g);
+            e.outf = __ldg(tab + T_OUTF * n + g);
+            e.sweight = __ldg(tab + T_SWEIGHT * n + g);
+            e.outr = __ldg(tab + T_OUTR * n + g);
+            e.wrr = __ldg(tab + T_WRR * n + g);
+            e.side = __ldg(tab + T_SIDE * n + g) > 0.0;
+            e.scomp = __ldg(tab + T_SCOMP * n + g) > 0.0;
+        }
+        tabs[i] = e;
+    }
+}
+
+// A candidate's key from its latency total, order-free terms and stats.
+__device__ __forceinline__ Key cost_key(double lat, const Partial& q,
+                                        const int (&st)[7], long long idx,
+                                        double wbytes, double row_buff,
+                                        double budget, int objective) {
+    // integer-valued float64 terms below 2^53: exact in any order
+    const double dram = q.rterm + (double)st[5] + wbytes;
+    const double sram = row_buff + dmax(q.outf, q.outr)
+                        + dmax(q.wrr, (double)st[4]) + (double)st[0]
+                        + dmax((double)st[1], q.wbuff) + (double)st[2]
+                        + (double)st[3];
+    const bool feasible = (sram <= budget) && st[6] > 0;
+    Key k;
+    k.infeas = feasible ? 0.0 : 1.0;
+    k.idx = (double)idx;
+    if (objective == 0) {            // latency
+        k.primary = lat;
+        k.secondary = sram;
+    } else if (objective == 1) {     // sram
+        k.primary = sram;
+        k.secondary = lat;
+    } else {                         // dram
+        k.primary = dram;
+        k.secondary = lat;
+    }
+    return k;
+}
+
+// Ask L2 for a candidate's 7 stats, ahead of their loads.
+__device__ __forceinline__ void prefetch_stats(const int* __restrict__ stats,
+                                               long long B, long long b) {
+#pragma unroll
+    for (int r = 0; r < 7; ++r)
+        asm volatile("prefetch.global.L2 [%0];" :: "l"(stats + r * B + b));
+}
+
+__device__ __forceinline__ void load_stats(int (&st)[7],
+                                           const int* __restrict__ stats,
+                                           long long B, long long b,
+                                           bool in) {
+#pragma unroll
+    for (int r = 0; r < 7; ++r)
+        st[r] = in ? __ldg(stats + r * B + b) : 0;
+}
+
+// The frame bytes and io words of one candidate, read group after group
+// with a stride of `every` groups: io whether the group is framed or not,
+// nothing past n or for a candidate out of range.  The two pointers move by
+// a row at a time, so a load costs no address arithmetic but an add.
+struct Rows {
+    const uint8_t* __restrict__ fp;
+    const int* __restrict__ ip;
+    long long step;
+    int g, every, n;
+    bool in;
+
+    __device__ __forceinline__ Rows(const uint8_t* f, const int* i,
+                                    long long B, long long b, int g0,
+                                    int every_, int n_, bool in_)
+        : fp(f + (long long)g0 * B + b), ip(i + (long long)g0 * B + b),
+          step(every_ * B), g(g0), every(every_), n(n_), in(in_) {}
+
+    __device__ __forceinline__ void next(uint8_t& fr, int& w) {
+        const bool ok = in && g < n;
+        fr = ok ? __ldg(fp) : (uint8_t)0;
+        w = ok ? __ldg(ip) : 0;
+        fp += step;
+        ip += step;
+        g += every;
+    }
+};
+
+// One thread a candidate: it prices its groups in gid order, accumulating
+// the latency in a register, with the frame bytes and io words of the next
+// WIN groups in flight while it prices these; the table is read from shared
+// memory.  Four blocks an SM (<= 64 registers) hide the float64 division's
+// latency.  The block then takes its first minimum.
+__global__ void __launch_bounds__(COST_BLOCK, 4)
 cost_rows_kernel(const uint8_t* __restrict__ frame,     // [n][B]
                  const int* __restrict__ io,            // [n][B]
                  const int* __restrict__ stats,         // [7][B]
@@ -109,64 +295,147 @@ cost_rows_kernel(const uint8_t* __restrict__ frame,     // [n][B]
                  long long lo, long long S, long long B, int n,
                  double bpc, double goc, double budget, double wbytes,
                  double row_buff, int objective) {
-    const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    Key key = pad_key();
-    if (b < B && lo + b < S) {
-        double lat = 0.0, rterm = 0.0;
-        double wbuff = 0.0, outf = 0.0, outr = 0.0, wrr = 0.0;
-        for (int g = 0; g < n; ++g) {
-            const bool fr = frame[g * B + b] != 0;
-            const double comp = __ldg(tab + T_COMP * n + g);
-            double per;
-            if (__ldg(tab + T_SIDE * n + g) > 0.0) {
-                per = comp;
-            } else if (fr) {
-                const double mem =
-                    (__ldg(tab + T_WEIGHT * n + g) + (double)io[g * B + b])
-                    / bpc;
-                per = fmax(comp, mem) + goc;
-            } else {
-                per = __ldg(tab + T_ROW * n + g);
-            }
-            // the latency total: one term per step, in gid order
-            lat += per;
-            if (!fr) rterm += __ldg(tab + T_ROWFM * n + g);
-            if (__ldg(tab + T_SCOMP * n + g) > 0.0) {
-                if (fr) {
-                    outf = fmax(outf, __ldg(tab + T_OUTF * n + g));
-                } else {
-                    wbuff = fmax(wbuff, __ldg(tab + T_SWEIGHT * n + g));
-                    outr = fmax(outr, __ldg(tab + T_OUTR * n + g));
-                    wrr = fmax(wrr, __ldg(tab + T_WRR * n + g));
-                }
-            }
+    __shared__ GroupEntry tabs[TILE];
+    const long long b = (long long)blockIdx.x * COST_BLOCK + threadIdx.x;
+    const bool in = b < B && lo + b < S;
+    // the stats are asked of L2 now and loaded after the loop: loaded now,
+    // they would hold 7 registers through it
+    if (in) prefetch_stats(stats, B, b);
+    Rows rows(frame, io, B, b, 0, 1, n, in);
+    uint8_t fr[WIN], fr_next[WIN];
+    int iw[WIN], iw_next[WIN];
+#pragma unroll
+    for (int u = 0; u < WIN; ++u) rows.next(fr[u], iw[u]);
+    double lat = 0.0;
+    Partial q{0.0, 0.0, 0.0, 0.0, 0.0};
+    for (int g0 = 0; g0 < n; g0 += WIN) {
+        if (g0 % TILE == 0) {
+            __syncthreads();
+            stage_table(tabs, tab, g0, n, COST_BLOCK);
+            __syncthreads();
         }
-        const double b0 = (double)stats[0 * B + b];
-        const double b1 = (double)stats[1 * B + b];
-        const double b2 = (double)stats[2 * B + b];
-        const double side = (double)stats[3 * B + b];
-        const double wrf = (double)stats[4 * B + b];
-        const double bfm = (double)stats[5 * B + b];
-        const bool feas = stats[6 * B + b] > 0;
-        // integer-valued float64 terms below 2^53: exact in any order
-        const double dram = rterm + bfm + wbytes;
-        const double sram = row_buff + fmax(outf, outr) + fmax(wrr, wrf)
-                            + b0 + fmax(b1, wbuff) + b2 + side;
-        const bool feasible = (sram <= budget) && feas;
-        key.infeas = feasible ? 0.0 : 1.0;
-        key.idx = (double)(lo + b);
-        if (objective == 0) {            // latency
-            key.primary = lat;
-            key.secondary = sram;
-        } else if (objective == 1) {     // sram
-            key.primary = sram;
-            key.secondary = lat;
-        } else {                         // dram
-            key.primary = dram;
-            key.secondary = lat;
+#pragma unroll
+        for (int u = 0; u < WIN; ++u) rows.next(fr_next[u], iw_next[u]);
+        const GroupEntry* col = &tabs[g0 % TILE];
+#pragma unroll
+        for (int u = 0; u < WIN; ++u)     // the latency total, in gid order
+            lat += price_group(col[u], fr[u], iw[u], bpc, goc, q);
+#pragma unroll
+        for (int u = 0; u < WIN; ++u) {
+            fr[u] = fr_next[u];
+            iw[u] = iw_next[u];
         }
     }
-    const Key win = block_argmin(key);
+    int st[7];
+    load_stats(st, stats, B, b, in);
+    const Key key = in ? cost_key(lat, q, st, lo + b, wbytes, row_buff,
+                                  budget, objective)
+                       : pad_key();
+    const Key win = block_argmin<COST_BLOCK>(key);
+    if (threadIdx.x == 0) {
+        const long long nb = gridDim.x;
+        out[0 * nb + blockIdx.x] = win.infeas;
+        out[1 * nb + blockIdx.x] = win.primary;
+        out[2 * nb + blockIdx.x] = win.secondary;
+        out[3 * nb + blockIdx.x] = win.idx;
+    }
+}
+
+// SPLIT threads a candidate, for batches too small to fill the card with
+// one thread a candidate (resnet152's 8,748 candidates are 35 blocks).
+// Thread (p, c) = (threadIdx.x / COST_BLOCK, threadIdx.x % COST_BLOCK)
+// prices groups g0 + p + SPLIT * j of each step of STEP groups and leaves
+// each latency term in shared memory; after the step's barrier thread (0,
+// c) adds the step's STEP terms to the latency in gid order, while the
+// others price the next step into the other buffer.  The loads of the next
+// AHEAD steps are in flight meanwhile: a step's arithmetic is short beside
+// a round trip to memory.  The order-free terms
+// are combined across the SPLIT threads at the end.  The latency total is
+// the same sum in the same order as one thread a candidate.
+__global__ void __launch_bounds__(COST_BLOCK * SPLIT)
+cost_rows_split_kernel(const uint8_t* __restrict__ frame,     // [n][B]
+                       const int* __restrict__ io,            // [n][B]
+                       const int* __restrict__ stats,         // [7][B]
+                       const double* __restrict__ tab,        // [10][n]
+                       double* __restrict__ out,          // [4][gridDim.x]
+                       long long lo, long long S, long long B, int n,
+                       double bpc, double goc, double budget, double wbytes,
+                       double row_buff, int objective) {
+    constexpr int NT = COST_BLOCK * SPLIT, PER = STEP / SPLIT;
+    __shared__ GroupEntry tabs[TILE];
+    __shared__ double pers[2][STEP][COST_BLOCK];
+    static_assert(5 * (SPLIT - 1) <= 2 * STEP && 4 <= 2 * STEP,
+                  "the partials and the argmin fit in the term buffers");
+    const int c = threadIdx.x % COST_BLOCK, p = threadIdx.x / COST_BLOCK;
+    const long long b = (long long)blockIdx.x * COST_BLOCK + c;
+    const bool in = b < B && lo + b < S;
+    int st[7];
+    load_stats(st, stats, B, b, in && p == 0);
+    // the thread's groups p, p + SPLIT, ...: PER of each step; the loads of
+    // AHEAD steps in flight, slot d holding step k0 + d
+    Rows rows(frame, io, B, b, p, SPLIT, n, in);
+    uint8_t fr[AHEAD][PER];
+    int iw[AHEAD][PER];
+#pragma unroll
+    for (int d = 0; d < AHEAD; ++d)
+#pragma unroll
+        for (int j = 0; j < PER; ++j) rows.next(fr[d][j], iw[d][j]);
+    double lat = 0.0;
+    Partial q{0.0, 0.0, 0.0, 0.0, 0.0};
+    for (int k0 = 0; k0 * STEP < n; k0 += AHEAD) {
+#pragma unroll
+        for (int d = 0; d < AHEAD; ++d) {
+            const int k = k0 + d, g0 = k * STEP;
+            if (g0 >= n) break;
+            if (g0 % TILE == 0) {
+                __syncthreads();
+                stage_table(tabs, tab, g0, n, NT);
+                __syncthreads();
+            }
+            double (*terms)[COST_BLOCK] = pers[k & 1];
+            const GroupEntry* col = &tabs[g0 % TILE];
+#pragma unroll
+            for (int j = 0; j < PER; ++j) {
+                const int i = p + SPLIT * j;
+                terms[i][c] = price_group(col[i], fr[d][j], iw[d][j], bpc,
+                                          goc, q);
+                rows.next(fr[d][j], iw[d][j]);   // step k + AHEAD
+            }
+            __syncthreads();
+            if (p == 0) {
+                // the latency total: one term per step, in gid order
+#pragma unroll
+                for (int i = 0; i < STEP; ++i) lat += terms[i][c];
+            }
+        }
+    }
+    __syncthreads();                     // the last terms are read
+    double* red = &pers[0][0][0];        // [5][SPLIT - 1][COST_BLOCK]
+    if (p > 0) {
+        const double v[5] = {q.rterm, q.wbuff, q.outf, q.outr, q.wrr};
+#pragma unroll
+        for (int r = 0; r < 5; ++r)
+            red[(r * (SPLIT - 1) + p - 1) * COST_BLOCK + c] = v[r];
+    }
+    __syncthreads();
+    Key key = pad_key();
+    if (p == 0) {
+#pragma unroll
+        for (int o = 0; o < SPLIT - 1; ++o) {
+            const double* v = red + o * COST_BLOCK + c;
+            const int stride = (SPLIT - 1) * COST_BLOCK;
+            q.rterm += v[0];
+            q.wbuff = dmax(q.wbuff, v[stride]);
+            q.outf = dmax(q.outf, v[2 * stride]);
+            q.outr = dmax(q.outr, v[3 * stride]);
+            q.wrr = dmax(q.wrr, v[4 * stride]);
+        }
+        if (in)
+            key = cost_key(lat, q, st, lo + b, wbytes, row_buff, budget,
+                           objective);
+    }
+    __syncthreads();                     // the partials are read
+    const Key win = block_argmin_in<COST_BLOCK>(key, red);
     if (threadIdx.x == 0) {
         const long long nb = gridDim.x;
         out[0 * nb + blockIdx.x] = win.infeas;
@@ -188,7 +457,7 @@ argmin_rows_kernel(const double* __restrict__ lanes, double* __restrict__ out,
                     lanes[3 * L + i]};
         if (key_less(k, best)) best = k;
     }
-    const Key win = block_argmin(best);
+    const Key win = block_argmin<BLOCK>(best);
     if (threadIdx.x == 0) {
         out[0] = win.infeas;
         out[1] = win.primary;
@@ -213,21 +482,33 @@ extern "C" int enum_frames_launch(const void* digits, const void* run_of,
     return (int)cudaGetLastError();
 }
 
-// out must hold [4][ceil(B / 256)] float64
+// out must hold [4][ceil(B / 256)] float64.  split: SPLIT threads a
+// candidate (cost_rows_split_kernel) instead of one (cost_rows_kernel);
+// kernels/search_pipeline.py::cost_rows_plan picks.
 extern "C" int cost_rows_launch(const void* frame, const void* io,
                                 const void* stats, const void* tab, void* out,
                                 long long lo, long long S, long long B, int n,
                                 double bpc, double goc, double budget,
                                 double wbytes, double row_buff, int objective,
-                                int device, void* stream) {
+                                int split, int device, void* stream) {
     if (B <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = (B + BLOCK - 1) / BLOCK;
-    cost_rows_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)frame, (const int*)io, (const int*)stats,
-        (const double*)tab, (double*)out, lo, S, B, n, bpc, goc, budget,
-        wbytes, row_buff, objective);
+    const long long blocks = (B + COST_BLOCK - 1) / COST_BLOCK;
+    const uint8_t* f = (const uint8_t*)frame;
+    const int* i = (const int*)io;
+    const int* s = (const int*)stats;
+    const double* t = (const double*)tab;
+    double* o = (double*)out;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (split)
+        cost_rows_split_kernel<<<(unsigned)blocks, COST_BLOCK * SPLIT, 0,
+                                 st>>>(f, i, s, t, o, lo, S, B, n, bpc, goc,
+                                       budget, wbytes, row_buff, objective);
+    else
+        cost_rows_kernel<<<(unsigned)blocks, COST_BLOCK, 0, st>>>(
+            f, i, s, t, o, lo, S, B, n, bpc, goc, budget, wbytes, row_buff,
+            objective);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core kernels (fused_block_tc.cu,
-// flash_attention_tc.cu): 16-byte cp.async with zero fill, ldmatrix, and
+// flash_attention_tc.cu, ssd_scan_tc.cu) and of the RG-LRU scan's ring
+// (rglru_scan.cu): 16- and 4-byte cp.async with zero fill, ldmatrix, and
 // the warp-level bfloat16 product mma.sync.m16n8k16 with float32
 // accumulators, as inline PTX for sm_80 and later (sm_90a here).
 //
@@ -40,6 +41,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
     const int n = valid ? 16 : 0;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(n));
+}
+// 4 bytes, likewise (through L1: .cg takes 16-byte copies only)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+    const int n = valid ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_u32(dst)), "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() {

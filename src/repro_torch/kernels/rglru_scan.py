@@ -11,15 +11,67 @@ Two implementations of the same function:
   one product and one sum per step in float32.
 * :func:`rglru_scan_cuda` -- the hand-written kernel
   (``csrc/rglru_scan.cu``), which replaces the TPU kernel
-  ``repro/kernels/rglru_scan.py::_kernel``: one thread per (batch, channel)
+  ``repro/kernels/rglru_scan.py::_kernel``: one lane per (batch, channel)
   running the same sequential recurrence, so the two are equal bit for bit
-  on the card.  The TPU kernel's log-depth doubling scan computes the same
-  function in another order; against it (and the JAX model's associative
-  scan) the tolerance is 1e-4 in float32.
+  on the card.  A warp owns ``CHANNELS`` neighbouring channels and keeps
+  the loads of ``RING_STAGES - 1`` stages of ``STAGE_STEPS`` steps in
+  flight in a ring of shared memory while its chains run
+  (:func:`rglru_scan_plan`).
+  The TPU kernel's log-depth doubling scan computes the same function in
+  another order; against it (and the JAX model's associative scan) the
+  tolerance is 1e-4 in float32.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+
+# the kernel's warp and ring (csrc/rglru_scan.cu CPW, STEPS, STAGES): a
+# warp (one block) owns CHANNELS channels of one batch row; a stage is
+# STAGE_STEPS steps of a and b for them; RING_STAGES - 1 stages are in
+# flight while the chains consume one
+CHANNELS = 16
+STAGE_STEPS = 16
+RING_STAGES = 8
+WARP = 32
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How :func:`rglru_scan_cuda` launches its kernel."""
+    vec: int            # floats a cp.async copy: 4 (16 bytes) or 1
+    groups_per_row: int  # channel groups of one batch row (the last ragged)
+    blocks: int         # one warp each: B * groups_per_row
+    stages: int         # stages of the sequence, ceil(S / STAGE_STEPS)
+    smem_bytes: int     # the ring: RING_STAGES x 2 x STAGE_STEPS x CHANNELS
+    #                     floats
+
+
+def rglru_scan_plan(B: int, S: int, W: int,
+                    aligned: bool = True) -> ScanPlan:
+    """The launch of the kernel on ``[B, S, W]``: 16-byte copies when a
+    step's row of a channel group is 16-byte aligned (W a multiple of 4 and
+    ``aligned`` base pointers), else 4-byte copies."""
+    groups = -(-W // CHANNELS)
+    return ScanPlan(vec=4 if aligned and W % 4 == 0 else 1,
+                    groups_per_row=groups, blocks=B * groups,
+                    stages=-(-S // STAGE_STEPS),
+                    smem_bytes=RING_STAGES * 2 * STAGE_STEPS * CHANNELS * 4)
+
+
+def stage_copies(plan: ScanPlan, lane: int):
+    """The copies ``lane`` issues for one stage, as the kernel's
+    ``issue_stage`` numbers them: ``(array, step, first channel)`` with
+    array 0 for ``a`` and 1 for ``b``; each copies ``plan.vec`` floats."""
+    per_row = CHANNELS // plan.vec
+    per_array = STAGE_STEPS * per_row
+    out = []
+    for j in range(2 * per_array // WARP):
+        k = j * WARP + lane
+        out.append((k // per_array, (k % per_array) // per_row,
+                    (k % per_row) * plan.vec))
+    return out
 
 
 def _check(a, b):
@@ -57,10 +109,12 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.numel() == 0:
         return out
     B, S, W = a.shape
+    plan = rglru_scan_plan(B, S, W, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (a, b)))
     dev = a.device
     lib = _build.load()
     err = lib.rglru_scan_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                B, S, W, dev.index or 0,
+                                B, S, W, plan.vec, dev.index or 0,
                                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rglru_scan")
     rglru_scan_cuda.launches += 1

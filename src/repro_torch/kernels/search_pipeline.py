@@ -47,13 +47,20 @@ Each stage has a plain torch version and a hand-written CUDA kernel
   the bytes it writes (B x G); at the search's sizes a launch is mostly
   overhead.
 * :func:`cost_rows_torch` / :func:`cost_rows_cuda` replace ``_cost_kernel``.
-  One thread prices one candidate in a single pass over its G groups,
+  A thread prices one candidate in a single pass over its G groups,
   accumulating the latency in a register in gid order -- the order the TPU
   version has to build from one-hot lane sums comes for free -- then the
-  block takes its argmin in shared memory.  Compiled without
-  multiply-add contraction.  Bound by the bytes it reads (mask + io, 5 B
-  per candidate and group).  Blocks run in no order, so the reduction
-  across blocks is a second pass:
+  block of 256 candidates takes its argmin in shared memory.  The frame
+  bytes and io words of the next window of ``COST_WINDOW`` groups are
+  loaded, whatever the frame bits, while this window's arithmetic runs,
+  and the table is read from shared memory.  A batch too small to fill the
+  card takes ``COST_SPLIT`` threads a candidate, which leave their groups'
+  latency terms in shared memory for one of them to add in gid order
+  (:func:`cost_rows_plan`).  Compiled without multiply-add contraction; the
+  division stays a division.  Its bound is the bytes it reads (mask + io, 5
+  B per candidate and group); on the card its float64 arithmetic, not the
+  bytes, sets its time.  Blocks run in no order, so the reduction across
+  blocks is a second pass:
 * :func:`argmin_rows_torch` / :func:`argmin_rows_cuda` replace
   ``_argmin_only_kernel``.  One block reduces the L rows by direct tuple
   comparison, which equals the TPU version's nested masked minima.
@@ -61,6 +68,7 @@ Each stage has a plain torch version and a hand-written CUDA kernel
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -74,9 +82,20 @@ from repro_torch.kernels.alloc_scan import (N_STATS, STAT_BFM, STAT_FEAS,
 VARIANTS = ("torch", "cuda")
 OBJECTIVES = ("latency", "sram", "dram")
 
-# candidates per block of the cost stage (one output row per block); the
-# kernel's block size, csrc/search_pipeline.cu BLOCK
+# candidates per block of the cost stage (one output row per block),
+# csrc/search_pipeline.cu COST_BLOCK
 COST_BLOCK = 256
+# the cost kernels' schedule (csrc/search_pipeline.cu WIN, TILE, SPLIT,
+# STEP): with one thread a candidate, the loads of the next COST_WINDOW
+# groups are issued before this window's arithmetic; with COST_SPLIT threads
+# a candidate, each prices STEP / COST_SPLIT of every step of COST_STEP
+# groups, with the loads of COST_AHEAD steps in flight; both read the table
+# from shared memory COST_TILE groups at a time
+COST_WINDOW = 4
+COST_TILE = 64
+COST_SPLIT = 4
+COST_STEP = 2 * COST_SPLIT
+COST_AHEAD = 2                       # steps the split kernel loads ahead
 
 # rows of PipelineTables.tab
 _TAB_ROWS = ("lt_comp", "lt_row", "lt_weight", "lt_side", "dt_rowfm",
@@ -276,6 +295,38 @@ def enum_frames(tbl: PipelineTables, space: SubSpace, lo: int, count: int,
 
 
 # ----------------------------------------------------------------- K3: cost
+@dataclass(frozen=True)
+class CostPlan:
+    """How :func:`cost_rows_cuda` launches its kernel."""
+    split: bool         # COST_SPLIT threads a candidate, else one
+    threads: int        # a block: COST_BLOCK candidates
+    blocks: int         # ceil(B / COST_BLOCK): one output row each
+    smem_bytes: int     # the table's tile, the split kernel's latency
+    #                     terms, the block's argmin
+
+
+def cost_rows_plan(B: int, sms: int = 132,
+                   split: bool | None = None) -> CostPlan:
+    """The launch of the cost stage on a chunk of ``B`` candidates: one
+    thread a candidate, or -- with fewer blocks than two an SM of ``sms``,
+    unless ``split`` says -- ``COST_SPLIT`` threads a candidate."""
+    blocks = -(-B // COST_BLOCK)
+    if split is None:
+        split = blocks < 2 * sms
+    tab = 8 * len(_TAB_ROWS) * COST_TILE
+    if split:
+        return CostPlan(split=True, threads=COST_BLOCK * COST_SPLIT,
+                        blocks=blocks,
+                        smem_bytes=tab + 8 * 2 * COST_STEP * COST_BLOCK)
+    return CostPlan(split=False, threads=COST_BLOCK, blocks=blocks,
+                    smem_bytes=tab + 8 * 4 * COST_BLOCK)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def cost_keys_torch(tbl: PipelineTables, frame: torch.Tensor,
                     io: torch.Tensor, stats: torch.Tensor, lo: int,
                     objective: str) -> torch.Tensor:
@@ -340,12 +391,14 @@ def cost_rows_torch(tbl: PipelineTables, frame: torch.Tensor,
 
 def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
                    io: torch.Tensor, stats: torch.Tensor, lo: int,
-                   objective: str) -> torch.Tensor:
+                   objective: str, split: bool | None = None) -> torch.Tensor:
     """The CUDA cost stage: (4, ceil(B / COST_BLOCK)) float64, bit-equal to
     :func:`cost_rows_torch`.  ``frame`` (B, G) bool/uint8, ``io`` (B, G)
     and ``stats`` (B, 7) integer CUDA tensors; lane-major int32 storage
     (as the allocator kernel writes it) is read in place, anything else is
-    converted once.  Launches the kernel or raises."""
+    converted once.  ``split``: ``COST_SPLIT`` threads a candidate or one
+    (:func:`cost_rows_plan` picks when None).  Launches the kernel or
+    raises."""
     from repro_torch.kernels import _build
 
     code = _objective_code(objective)
@@ -371,11 +424,12 @@ def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
                           if frame.dtype == torch.bool else frame)
     io_lm = lane_major(io.to(torch.int32))
     stats_lm = lane_major(stats.to(torch.int32))
+    plan = cost_rows_plan(B, sms=_sm_count(dev.index or 0), split=split)
     err = _build.load().cost_rows_launch(
         frame_lm.data_ptr(), io_lm.data_ptr(), stats_lm.data_ptr(),
         tbl.tab.data_ptr(), out.data_ptr(), lo, lo + B, B, tbl.n,
         tbl.bpc, tbl.goc, float(tbl.budget), float(tbl.weight_bytes),
-        float(tbl.row_buff), code, *_stream_args(dev))
+        float(tbl.row_buff), code, int(plan.split), *_stream_args(dev))
     _build.check(err, "cost_rows")
     cost_rows_cuda.launches += 1
     return out

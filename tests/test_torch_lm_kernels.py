@@ -192,6 +192,139 @@ def test_rglru_plain_is_the_sequential_recurrence():
     assert h[0, :, 0].tolist() == [1.0, 2.25, 3.5]
 
 
+# ------------------------------------------- K9's ring schedule, on the CPU
+def ring_replay(a, b, plan):
+    """``csrc/rglru_scan.cu`` as it runs, in numpy: block ``blk`` (one warp)
+    owns channels ``c0 .. c0 + CHANNELS - 1`` of batch row ``bi``; its lanes
+    issue each stage's copies (``stage_copies``) into ring slot ``stage %
+    RING_STAGES``, ``RING_STAGES - 1`` stages ahead, a copy past S or W
+    filling zeros; a stage lands when the wait leaves at most
+    ``RING_STAGES - 1`` groups in flight; the chain lanes then run ``h =
+    a h + b`` in float32 from the slot.  Asserts that no copy overwrites a
+    slot before its stage was consumed and that a stage is consumed only
+    after it landed.  Returns h and how often each element of a and b was
+    copied."""
+    from repro_torch.kernels.rglru_scan import (CHANNELS, RING_STAGES,
+                                                STAGE_STEPS, WARP,
+                                                stage_copies)
+    B, S, W = a.shape
+    K, T, cpw, vec = RING_STAGES, STAGE_STEPS, CHANNELS, plan.vec
+    src = (a, b)
+    h = np.full(a.shape, np.nan, dtype=np.float32)
+    copied = np.zeros((2,) + a.shape, dtype=np.int64)
+    copies = [stage_copies(plan, lane) for lane in range(WARP)]
+    for blk in range(plan.blocks):
+        bi, grp = divmod(blk, plan.groups_per_row)
+        c0 = grp * cpw
+        ring = np.full((K, 2, T, cpw), np.nan, dtype=np.float32)
+        holds = [None] * K             # the stage each slot was last given
+        groups = []                    # committed, not landed: (stage, writes)
+
+        def issue(stage):
+            assert holds[stage % K] is None, "slot overwritten unconsumed"
+            holds[stage % K] = stage
+            writes = []
+            t0 = stage * T
+            for lane in range(WARP):
+                for arr, step, ch in copies[lane]:
+                    ok = t0 + step < S and c0 + ch < W
+                    if ok:
+                        # a 16-byte copy lies wholly inside the row
+                        assert c0 + ch + vec <= W
+                        vals = src[arr][bi, t0 + step, c0 + ch:c0 + ch + vec]
+                        copied[arr, bi, t0 + step, c0 + ch:c0 + ch + vec] += 1
+                    else:
+                        vals = np.zeros(vec, dtype=np.float32)
+                    writes.append((stage % K, arr, step, ch, vals))
+            return writes
+
+        def land(keep):
+            while len(groups) > keep:
+                _, writes = groups.pop(0)
+                for slot, arr, step, ch, vals in writes:
+                    ring[slot, arr, step, ch:ch + vec] = vals
+
+        for s in range(K - 1):
+            groups.append((s, issue(s) if s < plan.stages else []))
+        hv = np.zeros(cpw, dtype=np.float32)
+        lanes = np.arange(cpw)
+        chain = c0 + lanes < W
+        for i in range(plan.stages):
+            ahead = i + K - 1
+            groups.append((ahead, issue(ahead) if ahead < plan.stages
+                           else []))
+            land(K - 1)
+            assert all(st > i for st, _ in groups), "consumed before landing"
+            assert holds[i % K] == i
+            for s in range(T):
+                t = i * T + s
+                if t >= S:
+                    break
+                hv = ring[i % K, 0, s] * hv + ring[i % K, 1, s]
+                h[bi, t, c0 + lanes[chain]] = hv[chain]
+            holds[i % K] = None
+    return h, copied
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (2, 300, 40),       # more than the ring of 128 steps, ragged last stage
+    (1, 5, 16),         # S shorter than a stage
+    (2, 100, 20),       # S shorter than the ring; W ragged in 8 and 16
+    (1, 130, 10),       # W not a multiple of 4: 4-byte copies
+    (3, 17, 3),         # B * W below a warp
+])
+def test_rglru_ring_replay_is_the_plain_recurrence(B, S, W):
+    """K9's schedule (channel groups, ring slots, stages ahead, masks) on
+    the CPU: every element of a and b copied exactly once, and h equal
+    bit for bit to the plain version."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_plan
+    a = np.array(jax.nn.sigmoid(rnd(2, (B, S, W))))
+    b = rnd(3, (B, S, W))
+    plan = rglru_scan_plan(B, S, W)
+    assert plan.vec == (4 if W % 4 == 0 else 1)
+    h, copied = ring_replay(a, b, plan)
+    assert (copied == 1).all()
+    want = rglru_scan_torch(torch.from_numpy(a), torch.from_numpy(b))
+    assert np.array_equal(h.view(np.int32), want.numpy().view(np.int32))
+
+
+def test_rglru_ring_replay_unaligned_and_against_jax():
+    """Unaligned base pointers take 4-byte copies: the same h; and the
+    replay within the JAX kernel's tolerance of its doubling scan."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_plan
+    B, S, W = 2, 64, 32
+    a = np.array(jax.nn.sigmoid(rnd(4, (B, S, W))))
+    b = rnd(5, (B, S, W))
+    plan = rglru_scan_plan(B, S, W, aligned=False)
+    assert plan.vec == 1
+    h, copied = ring_replay(a, b, plan)
+    assert (copied == 1).all()
+    h16, _ = ring_replay(a, b, rglru_scan_plan(B, S, W))
+    assert np.array_equal(h.view(np.int32), h16.view(np.int32))
+    close(h, jax_rglru_kernel(jnp.asarray(a), jnp.asarray(b), chunk=16,
+                              block_w=32, interpret=True), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,S,W,aligned,vec,blocks,stages", [
+    (2, 3072, 2560, True, 4, 320, 192),     # recurrentgemma-2b's serve
+    (2, 3071, 2561, True, 1, 2 * 161, 192),
+    (1, 5, 16, True, 4, 1, 1),
+    (3, 17, 3, True, 1, 3, 2),
+    (2, 3072, 2560, False, 1, 320, 192),
+])
+def test_rglru_scan_plan(B, S, W, aligned, vec, blocks, stages):
+    """Every channel in exactly one warp's group, the ring within a block's
+    227 KB of shared memory, 16-byte copies only on aligned rows."""
+    from repro_torch.kernels.rglru_scan import (CHANNELS, RING_STAGES,
+                                                STAGE_STEPS, rglru_scan_plan)
+    plan = rglru_scan_plan(B, S, W, aligned=aligned)
+    assert (plan.vec, plan.blocks, plan.stages) == (vec, blocks, stages)
+    groups = plan.groups_per_row
+    assert groups * CHANNELS >= W > (groups - 1) * CHANNELS
+    assert plan.smem_bytes == RING_STAGES * 2 * STAGE_STEPS * CHANNELS * 4
+    assert plan.smem_bytes <= 227 * 1024
+
+
 # --------------------------------------------------------------- dispatch
 def test_ops_dispatch_on_the_cpu_runs_the_plain_versions():
     q = torch.from_numpy(rnd(0, (1, 20, 2, 16)))

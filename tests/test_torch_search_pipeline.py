@@ -287,3 +287,265 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               backend="cuda")
     from repro_torch.kernels import launch_counts
     assert set(launch_counts().values()) == {0}
+
+
+# ------------------------------------------- K3's schedule, on the CPU
+_TAB = dict(comp=0, row=1, weight=2, side=3, rowfm=4, scomp=5, sweight=6,
+            outf=7, outr=8, wrr=9)
+
+
+def _key_less(o, a):
+    """``csrc/search_pipeline.cu::key_less`` over arrays of keys (..., 4)."""
+    less = np.zeros(o.shape[:-1], dtype=bool)
+    undecided = np.ones(o.shape[:-1], dtype=bool)
+    for c in range(4):
+        ne = o[..., c] != a[..., c]
+        less |= undecided & ne & (o[..., c] < a[..., c])
+        undecided &= ~ne
+    return less
+
+
+def _price(t, fr, io_g, tbl, q):
+    """``price_group``: the latency terms of one group (table column ``t``)
+    for candidates with frame bits ``fr`` and io words ``io_g``; the
+    order-free terms go into ``q``."""
+    per = np.full(fr.shape, t[_TAB["row"]])
+    if t[_TAB["side"]] > 0.0:
+        per[:] = t[_TAB["comp"]]
+    else:
+        mem = (t[_TAB["weight"]] + io_g.astype(np.float64)) / tbl.bpc
+        per = np.where(fr, np.maximum(t[_TAB["comp"]], mem) + tbl.goc, per)
+    q["rterm"] = np.where(fr, q["rterm"], q["rterm"] + t[_TAB["rowfm"]])
+    if t[_TAB["scomp"]] > 0.0:
+        q["outf"] = np.where(fr, np.maximum(q["outf"], t[_TAB["outf"]]),
+                             q["outf"])
+        for name in ("sweight", "outr", "wrr"):
+            key = "wbuff" if name == "sweight" else name
+            q[key] = np.where(fr, q[key], np.maximum(q[key], t[_TAB[name]]))
+    return per
+
+
+def cost_schedule(tbl, frame, io, stats, lo, objective, plan):
+    """``csrc/search_pipeline.cu``'s cost kernels as they run, in numpy.
+
+    Block ``blk`` prices candidates ``blk * COST_BLOCK + c``.  With one
+    thread a candidate, thread ``c`` loads the frame bytes and io words of
+    ``COST_WINDOW`` groups at a time from the flat lane-major rows (nothing
+    past B or n) and adds each group's term in gid order.  Split, thread
+    ``(p, c)`` of ``COST_SPLIT`` prices groups ``g0 + p + COST_SPLIT * j``
+    of each step of ``COST_STEP`` groups, from load slots refilled
+    ``COST_AHEAD`` steps ahead, into a term buffer (asserted to be written
+    once a step), and thread ``(0, c)`` adds the step's terms in gid order;
+    the order-free terms are combined across ``p`` at the end.
+    The table is read from its staged tile of ``COST_TILE`` groups, padded
+    past n with side groups of 0 cycles, and both kernels run whole windows
+    or steps over the padding (adding +0.0).  Then each block's tree of
+    ``block_argmin_in``.  Returns the rows (4, blocks) and how often each
+    (group, candidate) element was loaded."""
+    B, n = frame.shape
+    nb, blk = plan.blocks, port_pipe.COST_BLOCK
+    assert nb * blk >= B > (nb - 1) * blk
+    fr_flat = frame.numpy().astype(np.uint8).T.reshape(-1)
+    io_flat = io.numpy().astype(np.int64).T.reshape(-1)
+    st_flat = stats.numpy().astype(np.int64).T.reshape(-1)
+    tab = tbl.tab.numpy()
+    b = np.arange(nb * blk)                  # candidate c of block blk
+    ok = b < B
+    loads = np.zeros((n, B), dtype=np.int64)
+
+    def load(g):
+        """Frame bits and io words of group g for every candidate."""
+        fr = np.zeros(len(b), dtype=bool)
+        io_g = np.zeros(len(b), dtype=np.int64)
+        if g < n:
+            fr[ok] = fr_flat[g * B + b[ok]] != 0
+            io_g[ok] = io_flat[g * B + b[ok]]
+            loads[g] += 1
+        return fr, io_g
+
+    def fresh():
+        return {k: np.zeros(len(b)) for k in ("rterm", "wbuff", "outf",
+                                               "outr", "wrr")}
+
+    T = port_pipe.COST_TILE
+    tile = np.zeros((len(_TAB), T))
+
+    def stage(g0):
+        """The table's columns g0 .. g0 + T - 1 at a tile boundary; a column
+        past n is a side group of 0 cycles and no SRAM term."""
+        if g0 % T == 0:
+            tile[:] = 0.0
+            tile[_TAB["side"]] = 1.0
+            part = tab[:, g0:g0 + T]
+            tile[:, :part.shape[1]] = part
+
+    lat = np.zeros(len(b))
+    if not plan.split:
+        assert plan.threads == blk
+        q = fresh()
+        W = port_pipe.COST_WINDOW
+        cur = [load(g) for g in range(W)]
+        for g0 in range(0, n, W):
+            stage(g0)
+            nxt = [load(g) for g in range(g0 + W, g0 + 2 * W)]
+            for u in range(W):          # whole windows: past n, +0.0
+                lat = lat + _price(tile[:, (g0 + u) % T], *cur[u], tbl, q)
+            cur = nxt
+    else:
+        P, step = port_pipe.COST_SPLIT, port_pipe.COST_STEP
+        assert plan.threads == blk * P and step % P == 0
+        qs = [fresh() for _ in range(P)]
+        mine = [[p + P * j for j in range(step // P)] for p in range(P)]
+        ahead = port_pipe.COST_AHEAD
+        # slot d of thread p: its groups of step k0 + d
+        slots = [[[load(d * step + i) for i in mine[p]] for p in range(P)]
+                 for d in range(ahead)]
+        for k, g0 in enumerate(range(0, n, step)):
+            stage(g0)
+            d = k % ahead
+            terms = np.full((step, len(b)), np.nan)
+            written = np.zeros(step, dtype=np.int64)
+            for p in range(P):
+                for j, i in enumerate(mine[p]):
+                    terms[i] = _price(tile[:, (g0 + i) % T], *slots[d][p][j],
+                                      tbl, qs[p])
+                    written[i] += 1
+                    slots[d][p][j] = load(g0 + ahead * step + i)
+            assert (written == 1).all()
+            for i in range(step):                  # thread (0, c), in order
+                lat = lat + terms[i]
+        q = qs[0]
+        for other in qs[1:]:                       # exact in any order
+            q["rterm"] = q["rterm"] + other["rterm"]
+            for k in ("wbuff", "outf", "outr", "wrr"):
+                q[k] = np.maximum(q[k], other[k])
+
+    st = np.zeros((7, len(b)))
+    for r in range(7):
+        st[r, ok] = st_flat[r * B + b[ok]]
+    dram = q["rterm"] + st[5] + float(tbl.weight_bytes)
+    sram = (float(tbl.row_buff) + np.maximum(q["outf"], q["outr"])
+            + np.maximum(q["wrr"], st[4]) + st[0]
+            + np.maximum(st[1], q["wbuff"]) + st[2] + st[3])
+    feasible = (sram <= float(tbl.budget)) & (st[6] > 0)
+    infeas = np.where(feasible, 0.0, 1.0)
+    primary, secondary = {"latency": (lat, sram), "sram": (sram, lat),
+                          "dram": (dram, lat)}[objective]
+    keys = np.stack([infeas, primary, secondary,
+                     (lo + b).astype(np.float64)], axis=-1)
+    keys[~ok] = np.inf                             # pad_key: never wins
+    tree = keys.reshape(nb, blk, 4)                # block_argmin_in
+    step = blk // 2
+    while step:
+        a, o = tree[:, :step], tree[:, step:2 * step]
+        tree[:, :step] = np.where(_key_less(o, a)[..., None], o, a)
+        step //= 2
+    return tree[:, 0].T.copy(), loads
+
+
+def _ref_block_rows(ref_eng, frame, lo, objective):
+    """The JAX package's pipeline on masks: its allocator replay and the
+    host's batched reductions (the body of ``_run_reference``), then the
+    first minimum of every block of ``COST_BLOCK`` candidates."""
+    from repro.core.dram import dram_fm_fast_batch
+    from repro.core.sram import sram_total_fast_batch
+    from repro.core.timing import latency_cycles_fast_batch
+    from repro.kernels.alloc_scan import alloc_scan_ref
+    res = alloc_scan_ref(ref_eng._at, frame)
+    lat = latency_cycles_fast_batch(ref_eng._lt, frame,
+                                    res.io.astype(np.float64), ref_eng.hw)
+    fm = dram_fm_fast_batch(ref_eng._dt, frame, res.bfm.tolist())
+    terms = [(b[0], b[1], b[2], s, w) for b, s, w in zip(
+        res.buff.tolist(), res.side_buff.tolist(), res.wrf.tolist())]
+    sram, _ = sram_total_fast_batch(ref_eng._st, frame, terms, ref_eng.hw,
+                                    bram_memo=ref_eng._bram_memo)
+    sram = np.asarray(sram, dtype=np.int64)
+    feasible = (sram <= ref_eng.hw.sram_budget) & res.feasible
+    dram = np.asarray(fm, dtype=np.float64) + float(ref_eng._dt.weight_bytes)
+    keys = ref_pipe._keys_np(objective, lat, dram, sram, feasible)
+    idx = np.arange(lo, lo + len(frame), dtype=np.float64)
+    blk = port_pipe.COST_BLOCK
+    rows = [ref_pipe.argmin_lanes(*(np.asarray(c)[i:i + blk]
+                                    for c in (*keys, idx)))
+            for i in range(0, len(frame), blk)]
+    return np.asarray(rows, dtype=np.float64).T
+
+
+def _plans(B):
+    """Both kernels the plan can pick at B."""
+    return [port_pipe.cost_rows_plan(B, split=False),
+            port_pipe.cost_rows_plan(B, split=True)]
+
+
+def _hold_schedule(tbl, frame, res, lo, objective, want, what):
+    for plan in _plans(frame.shape[0]):
+        rows, loads = cost_schedule(tbl, frame, res.io, res.stats, lo,
+                                    objective, plan)
+        assert (loads == 1).all(), (what, plan)
+        assert np.array_equal(_bits(rows), _bits(want)), (what, plan)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+@pytest.mark.parametrize("name", ALL_CNNS)
+def test_cost_schedule_on_the_zoo(name, objective):
+    """K3's schedule on a small chunk of each zoo net's cut space from an
+    odd ``lo`` (two blocks, the second short) == the plain version's rows
+    == the JAX package's pipeline, bit for bit, under every plan."""
+    ref, _ = both(name)
+    pe = _port_engine(name)
+    tbl = port_pipe._engine_tables(pe)
+    space = port_pipe.SubSpace.make(
+        (), tuple(len(r) + 1 for r in ref.runs), "cpu")
+    lo = 101
+    count = min(300, space.size - lo)
+    frame = port_pipe.enum_frames(tbl, space, lo, count)
+    res = alloc_scan(pe.alloc_tables(), frame)
+    want = port_pipe.cost_rows_torch(tbl, frame, res.io, res.stats, lo,
+                                     objective).numpy()
+    _hold_schedule(tbl, frame, res, lo, objective, want, name)
+    ref_rows = _ref_block_rows(_ref_engine(name), frame.numpy(), lo,
+                               objective)
+    assert np.array_equal(_bits(ref_rows), _bits(want)), name
+
+
+@pytest.mark.parametrize("B", [1, 3, 255, 257, 8748])
+def test_cost_schedule_ragged_batches(B):
+    """resnet152's 160 groups (three tiles of the table), random masks
+    from an odd ``lo``: one candidate, a batch below a window of 4, one
+    short of a block, one past it, and resnet152's whole space."""
+    name = "resnet152"
+    pe = _port_engine(name)
+    tbl = port_pipe._engine_tables(pe)
+    rng = np.random.default_rng(B)
+    masks = rng.random((B, tbl.n)) < rng.random((B, 1))
+    frame = torch.from_numpy(masks)
+    res = alloc_scan(pe.alloc_tables(), frame)
+    lo = 12345
+    ref_eng = _ref_engine(name)
+    for objective in OBJECTIVES:
+        want = port_pipe.cost_rows_torch(tbl, frame, res.io, res.stats, lo,
+                                         objective).numpy()
+        _hold_schedule(tbl, frame, res, lo, objective, want, objective)
+        ref_rows = _ref_block_rows(ref_eng, masks, lo, objective)
+        assert np.array_equal(_bits(ref_rows), _bits(want)), objective
+
+
+@pytest.mark.parametrize("B", [1, 3, 255, 256, 257, 8748, 263 * 256,
+                               263 * 256 + 1, 4095 * 256, 1 << 20])
+@pytest.mark.parametrize("split", [None, False, True])
+def test_cost_rows_plan(B, split):
+    """One row a block of COST_BLOCK candidates, every candidate in exactly
+    one block's slots, the shared memory within a block's 227 KB, and the
+    split kernel exactly when the one-thread kernel would leave SMs
+    without two blocks."""
+    plan = port_pipe.cost_rows_plan(B, sms=132, split=split)
+    assert plan.blocks == -(-B // port_pipe.COST_BLOCK)
+    slots = (np.arange(plan.blocks)[:, None] * port_pipe.COST_BLOCK
+             + np.arange(port_pipe.COST_BLOCK)[None, :]).reshape(-1)
+    assert np.array_equal(slots[slots < B], np.arange(B))
+    assert plan.smem_bytes <= 227 * 1024
+    want = plan.blocks < 2 * 132 if split is None else split
+    assert plan.split == want
+    assert plan.threads == port_pipe.COST_BLOCK * (
+        port_pipe.COST_SPLIT if want else 1)
+    assert plan.threads <= 1024
