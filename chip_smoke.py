@@ -16,9 +16,17 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                slot map of K1's on-chip state: 7 lanes live at once) and
                efficientnet-b1 (139, with SE side groups); cut-derived and
                random frame masks, all three objectives, duplicated argmin
-               keys; K3 under both of its plans (a thread a candidate, and
-               four, ``cost_rows_plan``) and on a ragged batch (B odd, an
-               odd ``lo``).  K5, the float32
+               keys; K2 at each width of its stores (``enum_frames_plan``:
+               16 candidates a thread at yolov2's chunk, 4 at resnet152's
+               8,748, 1 at an odd B), at B = 1 and, on the spaces larger
+               than 2^32, from ``lo`` = 2^32 - 5; K3 under both of its plans
+               (a thread a candidate, and four, ``cost_rows_plan``), on a
+               ragged batch (B odd, an odd ``lo``) and on one block (B 200),
+               each case three times back to back with the chunk's winner
+               taken by its block 0 (K4's reduction, on winner slots that
+               the launch must leave NaN) and held against
+               ``argmin_rows_torch`` of its rows, and once on a second
+               stream.  K5, the float32
                scorer: the engine's default batch of 1,024 candidates at
                resnet152's 160 groups, a chunk of 1,048,576 at yolov2's 26
                and 8 candidates at efficientnet-b1's 139 (the largest batch
@@ -61,10 +69,12 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                ``engine="device"``, and both again with
                ``backend="pallas"`` (the float32 scorer).  Each sweep has its
                own launch counts, set to 0 just before it and read just
-               after: all of K1-K4 must have run under ``pipeline``, K1
-               under ``device``, K5 under both ``pallas`` sweeps and K1 under
-               the second.  The default plans are held against the port's
-               host ``journal`` engine (against ``pipeline:torch`` on the GPU
+               after: K1-K3 must have run under ``pipeline``, K1 under
+               ``device``, K5 under both ``pallas`` sweeps and K1 under the
+               second; in every sweep K4's standalone kernel 0 times and its
+               reduction once in each K3 launch (``fused_launches``).  The
+               default plans are held against the port's host ``journal``
+               engine (against ``pipeline:torch`` on the GPU
                for yolov2, whose space is too large for the host) and pinned
                reference values; the ``pallas`` plans against the same
                compile with ``device="cpu"`` (yolov2's exhaustive plan under
@@ -159,7 +169,12 @@ KERNEL_INFO = {
         "replaces": "src/repro/kernels/search_pipeline.py:490"},
     "argmin_rows": {
         "source": "src/repro_torch/kernels/csrc/search_pipeline.cu",
-        "replaces": "src/repro/kernels/search_pipeline.py:592"},
+        "replaces": "src/repro/kernels/search_pipeline.py:592",
+        # on the main path K4's reduction runs in K3's block 0; the
+        # standalone kernel serves argmin_lanes and argmin_rows
+        "fused_into": "cost_rows_kernel / cost_rows_split_kernel: "
+                      "finish_block -> chunk_winner",
+        "standalone": "argmin_rows_kernel -> rows_argmin"},
     "score_batch": {
         "source": "src/repro_torch/kernels/csrc/score_batch.cu",
         "replaces": "src/repro/kernels/score_batch.py:149"},
@@ -195,9 +210,10 @@ KERNEL_INFO = {
 SCORER_SHAPES = (("resnet152", 1024), ("yolov2", CHUNK),
                  ("efficientnet-b1", 8))
 # the four sweeps of the main path: (engine, backend, exhaustive limits,
-# kernels that must have launched)
+# kernels that must have launched); K4 runs inside K3's launches
 PIPELINE_KERNELS = ("alloc_scan", "enum_frames", "cost_rows", "argmin_rows")
-SWEEPS = (("pipeline", "numpy", {}, PIPELINE_KERNELS),
+SWEEPS = (("pipeline", "numpy", {}, ("alloc_scan", "enum_frames",
+                                     "cost_rows")),
           ("device", "numpy", {"yolov2": 100000}, ("alloc_scan",)),
           ("pipeline", "pallas", {}, ("score_batch",)),
           ("device", "pallas", {"yolov2": 100000},
@@ -407,10 +423,23 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
         require(ok, f"{net} {name} {what}: kernel != plain version "
                     f"(max abs err {errs[name]})")
 
-    # K2 enumeration
+    # K2 enumeration: the chunk, an odd B (one candidate a thread), B = 1,
+    # and across 2^32 on a space that holds it
     frame_k = pipe.enum_frames_cuda(tbl, space, lo, B)
     frame_p = pipe.enum_frames_torch(tbl, space, lo, B)
-    same("enum_frames", frame_k, frame_p, "masks")
+    same("enum_frames", frame_k, frame_p,
+         f"masks, V {pipe.enum_frames_plan(B)}")
+    enum_cases = [(space, lo + 1, B - 1 - B % 2), (space, lo, 1)]
+    full = pipe.SubSpace.make((), [len(r) + 1 for r in engine.runs], "cuda")
+    if full.size > (1 << 32) + 4096:
+        enum_cases += [(full, (1 << 32) - 5, 4096),
+                       (full, (1 << 32) - 5, 4093)]
+    for sp, lo_e, count in enum_cases:
+        if count > 0:
+            same("enum_frames", pipe.enum_frames_cuda(tbl, sp, lo_e, count),
+                 pipe.enum_frames_torch(tbl, sp, lo_e, count),
+                 f"masks, V {pipe.enum_frames_plan(count)}, lo {lo_e}, "
+                 f"B {count}")
 
     # K1 allocator replay: cut-derived masks and random masks
     rand = (torch.rand((B, G), generator=gen, device="cuda")
@@ -429,7 +458,26 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
         same("alloc_scan", res_k.stats, res_p.stats, f"B={b} stats")
 
     # K3 cost rows, three objectives, fed by the kernel's and by the plain
-    # version's replay (int32 lane-major and int64 row-major inputs)
+    # version's replay (int32 lane-major and int64 row-major inputs); each
+    # launch three times back to back, each taking the chunk's winner in its
+    # block 0 (the winner slots must be NaN again for the next)
+    def cost_case(frame, res, lo_c, objective, split, want, what):
+        wins = [torch.empty(4, dtype=torch.float64, device="cuda")
+                for _ in range(3)]
+        for win in wins:
+            got = pipe.cost_rows_cuda(tbl, frame, res.io, res.stats, lo_c,
+                                      objective, split=split, winner=win)
+        same("cost_rows", got, want, f"{what}, {COST_PLANS[split]}",
+             bits=True)
+        best = pipe.argmin_rows_torch(want)
+        for k, win in enumerate(wins):
+            same("argmin_rows", win, best,
+                 f"{what}, {COST_PLANS[split]}: chunk winner of launch "
+                 f"{k + 1} of 3 in K3's block 0", bits=True)
+        require(bool(torch.isnan(pipe._winner_slots(tbl.device, 1)).all()),
+                f"{what}, {COST_PLANS[split]}: the winner slots were not "
+                f"left NaN")
+
     rows_main = None
     for what, (frame, res_k, res_p) in runs.items():
         for objective in pipe.OBJECTIVES:
@@ -437,31 +485,42 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
                                         lo, objective)
             for feed, res in (("kernel-fed", res_k), ("plain-fed", res_p)):
                 for split in (False, True):
-                    got = pipe.cost_rows_cuda(tbl, frame, res.io, res.stats,
-                                              lo, objective, split=split)
-                    same("cost_rows", got, want,
-                         f"{what} {objective} {feed}, {COST_PLANS[split]}",
-                         bits=True)
+                    cost_case(frame, res, lo, objective, split, want,
+                              f"{what} {objective} {feed}")
             if what == "cut masks" and objective == "latency":
                 rows_main = want
     # a ragged batch from an odd lo: B odd (a multiple of neither 4 nor 16),
-    # the last block short
+    # the last block short; and one block's worth
     frame, res_k, res_p = runs["random masks"]
     off = 7 if lo % 2 == 0 else 8
     n_odd = B - off - (B - off + 1) % 2
-    if n_odd > 0:
-        sub = slice(off, off + n_odd)
+    for start, count in ((off, n_odd), (0, min(200, B))):
+        if count <= 0:
+            continue
+        sub = slice(start, start + count)
         for objective in pipe.OBJECTIVES:
             want = pipe.cost_rows_torch(tbl, frame[sub], res_p.io[sub],
-                                        res_p.stats[sub], lo + off,
+                                        res_p.stats[sub], lo + start,
                                         objective)
+            part = scan.AllocScanResult(io=res_k.io[sub],
+                                        stats=res_k.stats[sub])
             for split in (False, True):
-                got = pipe.cost_rows_cuda(tbl, frame[sub], res_k.io[sub],
-                                          res_k.stats[sub], lo + off,
-                                          objective, split=split)
-                same("cost_rows", got, want,
-                     f"ragged B={n_odd} lo={lo + off} {objective}, "
-                     f"{COST_PLANS[split]}", bits=True)
+                cost_case(frame[sub], part, lo + start, objective, split,
+                          want, f"B={count} lo={lo + start} {objective}")
+    # a second stream has its own winner slots
+    frame, res_k, res_p = runs["cut masks"]
+    main_slots = pipe._winner_slots(tbl.device, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        win = torch.empty(4, dtype=torch.float64, device="cuda")
+        pipe.cost_rows_cuda(tbl, frame, res_k.io, res_k.stats, lo, "latency",
+                            winner=win)
+        require(pipe._winner_slots(tbl.device, 1).data_ptr()
+                != main_slots.data_ptr(), "two streams share winner slots")
+    torch.cuda.current_stream().wait_stream(side)
+    same("argmin_rows", win, pipe.argmin_rows_torch(rows_main),
+         "chunk winner on a second stream", bits=True)
 
     # K4 argmin: the cost stage's rows, and keys stuffed with duplicates
     lanes_list = [rows_main] + [fuzz_lanes(gen, n)
@@ -476,16 +535,19 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
     if not timed:
         return out
     frame, res_k, res_p = runs["cut masks"]
+    win = torch.empty(4, dtype=torch.float64, device="cuda")
+    # K3 as the main path runs it: with the chunk's winner
     cases = {
         "enum_frames": (lambda: pipe.enum_frames_cuda(tbl, space, lo, B),
                         lambda: pipe.enum_frames_torch(tbl, space, lo, B)),
         "alloc_scan": (lambda: scan.alloc_scan_cuda(at, frame),
                        lambda: scan.alloc_scan_torch(at, frame)),
         "cost_rows": (lambda: pipe.cost_rows_cuda(tbl, frame, res_k.io,
-                                                  res_k.stats, lo, "latency"),
+                                                  res_k.stats, lo, "latency",
+                                                  winner=win),
                       lambda: pipe.cost_rows_torch(tbl, frame, res_p.io,
                                                    res_p.stats, lo,
-                                                   "latency")),
+                                                   "latency", winner=win)),
         "argmin_rows": (lambda: pipe.argmin_rows_cuda(rows_main),
                         lambda: pipe.argmin_rows_torch(rows_main)),
     }
@@ -520,19 +582,33 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
             part, f_k, io_k, res_k.stats, lo, "latency"), reps=reps,
             warmup=1) for _ in range(2))
     out["times"]["cost_rows"]["by_groups"] = by_groups
-    # and its device time alone, from a trace (at a small B the wrapper's
-    # host time exceeds the kernel's, and "ms" times the wrapper)
+    # and the device time alone, from a trace (at a small B the wrapper's
+    # host time exceeds the kernel's, and "ms" times the wrapper); K3 also
+    # without the winner, for the cost of its last block's epilogue
+    for name in cases:
+        out["times"][name]["device_ms"] = traced_ms(cases[name][0], name,
+                                                    reps)
+    out["times"]["cost_rows"]["device_ms_without_winner"] = traced_ms(
+        lambda: pipe.cost_rows_cuda(tbl, frame, res_k.io, res_k.stats, lo,
+                                    "latency"), "cost_rows", reps)
+    out["times"]["enum_frames"]["vec"] = pipe.enum_frames_plan(B)
+    return out
+
+
+def traced_ms(fn, name: str, reps: int):
+    """Device milliseconds of one launch of ``fn``, from a ``torch.profiler``
+    trace of ``reps`` launches, the kernels of wrapper ``name`` matched by
+    substring (a templated kernel's name carries its arguments)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            cases["cost_rows"][0]()
+            fn()
         torch.cuda.synchronize()
-    traced = [v for name, v in device_time_by_kernel(prof).items()
-              if name in TRACE_NAMES["cost_rows"]]
-    out["times"]["cost_rows"]["device_ms"] = (
-        sum(v["device_ms"] for v in traced) / sum(v["count"] for v in traced)
-        if traced else "not measured")
-    return out
+    traced = [v for key, v in device_time_by_kernel(prof).items()
+              if any(n in key for n in TRACE_NAMES[name])]
+    return (sum(v["device_ms"] for v in traced)
+            / sum(v["count"] for v in traced) if traced else "not measured")
 
 
 def check_scorer(shapes, timed: bool, reps: int) -> dict:
@@ -1478,12 +1554,13 @@ def drive_main_path(nets, engine, limits, backend="numpy"):
     (``"pipeline"``, the default options, or ``"device"``) and ``backend``,
     with the launch counts set to 0 just before it and read just after.
     Returns ``({(net, engine, backend): (signature, seconds, options)},
-    launches)``."""
+    launches, fused launches)``."""
     import torch
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
     from repro_torch.core.options import CompileOptions
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import (fused_launch_counts, launch_counts,
+                                     reset_launch_counts)
 
     out = {}
     reset_launch_counts()
@@ -1499,7 +1576,7 @@ def drive_main_path(nets, engine, limits, backend="numpy"):
         torch.cuda.synchronize()
         out[net, engine, backend] = (plan_signature(plan),
                                      time.perf_counter() - t0, opts)
-    return out, launch_counts()
+    return out, launch_counts(), fused_launch_counts()
 
 
 def check_main_path(results):
@@ -1763,17 +1840,25 @@ def main(argv=None) -> int:
     # ---- phase 3: the main path, four sweeps, each with its own launch
     # counts (set to 0 just before the sweep, read just after)
     nets = list(CNN_BUILDERS)
-    results, launches = {}, {}
+    results, launches, fused = {}, {}, {}
     for engine, backend, limits, needed in SWEEPS:
-        swept, counts = drive_main_path(nets, engine, limits, backend)
+        swept, counts, in_k3 = drive_main_path(nets, engine, limits, backend)
         launches[engine, backend] = counts
+        fused[engine, backend] = in_k3
         results.update(swept)
         log(f"launches under engine={engine!r}, backend={backend!r}: "
-            f"{counts}")
+            f"{counts}; fused into another kernel's launch: {in_k3}")
         for name in needed:
             require(counts[name] > 0,
                     f"kernel {name} was never launched under "
                     f"engine={engine!r}, backend={backend!r}")
+        # every chunk winner is taken by K3's last block
+        require(counts["argmin_rows"] == 0
+                and in_k3["argmin_rows"] == counts["cost_rows"],
+                f"engine={engine!r}, backend={backend!r}: argmin_rows "
+                f"launched {counts['argmin_rows']} times, its reduction run "
+                f"in {in_k3['argmin_rows']} of {counts['cost_rows']} K3 "
+                f"launches")
     check_main_path(results)
     check_pallas_path(results)
 
@@ -1816,10 +1901,13 @@ def main(argv=None) -> int:
     kernels = []
     for name in PIPELINE_KERNELS:
         info, t = KERNEL_INFO[name], main_shape["times"][name]
+        # K4 runs in K3's last block on the main path: its launches are
+        # those, its standalone kernel's are 0
+        main = fused if name == "argmin_rows" else launches
         kernels.append({
             "name": name, "route": "cuda", "source": info["source"],
             "replaces": info["replaces"],
-            "launches": launches["pipeline", "numpy"][name],
+            "launches": main["pipeline", "numpy"][name],
             "launches_by_sweep": by_sweep[name],
             "max_abs_err": max(c["errs"][name] for c in checks.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1827,9 +1915,20 @@ def main(argv=None) -> int:
             "library_ms": None,
             "shape": {"B": main_shape["B"], "G": main_shape["G"],
                       "L": main_shape["L"]}})
+        kernels[-1]["device_ms"] = t["device_ms"]
+        if name == "enum_frames":
+            kernels[-1]["vec"] = t["vec"]
         if name == "cost_rows":
-            kernels[-1].update({k: t[k] for k in ("plan", "at_plans",
-                                                  "by_groups", "device_ms")})
+            kernels[-1].update({k: t[k] for k in (
+                "plan", "at_plans", "by_groups", "device_ms_without_winner")})
+        if name == "argmin_rows":
+            kernels[-1].update({
+                "standalone_launches": launches["pipeline", "numpy"][name],
+                "fused_launches_by_sweep": {
+                    f"{e}+{b}": fused[e, b][name] for e, b, _l, _n in SWEEPS},
+                "fused_into": info["fused_into"],
+                "standalone": info["standalone"],
+                "times_are_of": "the standalone kernel at L rows"})
         if name in ("alloc_scan", "cost_rows"):
             kernels[-1]["at_other_shapes"] = {
                 net: {"B": checks[net]["B"], "G": checks[net]["G"],

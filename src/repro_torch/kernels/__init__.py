@@ -55,6 +55,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def fused_launch_counts() -> dict:
+    """name -> launches of another wrapper's kernel that ran this kernel's
+    work since the last :func:`reset_launch_counts`, for the wrappers whose
+    work may be fused (K4: the chunk winners K3's block 0 takes)."""
+    return {name: fn.fused_launches
+            for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "fused_launches")}
+
+
 def launch_counts_by_variant() -> dict:
     """name -> {variant: launches} since the last
     :func:`reset_launch_counts`, for the wrappers with variants."""
@@ -66,5 +75,7 @@ def launch_counts_by_variant() -> dict:
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "fused_launches"):
+            fn.fused_launches = 0
         for variant in getattr(fn, "launches_by_variant", ()):
             fn.launches_by_variant[variant] = 0

@@ -149,9 +149,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p]                       # device, stream
     lib.enum_frames_launch.argtypes = [
         p, p, p, p, p,              # digits, run_of, pos_of, dir_neg, frame
-        ll, ll, i, i, i, p]         # lo, B, n, nr, device, stream
+        ll, ll, i, i, i,            # lo, B, n, nr, vec
+        i, p]                       # device, stream
     lib.cost_rows_launch.argtypes = [
         p, p, p, p, p,              # frame, io, stats, tab, out
+        p, p, ll,                   # winner, slots, cap (null: no winner)
         ll, ll, ll, i,              # lo, S, B, n
         d, d, d, d, d,              # bpc, goc, budget, wbytes, row_buff
         i, i,                       # objective, split

@@ -1,6 +1,7 @@
 // The three remaining stages of the fused cut search, CUDA C++ for sm_90a:
-// candidate enumeration, the float64 cost reduction with a per-block argmin,
-// and the lexicographic argmin over rows.
+// candidate enumeration, the float64 cost reduction with a per-block argmin
+// (and, in its block 0, the chunk's winner), and the lexicographic argmin
+// over rows.
 //
 // THIS FILE MUST BE COMPILED WITH -fmad=false AND WITHOUT --use_fast_math.
 // The cost stage has to reproduce the host's IEEE float64 arithmetic bit for
@@ -75,12 +76,246 @@ __device__ Key block_argmin(Key k) {
     return block_argmin_in<NT>(k, sh);
 }
 
+// A key as entry i of four rows of `stride` float64.
+__device__ __forceinline__ void store_key(double* p, long long stride,
+                                          long long i, const Key& k) {
+    p[0 * stride + i] = k.infeas;
+    p[1 * stride + i] = k.primary;
+    p[2 * stride + i] = k.secondary;
+    p[3 * stride + i] = k.idx;
+}
+
+__device__ __forceinline__ Key shfl_down(const Key& k, int off) {
+    return Key{__shfl_down_sync(0xffffffffu, k.infeas, off),
+               __shfl_down_sync(0xffffffffu, k.primary, off),
+               __shfl_down_sync(0xffffffffu, k.secondary, off),
+               __shfl_down_sync(0xffffffffu, k.idx, off)};
+}
+
+__device__ __forceinline__ Key warp_argmin(Key k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const Key o = shfl_down(k, off);
+        if (key_less(o, k)) k = o;
+    }
+    return k;
+}
+
+// The least key of a block of NT threads (a multiple of 32, at most 1,024)
+// by warp shuffles, the warps' winners through shared memory; valid in
+// thread 0.  The order of the comparisons does not matter: the idx of the
+// keys compared is unique (or the keys are pads, equal bit for bit), so the
+// least key is one key whatever the order.
+template <int NT>
+__device__ Key block_argmin_shfl(Key k) {
+    constexpr int NW = NT / 32;
+    static_assert(NT % 32 == 0 && NW <= 32, "one warp takes the warps' keys");
+    __shared__ double sh[4][NW];
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    k = warp_argmin(k);
+    if (lane == 0) {
+        sh[0][w] = k.infeas;
+        sh[1][w] = k.primary;
+        sh[2][w] = k.secondary;
+        sh[3][w] = k.idx;
+    }
+    __syncthreads();
+    if (w == 0) {
+        k = lane < NW ? Key{sh[0][lane], sh[1][lane], sh[2][lane],
+                            sh[3][lane]}
+                      : pad_key();
+        k = warp_argmin(k);
+    }
+    return k;
+}
+
+// ------------------------------------------------------------ argmin of rows
+// Replaces repro/kernels/search_pipeline.py::_argmin_only_kernel.  The first
+// lexicographic minimum of L keys stored as four rows [4][L] float64, by one
+// block of NT threads; valid in thread 0.  Its work is a few thousand keys,
+// so what bounds it is latency: each thread issues the loads of R keys (4R
+// independent 8-byte loads, 64 in flight) before it compares any, then the
+// block reduces by warp shuffles.
+template <int NT>
+__device__ Key rows_argmin(const double* __restrict__ rows, long long L) {
+    constexpr int R = 16;
+    Key best = pad_key();
+    for (long long i0 = threadIdx.x; i0 < L; i0 += (long long)NT * R) {
+        double v[4][R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const long long i = i0 + (long long)k * NT;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                v[c][k] = i < L ? __ldg(rows + c * L + i) : INFINITY;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const Key key{v[0][k], v[1][k], v[2][k], v[3][k]};
+            if (key_less(key, best)) best = key;
+        }
+    }
+    return block_argmin_shfl<NT>(best);
+}
+
+// ------------------------------------------------------ the chunk's winner
+// K4's reduction in the cost kernels' block 0.  Blocks finish in no order,
+// so the reducing block has to learn that every row is written.  A ticket
+// (a fence and an atomic a block) would hold every block's slot for two
+// round trips to L2 after its row; instead each block also stores its row,
+// with relaxed stores and nothing to wait for, into `slots`, a [4][cap]
+// float64 scratch of the stream that holds NaN between launches (no key is
+// NaN).  Block 0 polls the rows until none is NaN, reduces them, and sets
+// them back to NaN for the next launch on the stream.  The card starts
+// block 0 first, so its reduction runs beside the other blocks' pricing and
+// only the rows of the last ones are waited for; it holds one of the
+// launch's block slots meanwhile, and every other block can still run.
+
+__device__ __forceinline__ double load_relaxed(const double* p) {
+    double v;
+    asm volatile("ld.relaxed.gpu.global.f64 %0, [%1];"
+                 : "=d"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_relaxed(double* p, double v) {
+    asm volatile("st.relaxed.gpu.global.f64 [%0], %1;"
+                 :: "l"(p), "d"(v) : "memory");
+}
+
+// A block's row, for block 0 to find.
+__device__ __forceinline__ void post_row(double* slots, long long cap,
+                                         long long i, const Key& k) {
+    store_relaxed(slots + 0 * cap + i, k.infeas);
+    store_relaxed(slots + 1 * cap + i, k.primary);
+    store_relaxed(slots + 2 * cap + i, k.secondary);
+    store_relaxed(slots + 3 * cap + i, k.idx);
+}
+
+// The chunk's winner from the nb rows posted in `slots`, by block 0 (NT
+// threads), into winner[0..3]; the rows are set back to NaN.  A key with a
+// NaN component is not posted in full yet and is loaded again: each poll
+// waits a round trip to L2 and the warp issues nothing meanwhile.  The rows
+// arrive over the whole launch, so a thread takes one key at a time (more
+// in flight would not end it sooner).  Not inlined: it keeps its registers
+// out of the pricing loop's.
+template <int NT>
+__device__ __noinline__ void chunk_winner(double* slots, long long cap,
+                                          long long nb, double* winner) {
+    Key best = pad_key();
+    for (long long i = threadIdx.x; i < nb; i += NT) {
+        double v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c] = load_relaxed(slots + c * cap + i);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            while (isnan(v[c]))                  // not posted yet
+                v[c] = load_relaxed(slots + c * cap + i);
+            slots[c * cap + i] = NAN;
+        }
+        const Key key{v[0], v[1], v[2], v[3]};
+        if (key_less(key, best)) best = key;
+    }
+    const Key w = block_argmin_shfl<NT>(best);
+    if (threadIdx.x == 0) store_key(winner, 1, 0, w);
+}
+
+// After the block's winner is known in thread 0: its row, and its post for
+// the chunk's winner, taken by block 0.  Every thread calls it, with the
+// same `winner`.
+template <int NT>
+__device__ __forceinline__ void finish_block(double* out, double* winner,
+                                             double* slots, long long cap,
+                                             const Key& win) {
+    if (threadIdx.x == 0) {
+        store_key(out, gridDim.x, blockIdx.x, win);
+        if (winner) post_row(slots, cap, blockIdx.x, win);
+    }
+    if (winner && blockIdx.x == 0)
+        chunk_winner<NT>(slots, cap, gridDim.x, winner);
+}
+
 // ---------------------------------------------------------------- enumerate
-// Linear index lo + b -> cut per run (a fixed prefix cut, or the mixed-radix
-// digit (j / stride) % dim, last run fastest) -> frame bit per group.
-// digits is [3][nr] int64: fixed cut, stride (0 marks a fixed run), dim.
-// The groups of a run are contiguous, so the digit is recomputed only when
-// the run changes along g.
+// Replaces repro/kernels/search_pipeline.py::_enum_kernel.  Linear index
+// lo + b -> cut per run (a fixed prefix cut, or the mixed-radix digit
+// (j / stride) % dim, last run fastest) -> frame bit per group.  digits is
+// [3][nr] int64: fixed cut, stride (0 marks a fixed run), dim.
+//
+// Its bound is the bytes it writes, one a candidate and group.  What held a
+// thread a candidate far above it was the decode: sm_90 has no 64-bit
+// integer divider, so each `/` and `%` is a routine of dozens of
+// instructions, run for every candidate and run.  So a thread owns V
+// consecutive candidates (B % V == 0, kernels/search_pipeline.py::
+// enum_frames_plan): it decodes the first, j0, once per run, and the other
+// V - 1 follow without a division -- for a run of stride >= V the digit
+// steps at most once, at v = stride - j0 % stride; for a smaller stride an
+// odometer in 32 bits steps it.  The groups of a run are contiguous, so one
+// run's V digits are held in registers while its groups are written, each
+// group's V mask bytes as one V-byte store (a warp: 32 V contiguous bytes).
+
+// a / b for a, b >= 0, in 32 bits when both fit
+__device__ __forceinline__ unsigned long long udiv(unsigned long long a,
+                                                   unsigned long long b) {
+    return ((a | b) >> 32) ? a / b
+                           : (unsigned long long)((unsigned)a / (unsigned)b);
+}
+
+// The digits of candidates j0 .. j0 + V - 1 in one run.
+template <int V>
+__device__ __forceinline__ void run_digits(int (&dig)[V], long long j0,
+                                           long long fixed, long long stride,
+                                           long long dim) {
+    if (stride == 0) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) dig[v] = (int)fixed;
+        return;
+    }
+    const unsigned long long q = udiv(j0, stride);
+    const long long rem = j0 - (long long)q * stride;
+    const int D = (int)dim;
+    int d = (int)(q - udiv(q, dim) * dim);
+    if (stride >= V) {                   // one step at most, at v = first
+        const long long left = stride - rem;
+        const int first = left < V ? (int)left : V;
+        const int d1 = d + 1 == D ? 0 : d + 1;
+#pragma unroll
+        for (int v = 0; v < V; ++v) dig[v] = v < first ? d : d1;
+    } else {                             // an odometer over v
+        const int s = (int)stride;
+        int r = (int)rem;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            dig[v] = d;
+            if (++r == s) {
+                r = 0;
+                if (++d == D) d = 0;
+            }
+        }
+    }
+}
+
+// One group's V mask bytes, byte v = candidate v, as one store.
+template <int V>
+__device__ __forceinline__ void store_masks(uint8_t* p, const int (&dig)[V],
+                                            int pos, bool neg) {
+    constexpr int NW = (V + 3) / 4;
+    uint32_t w[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+        w[k] = 0;
+#pragma unroll
+        for (int u = 0; u < 4 && 4 * k + u < V; ++u)    // neg ? pos >= cut
+            w[k] |= (uint32_t)((pos >= dig[4 * k + u]) == neg) << (8 * u);
+    }                                                    //     : pos < cut
+    if constexpr (V == 16)
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (V == 4)
+        *reinterpret_cast<uint32_t*>(p) = w[0];
+    else
+        *p = (uint8_t)w[0];
+}
+
+template <int V>
 __global__ void __launch_bounds__(BLOCK)
 enum_frames_kernel(const long long* __restrict__ digits,
                    const int* __restrict__ run_of,
@@ -88,21 +323,21 @@ enum_frames_kernel(const long long* __restrict__ digits,
                    const uint8_t* __restrict__ dir_neg,
                    uint8_t* __restrict__ frame,          // [n][B]
                    long long lo, long long B, int n, int nr) {
-    const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const long long j = lo + b;
+    static_assert(V == 1 || V == 4 || V == 16, "a 1-, 4- or 16-byte store");
+    const long long b0 = (blockIdx.x * (long long)BLOCK + threadIdx.x) * V;
+    if (b0 >= B) return;
+    const long long j0 = lo + b0;
+    uint8_t* p = frame + b0;             // aligned to V: B % V == 0
+    int dig[V];
     int last_run = -1;
-    int cut = 0;
-    for (int g = 0; g < n; ++g) {
+    for (int g = 0; g < n; ++g, p += B) {
         const int r = __ldg(run_of + g);
         if (r != last_run) {
-            const long long stride = __ldg(digits + nr + r);
-            cut = stride ? (int)((j / stride) % __ldg(digits + 2 * nr + r))
-                         : (int)__ldg(digits + r);
+            run_digits<V>(dig, j0, __ldg(digits + r),
+                          __ldg(digits + nr + r), __ldg(digits + 2 * nr + r));
             last_run = r;
         }
-        const int pos = __ldg(pos_of + g);
-        frame[g * B + b] = __ldg(dir_neg + g) ? (pos >= cut) : (pos < cut);
+        store_masks<V>(p, dig, __ldg(pos_of + g), __ldg(dir_neg + g) != 0);
     }
 }
 
@@ -285,13 +520,17 @@ struct Rows {
 // the latency in a register, with the frame bytes and io words of the next
 // WIN groups in flight while it prices these; the table is read from shared
 // memory.  Four blocks an SM (<= 64 registers) hide the float64 division's
-// latency.  The block then takes its first minimum.
+// latency.  The block then takes its first minimum; given a winner buffer,
+// block 0 also takes the chunk's (finish_block).
 __global__ void __launch_bounds__(COST_BLOCK, 4)
 cost_rows_kernel(const uint8_t* __restrict__ frame,     // [n][B]
                  const int* __restrict__ io,            // [n][B]
                  const int* __restrict__ stats,         // [7][B]
                  const double* __restrict__ tab,        // [10][n]
                  double* __restrict__ out,              // [4][gridDim.x]
+                 double* __restrict__ winner,           // [4] or null
+                 double* __restrict__ slots,            // [4][cap]
+                 long long cap,
                  long long lo, long long S, long long B, int n,
                  double bpc, double goc, double budget, double wbytes,
                  double row_buff, int objective) {
@@ -332,13 +571,7 @@ cost_rows_kernel(const uint8_t* __restrict__ frame,     // [n][B]
                                   budget, objective)
                        : pad_key();
     const Key win = block_argmin<COST_BLOCK>(key);
-    if (threadIdx.x == 0) {
-        const long long nb = gridDim.x;
-        out[0 * nb + blockIdx.x] = win.infeas;
-        out[1 * nb + blockIdx.x] = win.primary;
-        out[2 * nb + blockIdx.x] = win.secondary;
-        out[3 * nb + blockIdx.x] = win.idx;
-    }
+    finish_block<COST_BLOCK>(out, winner, slots, cap, win);
 }
 
 // SPLIT threads a candidate, for batches too small to fill the card with
@@ -358,6 +591,9 @@ cost_rows_split_kernel(const uint8_t* __restrict__ frame,     // [n][B]
                        const int* __restrict__ stats,         // [7][B]
                        const double* __restrict__ tab,        // [10][n]
                        double* __restrict__ out,          // [4][gridDim.x]
+                       double* __restrict__ winner,       // [4] or null
+                       double* __restrict__ slots,        // [4][cap]
+                       long long cap,
                        long long lo, long long S, long long B, int n,
                        double bpc, double goc, double budget, double wbytes,
                        double row_buff, int objective) {
@@ -436,79 +672,88 @@ cost_rows_split_kernel(const uint8_t* __restrict__ frame,     // [n][B]
     }
     __syncthreads();                     // the partials are read
     const Key win = block_argmin_in<COST_BLOCK>(key, red);
-    if (threadIdx.x == 0) {
-        const long long nb = gridDim.x;
-        out[0 * nb + blockIdx.x] = win.infeas;
-        out[1 * nb + blockIdx.x] = win.primary;
-        out[2 * nb + blockIdx.x] = win.secondary;
-        out[3 * nb + blockIdx.x] = win.idx;
-    }
+    finish_block<COST_BLOCK * SPLIT>(out, winner, slots, cap, win);
 }
 
 // ------------------------------------------------------------------- argmin
 // One block reduces L lanes, [4][L] float64, to the first lexicographic
-// minimum: 4 float64.
+// minimum: 4 float64.  The cut search takes its chunk winners in the cost
+// kernels' block 0; this launch serves the other callers.
 __global__ void __launch_bounds__(BLOCK)
 argmin_rows_kernel(const double* __restrict__ lanes, double* __restrict__ out,
                    long long L) {
-    Key best = pad_key();
-    for (long long i = threadIdx.x; i < L; i += BLOCK) {
-        const Key k{lanes[i], lanes[L + i], lanes[2 * L + i],
-                    lanes[3 * L + i]};
-        if (key_less(k, best)) best = k;
-    }
-    const Key win = block_argmin<BLOCK>(best);
-    if (threadIdx.x == 0) {
-        out[0] = win.infeas;
-        out[1] = win.primary;
-        out[2] = win.secondary;
-        out[3] = win.idx;
-    }
+    const Key win = rows_argmin<BLOCK>(lanes, L);
+    if (threadIdx.x == 0) store_key(out, 1, 0, win);
 }
 
 }  // namespace
 
+// vec: candidates a thread (1, 4 or 16, dividing B);
+// kernels/search_pipeline.py::enum_frames_plan picks.
 extern "C" int enum_frames_launch(const void* digits, const void* run_of,
                                   const void* pos_of, const void* dir_neg,
                                   void* frame, long long lo, long long B,
-                                  int n, int nr, int device, void* stream) {
+                                  int n, int nr, int vec, int device,
+                                  void* stream) {
     if (B <= 0) return 0;
+    if ((vec != 1 && vec != 4 && vec != 16) || B % vec)
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = (B + BLOCK - 1) / BLOCK;
-    enum_frames_kernel<<<(unsigned)blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const long long*)digits, (const int*)run_of, (const int*)pos_of,
-        (const uint8_t*)dir_neg, (uint8_t*)frame, lo, B, n, nr);
+    const unsigned blocks = (unsigned)((B / vec + BLOCK - 1) / BLOCK);
+    cudaStream_t st = (cudaStream_t)stream;
+    const long long* d = (const long long*)digits;
+    const int* r = (const int*)run_of;
+    const int* p = (const int*)pos_of;
+    const uint8_t* neg = (const uint8_t*)dir_neg;
+    uint8_t* f = (uint8_t*)frame;
+    if (vec == 16)
+        enum_frames_kernel<16><<<blocks, BLOCK, 0, st>>>(d, r, p, neg, f, lo,
+                                                         B, n, nr);
+    else if (vec == 4)
+        enum_frames_kernel<4><<<blocks, BLOCK, 0, st>>>(d, r, p, neg, f, lo,
+                                                        B, n, nr);
+    else
+        enum_frames_kernel<1><<<blocks, BLOCK, 0, st>>>(d, r, p, neg, f, lo,
+                                                        B, n, nr);
     return (int)cudaGetLastError();
 }
 
 // out must hold [4][ceil(B / 256)] float64.  split: SPLIT threads a
 // candidate (cost_rows_split_kernel) instead of one (cost_rows_kernel);
-// kernels/search_pipeline.py::cost_rows_plan picks.
+// kernels/search_pipeline.py::cost_rows_plan picks.  winner: null, or [4]
+// float64 for the chunk's winner, with slots [4][cap] float64, cap >= the
+// blocks, all NaN and used by no launch on another stream (the launch
+// leaves them NaN again).
 extern "C" int cost_rows_launch(const void* frame, const void* io,
                                 const void* stats, const void* tab, void* out,
+                                void* winner, void* slots, long long cap,
                                 long long lo, long long S, long long B, int n,
                                 double bpc, double goc, double budget,
                                 double wbytes, double row_buff, int objective,
                                 int split, int device, void* stream) {
     if (B <= 0) return 0;
+    const long long blocks = (B + COST_BLOCK - 1) / COST_BLOCK;
+    if (winner && cap < blocks) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = (B + COST_BLOCK - 1) / COST_BLOCK;
     const uint8_t* f = (const uint8_t*)frame;
     const int* i = (const int*)io;
     const int* s = (const int*)stats;
     const double* t = (const double*)tab;
     double* o = (double*)out;
+    double* w = (double*)winner;
+    double* sl = (double*)slots;
     cudaStream_t st = (cudaStream_t)stream;
     if (split)
         cost_rows_split_kernel<<<(unsigned)blocks, COST_BLOCK * SPLIT, 0,
-                                 st>>>(f, i, s, t, o, lo, S, B, n, bpc, goc,
-                                       budget, wbytes, row_buff, objective);
+                                 st>>>(f, i, s, t, o, w, sl, cap, lo, S, B, n,
+                                       bpc, goc, budget, wbytes, row_buff,
+                                       objective);
     else
         cost_rows_kernel<<<(unsigned)blocks, COST_BLOCK, 0, st>>>(
-            f, i, s, t, o, lo, S, B, n, bpc, goc, budget, wbytes, row_buff,
-            objective);
+            f, i, s, t, o, w, sl, cap, lo, S, B, n, bpc, goc, budget,
+            wbytes, row_buff, objective);
     return (int)cudaGetLastError();
 }
 

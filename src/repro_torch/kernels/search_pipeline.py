@@ -27,7 +27,8 @@ host.  This module fuses that whole loop into one device pipeline behind
    ``(infeasible, primary, secondary)``, tie-broken by the cut tuple, i.e.
    by the linear index ``j``.  The first lexicographic minimum of
    ``(infeas, primary, secondary, idx)`` is taken per block of the cost
-   stage and then over the block rows, so one row per chunk is left.
+   stage and then over the block rows, so one row per chunk is left.  Each
+   ``idx`` is unique, so that row is the same in every reduction order.
 
 Between the stages everything stays on the device.  The chunk rows are
 read back once per sub-space and folded on the host by plain tuple
@@ -42,10 +43,11 @@ Each stage has a plain torch version and a hand-written CUDA kernel
 (``csrc/search_pipeline.cu``) beside it, bit-identical to each other:
 
 * :func:`enum_frames_torch` / :func:`enum_frames_cuda` replace the TPU
-  kernel ``repro/kernels/search_pipeline.py::_enum_kernel``.  One thread
-  decodes one candidate and writes its G frame bits lane-major.  Bound by
-  the bytes it writes (B x G); at the search's sizes a launch is mostly
-  overhead.
+  kernel ``repro/kernels/search_pipeline.py::_enum_kernel``.  A thread
+  decodes V consecutive candidates (:func:`enum_frames_plan`): the
+  mixed-radix digits of the first by division, once per run, the others by
+  stepping them, and writes each group's V mask bytes lane-major as one
+  store.  Bound by the bytes it writes (B x G).
 * :func:`cost_rows_torch` / :func:`cost_rows_cuda` replace ``_cost_kernel``.
   A thread prices one candidate in a single pass over its G groups,
   accumulating the latency in a register in gid order -- the order the TPU
@@ -60,11 +62,16 @@ Each stage has a plain torch version and a hand-written CUDA kernel
   division stays a division.  Its bound is the bytes it reads (mask + io, 5
   B per candidate and group); on the card its float64 arithmetic, not the
   bytes, sets its time.  Blocks run in no order, so the reduction across
-  blocks is a second pass:
+  blocks waits for all of them: given a ``winner`` buffer, each block also
+  posts its row to a scratch of the stream that holds NaN between launches,
+  and block 0 reduces the posted rows as they arrive (a NaN row is not
+  there yet) into the chunk's winner (K4's reduction, run inside K3's
+  launch).
 * :func:`argmin_rows_torch` / :func:`argmin_rows_cuda` replace
-  ``_argmin_only_kernel``.  One block reduces the L rows by direct tuple
-  comparison, which equals the TPU version's nested masked minima.
-  Launch-bound at the few thousand rows a chunk leaves.
+  ``_argmin_only_kernel``: the first lexicographic minimum of L rows, as a
+  launch of its own for the callers outside the cut search.  One block,
+  each thread's loads all in flight before it compares, then warp shuffles;
+  bound by latency at the few thousand rows a chunk leaves.
 """
 from __future__ import annotations
 
@@ -96,6 +103,10 @@ COST_TILE = 64
 COST_SPLIT = 4
 COST_STEP = 2 * COST_SPLIT
 COST_AHEAD = 2                       # steps the split kernel loads ahead
+
+# candidates a thread of the enumeration kernel decodes and stores as one
+# vector, widest first (csrc/search_pipeline.cu enum_frames_kernel<V>)
+ENUM_VECTORS = (16, 4, 1)
 
 # rows of PipelineTables.tab
 _TAB_ROWS = ("lt_comp", "lt_row", "lt_weight", "lt_side", "dt_rowfm",
@@ -246,6 +257,28 @@ def _stream_args(dev: torch.device) -> tuple[int, int]:
     return dev.index or 0, torch.cuda.current_stream(dev).cuda_stream
 
 
+# K3's winner slots, one (4, cap) float64 scratch a (device, stream): a
+# launch that takes the chunk's winner posts each block's row there, and its
+# block 0 waits for every row to be there (no longer NaN), reduces them and
+# sets them back to NaN.  So the launches on one stream, which run one after
+# another, share one, and launches on two streams, which may overlap, never
+# do.
+_SLOTS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _winner_slots(dev: torch.device, blocks: int) -> torch.Tensor:
+    key = _stream_args(dev)
+    slots = _SLOTS.get(key)
+    if slots is None or slots.shape[1] < blocks:
+        # NaN on the stream it serves, ahead of its first launch; a larger
+        # one replaces it, and the old one's memory goes only to later work
+        # on this stream
+        slots = _SLOTS[key] = torch.full((4, max(blocks, COST_BLOCK)),
+                                         float("nan"), dtype=torch.float64,
+                                         device=dev)
+    return slots
+
+
 # ------------------------------------------------------------ K2: enumerate
 def enum_frames_torch(tbl: PipelineTables, space: SubSpace, lo: int,
                       count: int) -> torch.Tensor:
@@ -260,10 +293,19 @@ def enum_frames_torch(tbl: PipelineTables, space: SubSpace, lo: int,
     return torch.where(tbl.dir_neg[None, :], pos >= cut, pos < cut)
 
 
+def enum_frames_plan(B: int) -> int:
+    """Candidates V a thread of the enumeration kernel decodes: the widest
+    of ``ENUM_VECTORS`` that divides ``B``, so that each thread's V bytes of
+    a group row are whole and V-aligned (the row base ``g * B`` is a
+    multiple of V)."""
+    return next(v for v in ENUM_VECTORS if B % v == 0)
+
+
 def enum_frames_cuda(tbl: PipelineTables, space: SubSpace, lo: int,
                      count: int) -> torch.Tensor:
-    """The CUDA enumeration: (count, G) uint8 0/1, stored lane-major.
-    Launches the kernel or raises."""
+    """The CUDA enumeration: (count, G) uint8 0/1, stored lane-major, V
+    candidates a thread (:func:`enum_frames_plan`).  Launches the kernel or
+    raises."""
     from repro_torch.kernels import _build
 
     if tbl.device.type != "cuda" or space.digits.device != tbl.device:
@@ -275,7 +317,8 @@ def enum_frames_cuda(tbl: PipelineTables, space: SubSpace, lo: int,
     err = _build.load().enum_frames_launch(
         space.digits.data_ptr(), tbl.run_of32.data_ptr(),
         tbl.pos_of32.data_ptr(), tbl.dir_neg8.data_ptr(), frame.data_ptr(),
-        lo, count, tbl.n, space.digits.shape[1], *_stream_args(tbl.device))
+        lo, count, tbl.n, space.digits.shape[1], enum_frames_plan(count),
+        *_stream_args(tbl.device))
     _build.check(err, "enum_frames")
     enum_frames_cuda.launches += 1
     return frame.t()
@@ -302,7 +345,7 @@ class CostPlan:
     threads: int        # a block: COST_BLOCK candidates
     blocks: int         # ceil(B / COST_BLOCK): one output row each
     smem_bytes: int     # the table's tile, the split kernel's latency
-    #                     terms, the block's argmin
+    #                     terms, the block's argmin, the chunk's winner
 
 
 def cost_rows_plan(B: int, sms: int = 132,
@@ -315,11 +358,14 @@ def cost_rows_plan(B: int, sms: int = 132,
         split = blocks < 2 * sms
     tab = 8 * len(_TAB_ROWS) * COST_TILE
     if split:
-        return CostPlan(split=True, threads=COST_BLOCK * COST_SPLIT,
-                        blocks=blocks,
-                        smem_bytes=tab + 8 * 2 * COST_STEP * COST_BLOCK)
-    return CostPlan(split=False, threads=COST_BLOCK, blocks=blocks,
-                    smem_bytes=tab + 8 * 4 * COST_BLOCK)
+        threads = COST_BLOCK * COST_SPLIT
+        own = 8 * 2 * COST_STEP * COST_BLOCK
+    else:
+        threads = COST_BLOCK
+        own = 8 * 4 * COST_BLOCK
+    # and a key a warp for the chunk's winner
+    return CostPlan(split=split, threads=threads, blocks=blocks,
+                    smem_bytes=tab + own + 8 * 4 * (threads // 32))
 
 
 @functools.lru_cache(maxsize=None)
@@ -377,28 +423,39 @@ def cost_keys_torch(tbl: PipelineTables, frame: torch.Tensor,
 
 def cost_rows_torch(tbl: PipelineTables, frame: torch.Tensor,
                     io: torch.Tensor, stats: torch.Tensor, lo: int,
-                    objective: str) -> torch.Tensor:
+                    objective: str,
+                    winner: torch.Tensor | None = None) -> torch.Tensor:
     """Cost stage, plain version: the winner row of every block of
-    ``COST_BLOCK`` candidates, (4, ceil(B / COST_BLOCK)) float64."""
+    ``COST_BLOCK`` candidates, (4, ceil(B / COST_BLOCK)) float64; and, into
+    ``winner`` (4,) when given, the chunk's winner over those rows."""
     keys = cost_keys_torch(tbl, frame, io, stats, lo, objective)
     B = keys.shape[1]
     nb = -(-B // COST_BLOCK)
     padded = torch.full((4, nb * COST_BLOCK), float("inf"),
                         dtype=torch.float64, device=keys.device)
     padded[:, :B] = keys
-    return argmin_rows_torch(padded.view(4, nb, COST_BLOCK))
+    rows = argmin_rows_torch(padded.view(4, nb, COST_BLOCK))
+    if winner is not None:
+        winner.copy_(argmin_rows_torch(rows))
+    return rows
 
 
 def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
                    io: torch.Tensor, stats: torch.Tensor, lo: int,
-                   objective: str, split: bool | None = None) -> torch.Tensor:
+                   objective: str, split: bool | None = None,
+                   winner: torch.Tensor | None = None) -> torch.Tensor:
     """The CUDA cost stage: (4, ceil(B / COST_BLOCK)) float64, bit-equal to
     :func:`cost_rows_torch`.  ``frame`` (B, G) bool/uint8, ``io`` (B, G)
     and ``stats`` (B, 7) integer CUDA tensors; lane-major int32 storage
     (as the allocator kernel writes it) is read in place, anything else is
     converted once.  ``split``: ``COST_SPLIT`` threads a candidate or one
-    (:func:`cost_rows_plan` picks when None).  Launches the kernel or
-    raises."""
+    (:func:`cost_rows_plan` picks when None).  ``winner``: a contiguous (4,)
+    float64 tensor on the same device, which the launch's block 0 fills
+    with the chunk's winner (counted in ``argmin_rows_cuda.fused_launches``).
+    The blocks post their rows to the winner slots of the current stream
+    (``_winner_slots``: one scratch a device and stream, NaN again after each
+    launch), so launches on one stream use theirs in turn and launches on
+    two streams never share one.  Launches the kernel or raises."""
     from repro_torch.kernels import _build
 
     code = _objective_code(objective)
@@ -416,6 +473,13 @@ def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
             f"B={B}, G={tbl.n}")
     if frame.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"frame must be bool or uint8, got {frame.dtype}")
+    if winner is not None and (
+            winner.device != dev or winner.dtype != torch.float64
+            or winner.shape != (4,) or not winner.is_contiguous()):
+        raise ValueError(f"cost_rows_cuda wants the winner as a contiguous "
+                         f"(4,) float64 tensor on {dev}, got "
+                         f"{tuple(winner.shape)} {winner.dtype} on "
+                         f"{winner.device}")
     nb = -(-B // COST_BLOCK)
     out = torch.empty((4, nb), dtype=torch.float64, device=dev)
     if B == 0:
@@ -425,13 +489,20 @@ def cost_rows_cuda(tbl: PipelineTables, frame: torch.Tensor,
     io_lm = lane_major(io.to(torch.int32))
     stats_lm = lane_major(stats.to(torch.int32))
     plan = cost_rows_plan(B, sms=_sm_count(dev.index or 0), split=split)
+    if winner is None:
+        fused = (None, None, 0)
+    else:
+        slots = _winner_slots(dev, nb)
+        fused = (winner.data_ptr(), slots.data_ptr(), slots.shape[1])
     err = _build.load().cost_rows_launch(
         frame_lm.data_ptr(), io_lm.data_ptr(), stats_lm.data_ptr(),
-        tbl.tab.data_ptr(), out.data_ptr(), lo, lo + B, B, tbl.n,
+        tbl.tab.data_ptr(), out.data_ptr(), *fused, lo, lo + B, B, tbl.n,
         tbl.bpc, tbl.goc, float(tbl.budget), float(tbl.weight_bytes),
         float(tbl.row_buff), code, int(plan.split), *_stream_args(dev))
     _build.check(err, "cost_rows")
     cost_rows_cuda.launches += 1
+    if winner is not None:
+        argmin_rows_cuda.fused_launches += 1
     return out
 
 
@@ -439,12 +510,16 @@ cost_rows_cuda.launches = 0
 
 
 def cost_rows(tbl: PipelineTables, frame, io, stats, lo: int,
-              objective: str, backend: str | None = None) -> torch.Tensor:
-    """Block winner rows of a chunk; the kernel for CUDA tensors, the plain
-    version only for CPU tensors, unless ``backend`` names one."""
+              objective: str, backend: str | None = None,
+              winner: torch.Tensor | None = None) -> torch.Tensor:
+    """Block winner rows of a chunk, and the chunk's winner into ``winner``
+    when given; the kernel for CUDA tensors, the plain version only for CPU
+    tensors, unless ``backend`` names one."""
     if _pick(backend, frame, "cost_rows"):
-        return cost_rows_cuda(tbl, frame, io, stats, lo, objective)
-    return cost_rows_torch(tbl, frame, io, stats, lo, objective)
+        return cost_rows_cuda(tbl, frame, io, stats, lo, objective,
+                              winner=winner)
+    return cost_rows_torch(tbl, frame, io, stats, lo, objective,
+                           winner=winner)
 
 
 # --------------------------------------------------------------- K4: argmin
@@ -456,7 +531,9 @@ def argmin_rows_torch(lanes: torch.Tensor) -> torch.Tensor:
     the previous minima, then minimizes the next key component over them;
     the last level minimizes the (unique) lane index, so ties on the full
     key resolve to the *first* lane -- the host merge's ``(objective key,
-    cut tuple)`` order, since index order is cut-tuple order."""
+    cut tuple)`` order, since index order is cut-tuple order.  The result
+    is that lane's own key, so a -0.0 and a +0.0, which tie, come back as
+    the winner holds them, as the kernels' comparisons leave them."""
     infeas, primary, secondary, idx = lanes
     inf = torch.full((), float("inf"), dtype=lanes.dtype,
                      device=lanes.device)
@@ -467,12 +544,16 @@ def argmin_rows_torch(lanes: torch.Tensor) -> torch.Tensor:
     s_min = torch.where(m1, secondary, inf).amin(dim=-1, keepdim=True)
     m2 = m1 & (secondary == s_min)
     i_win = torch.where(m2, idx, inf).amin(dim=-1, keepdim=True)
-    return torch.stack([i_min, p_min, s_min, i_win]).squeeze(-1)
+    first = (m2 & (idx == i_win)).to(torch.uint8).argmax(dim=-1,
+                                                          keepdim=True)
+    return lanes.gather(-1, first.expand(lanes.shape[:-1] + (1,))).squeeze(-1)
 
 
 def argmin_rows_cuda(lanes: torch.Tensor) -> torch.Tensor:
     """The CUDA argmin: (4, L) float64 -> (4,) float64.  Launches the
-    kernel or raises."""
+    kernel or raises.  The cut search does not call it: its chunk winners
+    are K4's reduction run by K3's block 0, counted apart in
+    ``fused_launches``."""
     from repro_torch.kernels import _build
 
     if not lanes.is_cuda:
@@ -493,6 +574,7 @@ def argmin_rows_cuda(lanes: torch.Tensor) -> torch.Tensor:
 
 
 argmin_rows_cuda.launches = 0
+argmin_rows_cuda.fused_launches = 0       # in cost_rows_cuda's launches
 
 
 def argmin_rows(lanes: torch.Tensor,
@@ -524,19 +606,21 @@ def argmin_lanes(infeas, primary, secondary, idx,
 def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
                variant: str) -> torch.Tensor:
     """The device loop: one winner row per chunk of ``chunk`` candidates,
-    (nchunks, 4) float64 on the engine's device.  Nothing is read back
-    here and nothing synchronises."""
+    (nchunks, 4) float64 on the engine's device, each written by the
+    chunk's cost stage.  Nothing is read back here and nothing
+    synchronises."""
     tbl = _engine_tables(engine)
     at = engine.alloc_tables()
-    rows = []
-    for lo in range(0, space.size, chunk):
+    los = range(0, space.size, chunk)
+    winners = torch.empty((len(los), 4), dtype=torch.float64,
+                          device=tbl.device)
+    for k, lo in enumerate(los):
         count = min(chunk, space.size - lo)
         frame = enum_frames(tbl, space, lo, count, backend=variant)
         res = alloc_scan(at, frame, backend=variant)
-        blocks = cost_rows(tbl, frame, res.io, res.stats, lo, objective,
-                           backend=variant)
-        rows.append(argmin_rows(blocks, backend=variant))
-    return torch.stack(rows)
+        cost_rows(tbl, frame, res.io, res.stats, lo, objective,
+                  backend=variant, winner=winners[k])
+    return winners
 
 
 def pipeline_subspace(engine, prefix, suffix_dims, objective: str,
@@ -553,8 +637,9 @@ def pipeline_subspace(engine, prefix, suffix_dims, objective: str,
     winner itself is re-priced through the engine's exact journal
     scorer, so the returned metrics never depend on kernel arithmetic.
 
-    ``variant`` is ``"cuda"`` (the four kernels) or ``"torch"`` (their
-    plain versions), on ``engine.device``; ``batch_size`` is the chunk.
+    ``variant`` is ``"cuda"`` (the kernels K2, K1, and K3 with K4's
+    reduction in its block 0) or ``"torch"`` (their plain versions), on
+    ``engine.device``; ``batch_size`` is the chunk.
     """
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective: {objective!r}")

@@ -5,16 +5,22 @@ a host without a GPU, and what the CUDA kernels are held against on the
 card):
 
 * enumeration vs ``CutpointEngine._frame_matrix`` and vs the reference's
-  Pallas enumeration kernel in interpret mode;
+  Pallas enumeration kernel in interpret mode; the CUDA kernel's schedule
+  (``enum_schedule``: V candidates a thread, digits stepped without
+  division, V-byte stores) vs both and vs ``(j // stride) % dim``;
 * cost keys vs the reference's host scorer, chunk winners vs its numpy
   pipeline (``_run_reference``), all three objectives.  The reference's
   Pallas cost and argmin kernels cannot run on this jax (they need
   ``jax.experimental.enable_x64``), so its numpy forms are the yardstick;
-* argmin vs a stable ``np.lexsort`` on keys stuffed with duplicates;
+* argmin vs a stable ``np.lexsort`` on keys stuffed with duplicates; the
+  kernels' row reduction (``rows_argmin_schedule``) vs the plain version
+  under permutations of the rows; chunk winners taken by the cost stage vs
+  the reference's ``_run_reference`` chunk by chunk;
 * ``pipeline_subspace`` vs the reference's ``pipeline:reference`` and its
   branch-and-bound walk on partitioned sub-spaces.
 
 Tolerance: none.  Integers equal, float64 keys bit-equal."""
+import functools
 import itertools
 
 import numpy as np
@@ -29,6 +35,7 @@ import repro_torch.kernels.search_pipeline as port_pipe
 from repro_torch.convert import pipeline_tables_from_numpy
 from repro_torch.kernels.alloc_scan import alloc_scan
 
+from hypothesis_compat import given, settings, st
 from torch_parity import ALL_CNNS, METRICS, both
 
 OBJECTIVES = ("latency", "sram", "dram")
@@ -285,8 +292,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port_pipe.argmin_rows(torch.zeros((4, 3), dtype=torch.float64),
                               backend="cuda")
-    from repro_torch.kernels import launch_counts
+    with pytest.raises(ValueError, match="CUDA"):
+        port_pipe.cost_rows(tbl, frame, res.io, res.stats, 0, "latency",
+                            backend="cuda",
+                            winner=torch.empty(4, dtype=torch.float64))
+    from repro_torch.kernels import fused_launch_counts, launch_counts
     assert set(launch_counts().values()) == {0}
+    assert fused_launch_counts() == {"argmin_rows": 0}
 
 
 # ------------------------------------------- K3's schedule, on the CPU
@@ -549,3 +561,308 @@ def test_cost_rows_plan(B, split):
     assert plan.threads == port_pipe.COST_BLOCK * (
         port_pipe.COST_SPLIT if want else 1)
     assert plan.threads <= 1024
+
+
+# ------------------------------------------- K2's schedule, on the CPU
+def run_digits_schedule(fixed, stride, dim, j0, V):
+    """``csrc/search_pipeline.cu::run_digits``: the digits of candidates
+    ``j0 + v``, v < V, of one run, for threads starting at ``j0`` (an int64
+    array) -> (threads, V).  The first by division; then, for a stride of at
+    least V, one step at ``v = stride - j0 % stride``, and for a smaller one
+    an odometer."""
+    j0 = np.asarray(j0, dtype=np.int64)
+    if stride == 0:
+        return np.full((len(j0), V), fixed, dtype=np.int64)
+    q, rem = np.divmod(j0, stride)
+    d = q % dim
+    dig = np.empty((len(j0), V), dtype=np.int64)
+    if stride >= V:
+        first = np.minimum(stride - rem, V)
+        d1 = np.where(d + 1 == dim, 0, d + 1)
+        v = np.arange(V)[None, :]
+        dig[:] = np.where(v < first[:, None], d[:, None], d1[:, None])
+    else:
+        r, d = rem.copy(), d.copy()
+        for v in range(V):
+            dig[:, v] = d
+            r += 1
+            carry = r == stride
+            r[carry] = 0
+            d[carry] += 1
+            d[d == dim] = 0
+    return dig
+
+
+def enum_schedule(digits, run_of, pos_of, dir_neg, lo, B, V=None):
+    """``enum_frames_kernel<V>`` as it runs, in numpy: thread t decodes
+    candidates ``b0 = t V .. b0 + V - 1`` from ``j0 = lo + b0``, walks the
+    groups in order and decodes a run's V digits when the run changes,
+    then packs each group's V mask bytes into little-endian 32-bit words
+    and stores them at ``g * B + b0``.  Returns the flat lane-major bytes
+    [n * B] and how often each byte was stored."""
+    V = port_pipe.enum_frames_plan(B) if V is None else V
+    assert B % V == 0
+    digits = np.asarray(digits, dtype=np.int64)
+    n = len(run_of)
+    threads = B // V
+    b0 = np.arange(threads, dtype=np.int64) * V
+    j0 = lo + b0
+    out = np.zeros(n * B, dtype=np.uint8)
+    stores = np.zeros(n * B, dtype=np.int64)
+    last_run, dig = -1, None
+    for g in range(n):
+        r = int(run_of[g])
+        if r != last_run:
+            dig = run_digits_schedule(*(int(x) for x in digits[:, r]), j0, V)
+            last_run = r
+        m = (int(pos_of[g]) >= dig) == bool(dir_neg[g])   # (threads, V)
+        words = np.zeros((threads, -(-V // 4)), dtype=np.uint32)
+        for v in range(V):
+            words[:, v // 4] |= m[:, v].astype(np.uint32) << (8 * (v % 4))
+        vec = words.astype("<u4").view(np.uint8)[:, :V]
+        at = g * B + b0
+        assert (at % V == 0).all()                        # aligned stores
+        for v in range(V):
+            out[at + v] = vec[:, v]
+            stores[at + v] += 1
+    return out, stores
+
+
+def _zoo_subspace(name, target=1 << 20):
+    """The zoo net's trailing runs whose product is at most ``target``,
+    the leading cuts fixed mid-run (int32 indices for the Pallas kernel)."""
+    ref, _ = both(name)
+    dims = [len(r) + 1 for r in ref.runs]
+    size, q = 1, len(dims)
+    while q > 1 and size * dims[q - 1] <= target:
+        q -= 1
+        size *= dims[q]
+    prefix = tuple(len(r) // 2 for r in ref.runs[:q])
+    return port_pipe.SubSpace.make(prefix, dims[q:], "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_enum(name, lo, count):
+    """The JAX package's ``_enum_kernel`` in interpret mode on
+    ``_zoo_subspace(name)``: (count, G) masks from ``lo``."""
+    space = _zoo_subspace(name)
+    rtbl = ref_pipe._engine_tables(_ref_engine(name))
+    block_b = 8
+    nb = -(-count // block_b)
+    nr = len(space.prefix) + len(space.dims)
+    call = ref_pipe._build_enum_call(nb, block_b, rtbl["lanes"], nr,
+                                     len(space.prefix), space.strides,
+                                     space.dims, True)
+    out = call(np.asarray([lo], dtype=np.int32),
+               np.asarray(space.prefix, dtype=np.int32),
+               rtbl["runof_row"], rtbl["pos_row"], rtbl["dirneg_row"])
+    return np.asarray(out)[:count, :rtbl["n"]].astype(bool)
+
+
+# a batch that takes each V of the rule
+ENUM_B = {16: 48, 4: 36, 1: 35}
+
+
+@pytest.mark.parametrize("V", [16, 4, 1])
+@pytest.mark.parametrize("name", ALL_CNNS)
+def test_enum_schedule_on_the_zoo(name, V):
+    """K2's schedule at each V == the plain version == the JAX package's
+    enumeration kernel in interpret mode, on each zoo net's sub-space from
+    an odd ``lo``; every byte stored once."""
+    space = _zoo_subspace(name)
+    tbl = port_pipe._engine_tables(_port_engine(name))
+    B = ENUM_B[V]
+    assert port_pipe.enum_frames_plan(B) == V
+    lo = space.size // 3 | 1
+    assert lo + max(ENUM_B.values()) <= space.size
+    flat, stores = enum_schedule(space.digits.numpy(), tbl.run_of32.numpy(),
+                                 tbl.pos_of32.numpy(), tbl.dir_neg8.numpy(),
+                                 lo, B)
+    assert (stores == 1).all()
+    got = flat.reshape(tbl.n, B).T.astype(bool)
+    want = port_pipe.enum_frames_torch(tbl, space, lo, B).numpy()
+    assert np.array_equal(got, want), name
+    assert np.array_equal(got, _pallas_enum(name, lo, max(ENUM_B.values()))
+                          [:B]), name
+    # the space's strides reach both branches of run_digits
+    assert V == 1 or min(space.strides) < V <= max(space.strides)
+
+
+@settings(max_examples=150, deadline=None)
+@given(dims=st.lists(st.integers(1, 300), min_size=1, max_size=6),
+       npfx=st.integers(0, 2),
+       lo=st.one_of(st.integers(0, 1 << 40),
+                    st.integers((1 << 32) - 40, (1 << 32) + 40)),
+       threads=st.integers(1, 5), V=st.sampled_from([1, 4, 16]))
+def test_run_digits_schedule_is_the_mixed_radix_digit(dims, npfx, lo,
+                                                      threads, V):
+    """The stepped digits equal ``(j // stride) % dim`` for every run and
+    candidate, strides below V and ``lo`` across 2^32 included."""
+    space = port_pipe.SubSpace.make((0,) * npfx, dims, "cpu")
+    j0 = lo + np.arange(threads, dtype=np.int64) * V
+    j = (j0[:, None] + np.arange(V)[None, :]).astype(object)
+    for r, (fixed, stride, dim) in enumerate(space.digits.numpy().T):
+        got = run_digits_schedule(int(fixed), int(stride), int(dim), j0, V)
+        if stride == 0:
+            assert (got == fixed).all()
+            continue
+        want = (j // int(stride)) % int(dim)       # Python integers
+        assert np.array_equal(got.astype(object), want), (r, stride, dim)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 12, 16, 35, 36, 48, 8748,
+                               622592, 1 << 20, (1 << 20) - 1])
+def test_enum_frames_plan(B):
+    """V is 16 when it divides B, else 4, else 1: yolov2's chunk and its
+    last chunk take 16, resnet152's 8,748 takes 4; B / V threads cover
+    every candidate once with V-aligned stores."""
+    V = port_pipe.enum_frames_plan(B)
+    assert V == (16 if B % 16 == 0 else 4 if B % 4 == 0 else 1)
+    assert V in port_pipe.ENUM_VECTORS and B % V == 0
+    b0 = np.arange(B // V) * V
+    covered = (b0[:, None] + np.arange(V)[None, :]).reshape(-1)
+    assert np.array_equal(covered, np.arange(B))
+    if B in (622592, 1 << 20):
+        assert V == 16
+    if B == 8748:
+        assert V == 4
+
+
+# ----------------------------------- K4's reduction, alone and in K3
+def _warp_argmin(keys):
+    """``warp_argmin`` over (..., 32, 4): shuffles down by 16, 8, 4, 2, 1;
+    a lane past 31 reads its own key."""
+    keys = keys.copy()
+    for off in (16, 8, 4, 2, 1):
+        other = keys.copy()
+        other[..., :32 - off, :] = keys[..., off:, :]
+        less = _key_less(other, keys)
+        keys = np.where(less[..., None], other, keys)
+    return keys
+
+
+def rows_argmin_schedule(rows, nt, r):
+    """The kernels' reductions of rows in numpy: with ``R`` 16,
+    ``rows_argmin<NT>`` (the standalone kernel); with ``R`` 1,
+    ``chunk_winner<NT>`` (the cost kernels' block 0, once every row is
+    posted).  Thread t loads keys
+    ``i0 + t + k NT`` (k < R; pads past L) of each pass of ``NT R`` keys,
+    then compares them in order; the block reduces by warp shuffles and one
+    warp over the warps' winners.  Returns thread 0's key and how often
+    each key was loaded."""
+    L = rows.shape[1]
+    keys = np.asarray(rows, dtype=np.float64).T
+    best = np.full((nt, 4), np.inf)
+    loads = np.zeros(L, dtype=np.int64)
+    t = np.arange(nt)
+    for i0 in range(0, L, nt * r):
+        batch = []
+        for k in range(r):
+            i = i0 + t + k * nt
+            ok = i < L
+            key = np.full((nt, 4), np.inf)
+            key[ok] = keys[i[ok]]
+            loads[i[ok]] += 1
+            batch.append(key)
+        for key in batch:
+            best = np.where(_key_less(key, best)[:, None], key, best)
+    warps = _warp_argmin(best.reshape(nt // 32, 32, 4))[:, 0]
+    lead = np.full((32, 4), np.inf)
+    lead[:len(warps)] = warps
+    return _warp_argmin(lead)[0], loads
+
+
+def _awkward_rows(rng, L):
+    """Block rows as the cost stage leaves them, with the keys that test a
+    reduction's order: pad rows (a last block with no candidate in range),
+    infeasible rows, ties on primary and secondary, and +0.0 / -0.0
+    primaries; the idx of real rows unique."""
+    infeas = rng.choice([0.0, 1.0], size=L)
+    primary = rng.choice([0.0, -0.0, 3.0, 3.0, 1e9], size=L)
+    secondary = rng.choice([2.0, 5.0, 5.0], size=L)
+    idx = rng.permutation(50 * L)[:L].astype(np.float64)
+    rows = np.stack([infeas, primary, secondary, idx])
+    rows[:, rng.random(L) < 0.2] = np.inf
+    return rows
+
+
+@pytest.mark.parametrize("L", [1, 2, 35, 257, 4096, 9000])
+def test_rows_argmin_is_order_free(L):
+    """The fused reduction (``NT`` 256 and 1,024 threads, one key at a
+    time) and the standalone kernel's (256, ``R`` 16) ==
+    ``argmin_rows_torch`` == the host's lexsort, bit for bit, for any
+    permutation of the rows: pad rows, all-infeasible rows and +-0.0
+    primaries included."""
+    rng = np.random.default_rng(L)
+    for case in range(4):
+        rows = _awkward_rows(rng, L)
+        if case == 1:
+            rows[0] = np.where(np.isinf(rows[0]), np.inf, 1.0)  # all infeas.
+        if case == 2:
+            rows[:, :] = np.inf                          # all pads
+        want = port_pipe.argmin_rows_torch(torch.from_numpy(rows)).numpy()
+        real = ~np.isinf(rows[3])
+        if real.any():
+            host = _host_winner(*(c[real] for c in rows))
+            assert tuple(want[:3]) == host[:3] and int(want[3]) == host[3]
+            j = int(np.flatnonzero(rows[3] == want[3])[0])
+            assert np.array_equal(_bits(want), _bits(rows[:, j]))
+        for perm in range(3):
+            order = rng.permutation(L) if perm else np.arange(L)
+            shuffled = rows[:, order]
+            plain = port_pipe.argmin_rows_torch(torch.from_numpy(shuffled))
+            assert np.array_equal(_bits(plain.numpy()), _bits(want))
+            for nt, r in ((256, 1), (1024, 1), (256, 16)):
+                got, loads = rows_argmin_schedule(shuffled, nt, r)
+                assert (loads == 1).all()
+                assert np.array_equal(_bits(got), _bits(want)), (nt, r)
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_chunk_winners_match_run_reference_chunk_by_chunk(objective):
+    """Each chunk's winner, as the cost stage hands it over (``winner=``),
+    == the reference's ``_run_reference`` on the same chunk: chunks of the
+    first free run's stride are the sub-spaces with that run's cut fixed."""
+    name = "resnet50"
+    ref, _ = both(name)
+    re_ = _ref_engine(name)
+    rtbl = ref_pipe._engine_tables(re_)
+    pe = _port_engine(name)
+    prefix = (5,)
+    dims = tuple(len(r) + 1 for r in ref.runs[1:])
+    space = port_pipe.SubSpace.make(prefix, dims, "cpu")
+    chunk = space.strides[0]
+    rows = port_pipe.run_chunks(pe, space, objective, chunk, "torch")
+    assert rows.shape == (dims[0], 4)
+    sub = port_pipe.SubSpace.make(prefix + (0,), dims[1:], "cpu")
+    for k in range(dims[0]):
+        want = ref_pipe._run_reference(re_, rtbl, prefix + (k,), dims[1:],
+                                       sub.strides, sub.size, 4096,
+                                       objective)
+        want = (*want[:3], want[3] + k * chunk)
+        assert np.array_equal(_bits(rows[k].numpy()), _bits(want)), k
+    # and the same winner straight from cost_rows, the block rows beside it
+    tbl = port_pipe._engine_tables(pe)
+    frame = port_pipe.enum_frames(tbl, space, chunk, chunk)
+    res = alloc_scan(pe.alloc_tables(), frame)
+    winner = torch.empty(4, dtype=torch.float64)
+    blocks = port_pipe.cost_rows(tbl, frame, res.io, res.stats, chunk,
+                                 objective, winner=winner)
+    assert torch.equal(winner, port_pipe.argmin_rows_torch(blocks))
+    assert torch.equal(winner, rows[1])
+
+
+def test_run_chunks_takes_no_argmin_launch(monkeypatch):
+    """The device loop's winners come from the cost stage: it never calls
+    the standalone argmin."""
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("run_chunks called argmin_rows")
+
+    monkeypatch.setattr(port_pipe, "argmin_rows", refuse)
+    monkeypatch.setattr(port_pipe, "argmin_rows_cuda", refuse)
+    pe = _port_engine("vgg16-conv")
+    space = port_pipe.SubSpace.make(
+        (), tuple(len(r) + 1 for r in pe.runs), "cpu")
+    rows = port_pipe.run_chunks(pe, space, "latency", 300, "torch")
+    assert rows.shape == (-(-space.size // 300), 4)
+    assert (rows[:, 0] <= 1.0).all()
