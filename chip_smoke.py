@@ -27,11 +27,17 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                the launch must leave NaN) and held against
                ``argmin_rows_torch`` of its rows, and once on a second
                stream.  K5, the float32
-               scorer: the engine's default batch of 1,024 candidates at
-               resnet152's 160 groups, a chunk of 1,048,576 at yolov2's 26
-               and 8 candidates at efficientnet-b1's 139 (the largest batch
-               the descent gives it), fed K2's masks and K1's io as the
-               device engine feeds it, and random masks.  Integers must be
+               scorer, under both of its kernels (a thread a candidate, and
+               a warp a candidate: ``score_batch_plan``): the engine's
+               default batch of 1,024 candidates at resnet152's 160 groups,
+               a chunk of 1,048,576 at yolov2's 26 and 8 candidates at
+               efficientnet-b1's 139 (the largest batch the descent gives
+               it), fed K2's masks and K1's io as the pipeline and the
+               device engine feed it (masks lane-major and row-major),
+               random masks with float32 and int32 io in both layouts,
+               B 1 and 3; B at the rule's crossover and either side of it,
+               and G 1; under the device replay at B 1, 3 and 8 one
+               kernel a call and no copy, by a trace.  Integers must be
                equal and the float64 and float32 rows bit-equal.  The LM
                kernels K6 (flash attention), K7 (fused MLP block) and K9
                (RG-LRU scan) at recurrentgemma-2b's serving shapes (batch 2,
@@ -177,7 +183,14 @@ KERNEL_INFO = {
         "standalone": "argmin_rows_kernel -> rows_argmin"},
     "score_batch": {
         "source": "src/repro_torch/kernels/csrc/score_batch.cu",
-        "replaces": "src/repro/kernels/score_batch.py:149"},
+        "replaces": "src/repro/kernels/score_batch.py:149",
+        # score_batch_plan: a warp a candidate below two blocks an SM of the
+        # thread-a-candidate kernel (every batch of the main path)
+        "variants": {
+            "thread": "src/repro_torch/kernels/csrc/score_batch.cu",
+            "split": "src/repro_torch/kernels/csrc/score_batch.cu"},
+        "kernels": {"thread": "score_batch_kernel",
+                    "split": "score_batch_split_kernel"}},
     # K6, K7 and K8: "source" is the kernel of the bfloat16 prefill (the
     # serve's main path); "variants" every source the wrapper picks from
     "flash_attention": {
@@ -611,15 +624,164 @@ def traced_ms(fn, name: str, reps: int):
             / sum(v["count"] for v in traced) if traced else "not measured")
 
 
+def scorer_cases(frame, io, rand, rio):
+    """K5's inputs at one shape, by name: K2's lane-major masks with K1's
+    lane-major int32 io (the layout of the device replay, whose host mask
+    matrix is column-major, and of the pipeline), the same masks
+    row-major, random row-major masks with float32 io (the journal
+    replay's host matrices as they lie), both lane-major, int32 io
+    row-major beside lane-major masks, B = 1 and B = 3."""
+    import torch
+    from repro_torch.kernels.alloc_scan import lane_major
+    return (("cut masks lane-major, K1 io", frame, io),
+            ("cut masks row-major, K1 io", frame.contiguous(), io),
+            ("random masks row-major, float32 io row-major", rand, rio),
+            ("random masks lane-major, float32 io lane-major",
+             lane_major(rand), lane_major(rio)),
+            ("random masks lane-major, int32 io row-major", lane_major(rand),
+             rio.to(torch.int32)),
+            ("B=1", rand[:1], rio[:1]),
+            ("B=3", rand[:3], rio[:3]))
+
+
+def scorer_equal(t, f, i, args, what) -> float:
+    """Both K5 kernels (forced by ``split``) against the plain version on
+    one input, bit for bit; returns the largest error."""
+    import torch
+    from repro_torch.kernels import score_batch as sb
+    want = sb.score_batch_torch(t, f, i, *args)
+    err = 0.0
+    for split in (False, True):
+        got, ran = ran_variant(
+            sb.score_batch_cuda,
+            lambda: sb.score_batch_cuda(t, f, i, *args, split=split))
+        name = f"score_batch {what}, {sb.VARIANTS[split]} kernel"
+        require(ran == sb.VARIANTS[split], f"{name}: ran {ran}")
+        require(got.shape == want.shape == (f.shape[0], sb.N_STATS),
+                f"{name}: shape {tuple(got.shape)}")
+        err = max(err, max_abs_err(got, want))
+        require(torch.equal(got.contiguous().view(torch.int32),
+                            want.contiguous().view(torch.int32)),
+                f"{name}: kernel != plain version (max abs err {err})")
+    return err
+
+
+def scorer_edges() -> dict:
+    """K5 at the rule's crossover (the largest B it gives the split kernel,
+    and one more, each with a neighbour) at yolov2's groups, through the
+    rule and forced both ways, and at G = 1; each bit for bit against the
+    plain version.  Returns the crossover, the kernel the rule ran at each
+    B, and each case's error."""
+    import torch
+    from repro_torch.kernels import score_batch as sb
+    from repro_torch.kernels.search_pipeline import _sm_count
+    engine = make_engine("yolov2")
+    t = engine.score_tables()
+    args = (engine.hw.dram_bytes_per_cycle, engine.hw.group_overhead_cycles)
+    sms = _sm_count(0)
+    top = (2 * sms - 1) * sb.SCORE_BLOCK        # the last B split by rule
+    require(sb.score_batch_plan(top, t.g, sms).split
+            and not sb.score_batch_plan(top + 1, t.g, sms).split,
+            f"score_batch_plan's crossover is not at B {top} / {top + 1}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3000)
+    out = {"crossover": top, "rule": {}, "errs": {}}
+    for B in (top - 1, top, top + 1, top + 2):
+        rand = (torch.rand((B, t.g), generator=gen, device="cuda")
+                < torch.rand((B, 1), generator=gen, device="cuda"))
+        rio = torch.randint(0, 1 << 22, (B, t.g), generator=gen,
+                            device="cuda").to(torch.float32)
+        want = sb.score_batch_torch(t, rand, rio, *args)
+        got, ran = ran_variant(
+            sb.score_batch_cuda,
+            lambda: sb.score_batch_cuda(t, rand, rio, *args))
+        require(ran == sb.score_batch_plan(B, t.g, sms).variant
+                and torch.equal(got.contiguous().view(torch.int32),
+                                want.contiguous().view(torch.int32)),
+                f"score_batch at B {B} (the rule's {ran} kernel) != plain "
+                f"version")
+        out["rule"][f"B={B}"] = ran
+        out["errs"][f"B={B}"] = scorer_equal(t, rand, rio, args,
+                                             f"yolov2 B={B}")
+    one = sb.ScoreTables(g=1, rows=t.rows[:, :1].contiguous())
+    for B in (1, 3, 8, 1024):
+        rand = torch.rand((B, 1), generator=gen, device="cuda") < 0.5
+        rio = torch.randint(0, 1 << 22, (B, 1), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        out["errs"][f"G=1, B={B}"] = scorer_equal(one, rand, rio, args,
+                                                  f"G=1 B={B}")
+    return out
+
+
+def scorer_device_replay(reps: int) -> dict:
+    """K5 as the device replay calls it (``score_stats`` on the engine's
+    own mask tensor and K1's io) at efficientnet-b1, B 1, 3 and 8: a trace
+    of ``reps`` calls must hold the split kernel ``reps`` times and nothing
+    else but the stats' read-back: no copy kernel.  Returns the trace's
+    activities and the inputs' strides by B."""
+    import random
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.cutpoint import CutpointEngine
+    from repro_torch.core.grouping import group_nodes
+    from repro_torch.core.hw import KCU1500
+    from repro_torch.kernels.score_batch import score_stats
+    engine = CutpointEngine(group_nodes(build_cnn("efficientnet-b1")),
+                            KCU1500, engine="device", device="cuda",
+                            backend="pallas")
+    rng = random.Random(4000)
+    out = {}
+    for B in (1, 3, 8):
+        tuples = [tuple(rng.randint(0, len(r)) for r in engine.runs)
+                  for _ in range(B)]
+        frame, res = engine._device_replay(engine._frame_matrix(tuples))
+        t = engine.score_tables()
+
+        def call():
+            return score_stats(t, frame, res.io, engine.hw)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        seen = {k: v["count"] for k, v in device_time_all(prof).items()}
+        kernels = {k: n for k, n in seen.items()
+                   if not k.startswith("Memcpy")}
+        require(list(kernels.values()) == [reps]
+                and "score_batch_split_kernel" in next(iter(kernels))
+                and set(seen) - set(kernels)
+                <= {k for k in seen if k.startswith("Memcpy DtoH")},
+                f"K5 under the device replay at B {B}: the trace of {reps} "
+                f"calls holds {seen}, not the split kernel alone and the "
+                f"read-back")
+        out[f"B={B}"] = {"trace": seen, "frame_strides": frame.stride(),
+                          "io_strides": res.io.stride()}
+    return out
+
+
+def per_launch(seen: dict, name: str):
+    """Device milliseconds a launch of the one trace entry whose name holds
+    ``name`` (``seen`` from :func:`device_time_all`)."""
+    hits = [v for k, v in seen.items() if name in k]
+    return (hits[0]["device_ms"] / hits[0]["count"] if len(hits) == 1
+            else "not measured")
+
+
 def check_scorer(shapes, timed: bool, reps: int) -> dict:
-    """K5 against its plain version on the GPU, bit for bit, at each
-    ``(net, B)`` of ``shapes``: K2's masks of the last B tuples of the
-    net's space with K1's io (int32, lane-major: what the device engine
-    hands over), random masks with float32 io, B = 1 and B = 3.  Returns
-    ``{net: {"B", "G", "max_abs_err"[, "ms", "plain_ms", "bound_ms",
-    "bound_by", "device_ms"]}}``: ``ms`` is a launch through the wrapper
-    by CUDA events, ``device_ms`` the kernel's own time in a
-    ``torch.profiler`` trace of ``reps`` launches."""
+    """K5's two kernels (``split`` forced each way) against the plain
+    version on the GPU, bit for bit, at each ``(net, B)`` of ``shapes``
+    with the inputs of :func:`scorer_cases`.  Returns ``{net: {"B", "G",
+    "variant", "max_abs_err"[, "ms", "device_ms", "plain_ms", "bound_ms",
+    "bound_by", "launch_floor_ms", "by_variant"]}}``: ``variant`` is the
+    kernel ``score_batch_plan`` picks there, ``ms`` a call through the
+    wrapper by CUDA events and ``device_ms`` the kernel's own time in a
+    ``torch.profiler`` trace of ``reps`` calls, both of that kernel
+    (``by_variant`` has both kernels'); ``launch_floor_ms`` is a
+    ``zero_()`` of the 6 x B float32 stats in the same trace, the device
+    time of the least kernel launch at that size."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import alloc_scan as scan
@@ -645,42 +807,51 @@ def check_scorer(shapes, timed: bool, reps: int) -> dict:
         rio = torch.randint(0, 1 << 22, (B, G), generator=gen,
                             device="cuda").to(torch.float32)
         err = 0.0
-        for what, f, i in (("cut masks, K1 io", frame, io),
-                           ("random masks, float32 io", rand, rio),
-                           ("B=1", rand[:1], rio[:1]),
-                           ("B=3", rand[:3], rio[:3])):
-            got = sb.score_batch_cuda(t, f, i, *args)
-            want = sb.score_batch_torch(t, f, i, *args)
-            require(got.shape == want.shape == (f.shape[0], sb.N_STATS),
-                    f"{net} score_batch {what}: shape {tuple(got.shape)}")
-            err = max(err, max_abs_err(got, want))
-            require(torch.equal(got.contiguous().view(torch.int32),
-                                want.contiguous().view(torch.int32)),
-                    f"{net} score_batch {what}: kernel != plain version "
-                    f"(max abs err {err})")
+        for what, f, i in scorer_cases(frame, io, rand, rio):
+            err = max(err, scorer_equal(t, f, i, args, f"{net} {what}"))
         torch.cuda.synchronize()
-        row = {"B": B, "G": G, "max_abs_err": err}
+        plan = sb.score_batch_plan(B, G, pipe._sm_count(0))
+        row = {"B": B, "G": G, "variant": plan.variant, "max_abs_err": err}
         if timed:
-            def kernel():
-                return sb.score_batch_cuda(t, frame, io, *args)
+            # timed on the device replay's and the pipeline's layout:
+            # lane-major masks and K1's io
+            floor = torch.empty(sb.N_STATS * B, device="cuda")
 
             def plain():
                 return sb.score_batch_torch(t, frame, io, *args)
-            # in turns: plain, kernel, kernel, plain
-            p1 = time_ms(plain, reps=2)
-            k1 = time_ms(kernel, reps=reps, warmup=2)
-            k2 = time_ms(kernel, reps=reps, warmup=0)
-            p2 = time_ms(plain, reps=2, warmup=0)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    kernel()
-                torch.cuda.synchronize()
-            traced = device_time_by_kernel(prof).get("score_batch_kernel")
+            by_variant = {}
+            for split in (False, True):
+                def kernel():
+                    return sb.score_batch_cuda(t, frame, io, *args,
+                                               split=split)
+                # in turns: plain, kernel, kernel, plain
+                p1 = time_ms(plain, reps=2)
+                k1 = time_ms(kernel, reps=reps, warmup=2)
+                k2 = time_ms(kernel, reps=reps, warmup=0)
+                p2 = time_ms(plain, reps=2, warmup=0)
+                # the floor after the kernel's launches, not between them:
+                # its dirty lines in L2 would slow the chunk's kernel
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        kernel()
+                    for _ in range(reps):
+                        floor.zero_()
+                    torch.cuda.synchronize()
+                variant = sb.VARIANTS[split]
+                name = KERNEL_INFO["score_batch"]["kernels"][variant]
+                seen = device_time_all(prof)
+                by_variant[variant] = {
+                    "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                    "device_ms": per_launch(seen, name),
+                    "launch_floor_ms": per_launch(seen, "FillFunctor")}
             b = scorer_bound(B, G)
-            row.update(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=b[0],
-                       bound_by=b[1],
-                       device_ms=(traced["device_ms"] / traced["count"]
-                                  if traced else "not measured"))
+            mine = by_variant[plan.variant]
+            row.update(ms=mine["ms"], device_ms=mine["device_ms"],
+                       plain_ms=min(v["plain_ms"]
+                                    for v in by_variant.values()),
+                       bound_ms=b[0], bound_by=b[1],
+                       launch_floor_ms=mine["launch_floor_ms"],
+                       by_variant=by_variant)
         out[net] = row
     return out
 
@@ -1347,7 +1518,8 @@ TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
                "enum_frames": ("enum_frames_kernel",),
                "cost_rows": ("cost_rows_kernel", "cost_rows_split_kernel"),
                "argmin_rows": ("argmin_rows_kernel",),
-               "score_batch": ("score_batch_kernel",),
+               "score_batch": ("score_batch_kernel",
+                               "score_batch_split_kernel"),
                "flash_attention": ("flash_attention_kernel",
                                    "flash_attention_tc_kernel"),
                "fused_block": ("fused_block_kernel",
@@ -1554,12 +1726,13 @@ def drive_main_path(nets, engine, limits, backend="numpy"):
     (``"pipeline"``, the default options, or ``"device"``) and ``backend``,
     with the launch counts set to 0 just before it and read just after.
     Returns ``({(net, engine, backend): (signature, seconds, options)},
-    launches, fused launches)``."""
+    launches, fused launches, launches by variant)``."""
     import torch
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
     from repro_torch.core.options import CompileOptions
     from repro_torch.kernels import (fused_launch_counts, launch_counts,
+                                     launch_counts_by_variant,
                                      reset_launch_counts)
 
     out = {}
@@ -1576,7 +1749,8 @@ def drive_main_path(nets, engine, limits, backend="numpy"):
         torch.cuda.synchronize()
         out[net, engine, backend] = (plan_signature(plan),
                                      time.perf_counter() - t0, opts)
-    return out, launch_counts(), fused_launch_counts()
+    return (out, launch_counts(), fused_launch_counts(),
+            launch_counts_by_variant())
 
 
 def check_main_path(results):
@@ -1799,9 +1973,13 @@ def main(argv=None) -> int:
         for net in ("yolov2", "resnet152", "retinanet", "efficientnet-b1"):
             r = check_kernels(net, target=20000, timed=False, reps=0)
             log(f"kernels equal their plain versions: {json.dumps(r)}")
-        r = check_scorer((("resnet152", 1024), ("yolov2", 20000)),
-                         timed=False, reps=0)
+        r = check_scorer((("resnet152", 1024), ("yolov2", 20000),
+                          ("efficientnet-b1", 8)), timed=False, reps=0)
         log(f"score_batch equals its plain version: {json.dumps(r)}")
+        r = scorer_edges()
+        log(f"score_batch at the rule's crossover and G 1: {json.dumps(r)}")
+        r = scorer_device_replay(reps=5)
+        log(f"score_batch under the device replay: {json.dumps(r)}")
         r = check_lm_kernels(timed=False, reps=0)
         log(f"LM kernels equal their plain versions: "
             f"{json.dumps(r['errs'])}")
@@ -1826,6 +2004,12 @@ def main(argv=None) -> int:
     scorer = check_scorer(SCORER_SHAPES, timed=True, reps=20)
     log(f"score_batch == plain version at {SCORER_SHAPES}: "
         f"{json.dumps(scorer)} ({time.perf_counter() - t0:.1f} s)")
+    scorer_at_edges = scorer_edges()
+    log(f"score_batch == plain version at the rule's crossover and G 1: "
+        f"{json.dumps(scorer_at_edges)}")
+    in_replay = scorer_device_replay(reps=20)
+    log(f"score_batch under the device replay, one kernel a call and no "
+        f"copy: {json.dumps(in_replay)}")
     t0 = time.perf_counter()
     lm = check_lm_kernels(timed=True, reps=5)
     log(f"LM kernels == plain versions: {json.dumps(lm)} "
@@ -1840,14 +2024,23 @@ def main(argv=None) -> int:
     # ---- phase 3: the main path, four sweeps, each with its own launch
     # counts (set to 0 just before the sweep, read just after)
     nets = list(CNN_BUILDERS)
-    results, launches, fused = {}, {}, {}
+    results, launches, fused, variants = {}, {}, {}, {}
     for engine, backend, limits, needed in SWEEPS:
-        swept, counts, in_k3 = drive_main_path(nets, engine, limits, backend)
+        swept, counts, in_k3, by_variant = drive_main_path(nets, engine,
+                                                           limits, backend)
         launches[engine, backend] = counts
         fused[engine, backend] = in_k3
+        variants[engine, backend] = by_variant["score_batch"]
         results.update(swept)
         log(f"launches under engine={engine!r}, backend={backend!r}: "
-            f"{counts}; fused into another kernel's launch: {in_k3}")
+            f"{counts}; fused into another kernel's launch: {in_k3}; "
+            f"score_batch by variant: {by_variant['score_batch']}")
+        # the main path gives K5 batches of 1 to 1,024: all on the split
+        # kernel
+        require(by_variant["score_batch"]
+                == {"thread": 0, "split": counts["score_batch"]},
+                f"engine={engine!r}, backend={backend!r}: score_batch ran "
+                f"as {by_variant['score_batch']}, not all split")
         for name in needed:
             require(counts[name] > 0,
                     f"kernel {name} was never launched under "
@@ -1944,10 +2137,16 @@ def main(argv=None) -> int:
         "replaces": info["replaces"],
         "launches": launches["pipeline", "pallas"]["score_batch"],
         "launches_by_sweep": by_sweep["score_batch"],
-        "max_abs_err": max(r["max_abs_err"] for r in scorer.values()),
+        "launches_by_variant": {f"{e}+{b}": variants[e, b]
+                                for e, b, _l, _n in SWEEPS},
+        "variants": info["kernels"],
+        "max_abs_err": max([r["max_abs_err"] for r in scorer.values()]
+                           + list(scorer_at_edges["errs"].values())),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "device_ms": t["device_ms"], "shape": {"B": t["B"], "G": t["G"]},
+        "device_ms": t["device_ms"], "launch_floor_ms": t["launch_floor_ms"],
+        "variant": t["variant"], "by_variant": t["by_variant"],
+        "shape": {"B": t["B"], "G": t["G"]},
         "at_chunk": chunk, "at_descent_batch": descent})
     lm_times = lm["times"]
     for name in LM_KERNELS:

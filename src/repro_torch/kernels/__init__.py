@@ -31,7 +31,7 @@ from __future__ import annotations
 def kernel_wrappers() -> dict:
     """name -> the wrapper that launches that kernel.  Each wrapper counts
     its launches in its ``launches`` attribute; a wrapper that picks one of
-    several kernels (K6, K7, K8) also counts them apart in
+    several kernels (K5, K6, K7, K8) also counts them apart in
     ``launches_by_variant``."""
     from repro_torch.kernels.alloc_scan import alloc_scan_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda

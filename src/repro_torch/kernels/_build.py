@@ -164,6 +164,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.score_batch_launch.argtypes = [
         p, p, i, p, p,              # frame, io, io_is_int, tab, out
         ll, i, f, f, i, p]          # B, G, bpc, overhead, device, stream
+    lib.score_batch_split_launch.argtypes = [
+        p, ll, ll,                  # frame, its strides (B, G)
+        p, ll, ll, i,               # io, its strides, io_is_int
+        p, p,                       # tab, out
+        ll, i, f, f, i, p]          # B, G, bpc, overhead, device, stream
     lib.flash_attention_launch.argtypes = [
         p, p, p, p,                 # q, k, v, o
         i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
@@ -201,7 +206,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, p]                       # device, stream
     for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
                lib.cost_rows_launch, lib.argmin_rows_launch,
-               lib.score_batch_launch, lib.flash_attention_launch,
+               lib.score_batch_launch, lib.score_batch_split_launch,
+               lib.flash_attention_launch,
                lib.flash_attention_tc_launch, lib.fused_block_launch,
                lib.fused_block_tc_launch, lib.ssd_scan_launch,
                lib.ssd_scan_tc_launch, lib.rglru_scan_launch):

@@ -31,22 +31,38 @@ Two implementations of the same function:
 * :func:`score_batch_cuda` -- the hand-written kernel
   (``csrc/score_batch.cu``).
 
-**The kernel.**  It replaces the TPU kernel
+**The kernels.**  They replace the TPU kernel
 ``repro/kernels/score_batch.py::_score_kernel``, which puts candidates on
 the sublane axis and the groups, padded to 128 lanes, on the lane axis, and
-reduces each (TB, Gp) tile across lanes.  Here one thread owns one candidate
-and walks the groups in gid order, with its six accumulators in registers;
-frame and io are stored lane-major, ``[G][B]``, so a warp's 32 candidates
-read 32 neighbouring addresses at every group, and the nine table rows are
-the same address for the whole warp (one broadcast load).  K1 writes its io
-matrix in exactly that layout, so under ``engine="device"`` the io matrix
-goes from K1 to K5 without a copy.  What bounds it on the card: per
-candidate and group it reads one mask byte and four io bytes and does about
-14 float32 operations, so at the card's 3.35 TB/s and 67 TFLOP/s it is
-bound by bytes.  At the engine's batches (a few to 1,024 candidates) the
-call moves under a megabyte, and what sets its time is latency instead: a
-few warps walk up to 160 groups one after another, each group's loads
-waiting on memory (PERF.md has the times).
+reduces each (TB, Gp) tile across lanes.  Per candidate and group the
+function reads one mask byte and four io bytes and does about 14 float32
+operations, so at the card's 3.35 TB/s and 67 TFLOP/s it is bound by bytes
+-- but only at the pipeline's chunk (B 1,048,576, G 26).  At the batches
+the main path gives it (the descent's 1 to 8 candidates, the engine's
+1,024) the call moves under a megabyte and what sets its time is latency.
+:func:`score_batch_plan` picks one of two kernels by a fixed rule on B and
+the card's SMs:
+
+* ``"thread"`` (``score_batch_kernel``) -- one thread a candidate walks the
+  groups in gid order with its six accumulators in registers; frame and io
+  lane-major, ``[G][B]``, so a warp's 32 candidates read 32 neighbouring
+  addresses at every group (K1 writes its io matrix so).  It keeps the
+  large batches, where it is bound by bytes.  At a few candidates it is a
+  chain of G round trips to memory: ~0.05 ms at G 139.
+* ``"split"`` (``score_batch_split_kernel``) -- one warp a candidate, taken
+  when the first kernel would fill fewer than two blocks an SM.  Each lane
+  issues the mask and io loads of all its groups (``l, l + 32, ...``) at
+  once while the block stages the nine table rows in shared memory, so a
+  candidate waits for one round trip a ``SPLIT_PASS`` groups; lanes 0 and
+  1 then add the latency and row-mode terms in gid order (the same plain
+  sums), and the four maxima are reduced across the lanes by ``fmaxf``,
+  exact in any order on these non-negative tables.  It reads frame and io
+  in place through their strides -- row-major from the journal replay's
+  host matrices, lane-major from the device replay and K1 -- and writes
+  its stats row-major, so nothing is copied before the launch and
+  ``score_stats`` reads one contiguous block back.
+
+PERF.md has the times.
 """
 from __future__ import annotations
 
@@ -56,6 +72,10 @@ import numpy as np
 import torch
 
 N_STATS = 6                            # stats columns per candidate
+SCORE_BLOCK = 256      # candidates a block of the thread-a-candidate kernel
+SPLIT_WARPS = 4        # candidates a block of the split kernel, a warp each
+SPLIT_PASS = 256       # groups a warp prices with its loads in flight at once
+VARIANTS = ("thread", "split")
 TABLE_KEYS = ("comp", "row", "weight", "side", "row_fm", "compute",
               "out_frame", "out_row", "wr_row")
 
@@ -152,18 +172,52 @@ def score_batch_torch(t: ScoreTables, frame: torch.Tensor, io: torch.Tensor,
 
 
 # ------------------------------------------------------------------- kernel
+@dataclass(frozen=True)
+class ScorePlan:
+    """How :func:`score_batch_cuda` launches its kernel."""
+    split: bool         # a warp a candidate, else a thread
+    threads: int        # a block
+    blocks: int
+    round_trips: int    # loads a candidate waits for one after another:
+    #                     one a group, or one a SPLIT_PASS groups
+
+    @property
+    def variant(self) -> str:
+        return VARIANTS[self.split]
+
+
+def score_batch_plan(B: int, G: int, sms: int = 132,
+                     split: bool | None = None) -> ScorePlan:
+    """The launch of the scorer on ``B`` candidates of ``G`` groups: one
+    thread a candidate, or -- when that would fill fewer than two blocks an
+    SM of ``sms``, unless ``split`` says -- one warp a candidate."""
+    if split is None:
+        split = -(-B // SCORE_BLOCK) < 2 * sms
+    if split:
+        return ScorePlan(split=True, threads=32 * SPLIT_WARPS,
+                         blocks=-(-B // SPLIT_WARPS),
+                         round_trips=-(-G // SPLIT_PASS))
+    return ScorePlan(split=False, threads=SCORE_BLOCK,
+                     blocks=-(-B // SCORE_BLOCK), round_trips=G)
+
+
 def score_batch_cuda(t: ScoreTables, frame: torch.Tensor, io: torch.Tensor,
-                     bpc: float, overhead: float) -> torch.Tensor:
+                     bpc: float, overhead: float,
+                     split: bool | None = None) -> torch.Tensor:
     """The CUDA scorer (``csrc/score_batch.cu``): bit-identical to
     :func:`score_batch_torch`.
 
     ``frame`` is a (B, G) bool or uint8 CUDA tensor, ``io`` a (B, G) float32
-    or int32 one; lane-major storage (K1's io, K2's frames) is read in
-    place, anything else is copied once.  Returns a (B, ``N_STATS``) view
-    of lane-major float32 storage.  Launches the kernel or raises -- there
-    is no other path."""
+    or int32 one.  ``split`` forces one of the two kernels
+    (:func:`score_batch_plan` picks when None).  The split kernel reads both
+    in place through their strides and returns a contiguous (B,
+    ``N_STATS``) tensor; the thread-a-candidate kernel reads lane-major
+    storage (K1's io, K2's frames) in place, copies anything else once, and
+    returns a (B, ``N_STATS``) view of lane-major storage.  Launches the
+    kernel or raises -- there is no other path."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.alloc_scan import lane_major
+    from repro_torch.kernels.search_pipeline import _sm_count
 
     if not (frame.is_cuda and io.is_cuda):
         raise ValueError(f"score_batch_cuda wants CUDA tensors, got frame "
@@ -175,24 +229,36 @@ def score_batch_cuda(t: ScoreTables, frame: torch.Tensor, io: torch.Tensor,
         raise TypeError(f"io must be float32 or int32, got {io.dtype}")
     b, g = frame.shape
     dev = t.device
-    out = torch.empty((N_STATS, b), dtype=torch.float32, device=dev)
+    plan = score_batch_plan(b, g, sms=_sm_count(dev.index or 0), split=split)
     if b == 0:
-        return out.t()
-    frame_lm = lane_major(frame.view(torch.uint8)
-                          if frame.dtype == torch.bool else frame)
-    io_lm = lane_major(io)
+        return torch.empty((0, N_STATS), dtype=torch.float32, device=dev)
+    frame8 = frame.view(torch.uint8) if frame.dtype == torch.bool else frame
+    io_is_int = int(io.dtype == torch.int32)
+    tail = (b, g, float(bpc), float(overhead), dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.load()
-    err = lib.score_batch_launch(
-        frame_lm.data_ptr(), io_lm.data_ptr(),
-        int(io.dtype == torch.int32), t.rows.data_ptr(), out.data_ptr(),
-        b, g, float(bpc), float(overhead), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    if plan.split:
+        out = torch.empty((b, N_STATS), dtype=torch.float32, device=dev)
+        err = lib.score_batch_split_launch(
+            frame8.data_ptr(), *frame8.stride(), io.data_ptr(), *io.stride(),
+            io_is_int, t.rows.data_ptr(), out.data_ptr(), *tail)
+    else:
+        out = torch.empty((N_STATS, b), dtype=torch.float32, device=dev)
+        # held until the launch is queued: a copy freed earlier could be
+        # handed to the next one
+        frame_lm, io_lm = lane_major(frame8), lane_major(io)
+        err = lib.score_batch_launch(
+            frame_lm.data_ptr(), io_lm.data_ptr(), io_is_int,
+            t.rows.data_ptr(), out.data_ptr(), *tail)
+        out = out.t()
     _build.check(err, "score_batch")
     score_batch_cuda.launches += 1
-    return out.t()
+    score_batch_cuda.launches_by_variant[plan.variant] += 1
+    return out
 
 
 score_batch_cuda.launches = 0
+score_batch_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def score_batch(t: ScoreTables, frame: torch.Tensor, io: torch.Tensor,
@@ -220,14 +286,14 @@ def score_stats(t: ScoreTables, frame, io, hw,
 
     ``frame`` / ``io`` are (B, G) tensors on the tables' device, or host
     numpy arrays (the journal replay's), which are copied to the device
-    once -- io rounded to float32 first and both lane-major when the device
-    is a GPU.  The int quantities are rounded from float32 with
-    ``torch.round`` (half to even, as the JAX package's ``np.rint``) --
-    exact only while the true values stay under 2**24, which is why this
-    path is staged behind ``backend="pallas"`` rather than replacing the
-    numpy oracle."""
+    once as they lie, io rounded to float32 first.  The int quantities are
+    rounded from float32 with ``torch.round`` (half to even, as the JAX
+    package's ``np.rint``) -- exact only while the true values stay under
+    2**24, which is why this path is staged behind ``backend="pallas"``
+    rather than replacing the numpy oracle."""
     if isinstance(frame, np.ndarray):
-        frame, io = _upload(frame, io, t.device)
+        frame = torch.from_numpy(np.asarray(frame, bool)).to(t.device)
+        io = torch.from_numpy(np.asarray(io).astype(np.float32)).to(t.device)
     stats = score_batch(t, frame, io, hw.dram_bytes_per_cycle,
                         hw.group_overhead_cycles, backend=backend).cpu()
     as_int = torch.round(stats[:, 1:]).to(torch.int64).numpy()
@@ -235,14 +301,3 @@ def score_stats(t: ScoreTables, frame, io, hw,
                       row_fm=as_int[:, 0],
                       maxima=tuple(as_int[:, i] for i in range(1, 5)))
 
-
-def _upload(frame: np.ndarray, io: np.ndarray, device):
-    """Host (B, G) mask and io matrices as tensors on ``device``: io
-    rounded once to float32; on a GPU both stored lane-major."""
-    frame = np.asarray(frame, bool)
-    io32 = np.asarray(io).astype(np.float32)
-    if torch.device(device).type == "cpu":
-        return torch.from_numpy(frame), torch.from_numpy(io32)
-    fr = torch.from_numpy(np.ascontiguousarray(frame.T)).to(device).t()
-    iot = torch.from_numpy(np.ascontiguousarray(io32.T)).to(device).t()
-    return fr, iot

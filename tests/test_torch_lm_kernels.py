@@ -519,12 +519,14 @@ def test_per_variant_counts_start_at_zero_after_reset():
     ssd_scan_cuda.launches += 1
     reset_launch_counts()
     by_variant = launch_counts_by_variant()
-    assert set(by_variant) == {"flash_attention", "fused_block", "ssd_scan"}
+    assert set(by_variant) == {"flash_attention", "fused_block", "ssd_scan",
+                               "score_batch"}
     assert all(n == 0 for v in by_variant.values() for n in v.values())
     assert all(n == 0 for n in launch_counts().values())
     assert set(by_variant["fused_block"]) == {"tensor_core", "simt",
                                               "simt_split"}
     assert set(by_variant["ssd_scan"]) == {"tensor_core", "simt"}
+    assert set(by_variant["score_batch"]) == {"thread", "split"}
 
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "tensor_core"),

@@ -9,6 +9,8 @@ Tolerances:
   ``tests/test_score_batch.py``.  The sums are taken in another order (the
   port: left to right in gid order; numpy: pairwise; interpret mode: XLA's
   reduction), so they may differ by a few float32 ulps.
+* ``score_schedule`` (the split kernel's algorithm in numpy) against
+  ``score_batch_torch``: bit for bit; against the reference, as above.
 * the engine's ``backend="pallas"`` against its numpy backend: within 1e-4
   relative, as the reference's test holds its own pallas backend.
 * whole compiles: cuts, ``evaluated``, ``path``, every integer metric and
@@ -29,6 +31,7 @@ import repro.kernels.score_batch as ref_sb
 import repro_torch.core.compiler as port_compiler
 import repro_torch.core.options as port_options
 import repro_torch.kernels.score_batch as port_sb
+from repro_torch.kernels.alloc_scan import lane_major
 
 from torch_parity import (ALL_CNNS, INT_METRICS, assert_plans_equal, both,
                           mixed_tuples, random_masks)
@@ -165,6 +168,224 @@ def test_score_batch_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="backend"):
         port_sb.score_batch(t, frame, torch.zeros((3, t.g)), 1.0, 0.0,
                             backend="pallas")
+
+
+# --------------------------------------------- the kernels' launch and plan
+# (B, sms, split, blocks): the rule takes the split kernel while the
+# thread-a-candidate kernel would fill fewer than two blocks an SM, so at 132
+# SMs up to B 263 * 256 = 67,328 and at 4 SMs up to B 7 * 256 = 1,792
+@pytest.mark.parametrize("B,sms,split,blocks", [
+    (1, 132, True, 1), (8, 132, True, 2), (1024, 132, True, 256),
+    (67_328, 132, True, 16_832), (67_329, 132, False, 264),
+    (1_048_576, 132, False, 4096),
+    (1, 4, True, 1), (8, 4, True, 2), (1024, 4, True, 256),
+    (1792, 4, True, 448), (1793, 4, False, 8), (1_048_576, 4, False, 4096)])
+def test_score_batch_plan(B, sms, split, blocks):
+    plan = port_sb.score_batch_plan(B, 160, sms)
+    assert (plan.split, plan.blocks) == (split, blocks)
+    assert plan.variant == ("split" if split else "thread")
+    assert plan.variant in port_sb.VARIANTS
+    if split:
+        # a warp a candidate; all 160 groups' loads in flight at once
+        assert plan.threads == 32 * port_sb.SPLIT_WARPS
+        assert plan.round_trips == 1
+    else:
+        assert plan.threads == port_sb.SCORE_BLOCK
+        assert plan.round_trips == 160
+    forced = port_sb.score_batch_plan(B, 160, sms, split=not split)
+    assert forced.split is (not split)
+
+
+@pytest.mark.parametrize("G,trips", [(0, 0), (1, 1), (160, 1), (256, 1),
+                                     (257, 2), (600, 3)])
+def test_score_batch_plan_round_trips(G, trips):
+    """The split kernel waits for one round trip a ``SPLIT_PASS`` groups."""
+    assert port_sb.score_batch_plan(8, G).round_trips == trips
+
+
+@pytest.mark.parametrize("split", [None, False, True])
+def test_score_batch_cuda_refuses_cpu_tensors(split):
+    t = _port_tables("resnet50")
+    frame = torch.zeros((3, t.g), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_sb.score_batch_cuda(t, frame, torch.zeros((3, t.g)), 1.0, 0.0,
+                                 split=split)
+
+
+def _flat(x: torch.Tensor):
+    """A dense tensor's storage in memory order and its element strides,
+    as the kernel's pointer arithmetic sees them."""
+    if x.dtype == torch.bool:
+        x = x.view(torch.uint8)
+    return torch.as_strided(x, (x.numel(),), (1,)).numpy(), x.stride()
+
+
+def score_schedule(t, frame, io, bpc, overhead):
+    """``csrc/score_batch.cu``'s split kernel as it runs, in numpy.
+
+    Warp ``w`` of block ``blk`` owns candidate ``blk * SPLIT_WARPS + w``.
+    For each pass of ``SPLIT_PASS`` groups from ``g0``, lane ``l`` loads the
+    mask byte and io word of groups ``g0 + l + 32 j`` (``j`` < SPLIT_PASS /
+    32) from the flat storage through the tensors' strides (nothing past B
+    or G), the block's ``32 * SPLIT_WARPS`` threads stage the pass's table
+    columns (a column left unstaged is NaN and would show), each lane prices
+    its groups into a term buffer (unwritten entries NaN) and keeps its own
+    four maxima, and lanes 0 and 1 add the latency and row-mode terms to
+    their sums, left to right in gid order.  Then the maxima go through the
+    xor-shuffle tree across the 32 lanes.  Returns the (B, 6) float32 stats
+    and how often each (group, candidate) element was loaded."""
+    f32 = np.float32
+    W, PASS = port_sb.SPLIT_WARPS, port_sb.SPLIT_PASS
+    PER, threads = PASS // 32, 32 * W
+    B, G = frame.shape
+    fr_flat, (fsb, fsg) = _flat(frame)
+    io_flat, (isb, isg) = _flat(io)
+    rows = t.rows.numpy()
+    k = {key: i for i, key in enumerate(port_sb.TABLE_KEYS)}
+    b = np.arange(-(-B // W) * W)
+    ok = b < B
+    loads = np.zeros((G, B), dtype=np.int64)
+    sums = np.zeros((2, len(b)), f32)          # lanes 0 and 1
+    mx = np.zeros((4, 32, len(b)), f32)        # wbuff, outf, outr, wrr
+    bpc32, ovh32 = f32(bpc), f32(overhead)
+    for g0 in range(0, G, PASS):
+        n = min(PASS, G - g0)
+        fr = np.zeros((32, PER, len(b)), bool)
+        iw = np.zeros((32, PER, len(b)), f32)
+        for lane in range(32):
+            for j in range(PER):
+                g = g0 + lane + 32 * j
+                if g < G:
+                    fr[lane, j, ok] = fr_flat[b[ok] * fsb + g * fsg] != 0
+                    iw[lane, j, ok] = io_flat[b[ok] * isb + g * isg]
+                    loads[g] += 1
+        tabs = np.full((len(k), PASS), np.nan, f32)
+        for h in range(PASS // threads):
+            g = np.arange(threads) + h * threads
+            g = g[g < n]
+            tabs[:, g] = rows[:, g0 + g]
+        terms = np.full((2, PASS, len(b)), np.nan, f32)
+        for lane in range(32):
+            for j in range(PER):
+                i = lane + 32 * j
+                if i >= n:
+                    continue
+                f = fr[lane, j]
+                col = tabs[:, i]
+                mem = (col[k["weight"]] + iw[lane, j]) / bpc32
+                frame_lat = np.maximum(col[k["comp"]], mem) + ovh32
+                terms[0, i] = (np.full(len(b), col[k["comp"]])
+                               if col[k["side"]] > 0
+                               else np.where(f, frame_lat, col[k["row"]]))
+                terms[1, i] = np.where(f, f32(0), col[k["row_fm"]])
+                if col[k["compute"]] > 0:
+                    for r, key, on in ((0, "weight", ~f), (1, "out_frame", f),
+                                       (2, "out_row", ~f),
+                                       (3, "wr_row", ~f)):
+                        mx[r, lane] = np.where(
+                            on, np.maximum(mx[r, lane], col[k[key]]),
+                            mx[r, lane])
+        for i in range(n):                     # det: gid order
+            sums = sums + terms[:, i]
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        mx = np.maximum(mx, mx[:, lanes ^ off])
+    out = np.concatenate([sums, mx[:, 0]]).T[:B]
+    assert out.dtype == f32
+    return out, loads
+
+
+_SCHEDULE_INPUTS: dict = {}
+
+
+def _schedule_inputs(name, B):
+    """Reachable candidates of ``name``: the port's masks and K1's io (the
+    plain replay's, as int32), with the reference's float32 numpy scorer
+    and its Pallas kernel in interpret mode on the same inputs."""
+    key = (name, B)
+    if key not in _SCHEDULE_INPUTS:
+        ref, port = both(name)
+        engine = port.engine(engine="device", device="cpu")
+        tuples = mixed_tuples(port.runs, n_prefix=B // 2 + 1,
+                              n_random=B // 2 + 1, seed=5)[:B]
+        frame = engine._frame_matrix(tuples)
+        _, res = engine._device_replay(frame)
+        io = res.io.to(torch.int32).numpy()
+        ref_engine = ref.engine()
+        tables = ref_sb.pack_tables(ref_engine._lt, ref_engine._dt,
+                                    ref_engine._st)
+        hw = _hw()
+        args = (hw.dram_bytes_per_cycle, hw.group_overhead_cycles)
+        io64 = io.astype(np.float64)
+        _SCHEDULE_INPUTS[key] = (
+            engine.score_tables(), frame, io, args,
+            ref_sb.score_batch_ref(tables, frame, io64, *args),
+            ref_sb.score_batch_pallas(tables, frame, io64, *args,
+                                      interpret=True))
+    return _SCHEDULE_INPUTS[key]
+
+
+# how the scorer is handed its (B, G) inputs: "row-major", the journal
+# replay's host matrices uploaded as they lie (float32 io); "lane-major",
+# the device replay's masks (the engine's mask matrix is column-major) and
+# K1's int32 io, as the pipeline's; "mixed", row-major masks beside K1's io
+LAYOUTS = ("row-major", "lane-major", "mixed")
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("B", [1, 3, 8, 1024])
+@pytest.mark.parametrize("name", ALL_CNNS)
+def test_score_schedule_equals_plain_and_reference(name, B, layout):
+    """The split kernel's algorithm is the plain version bit for bit, on
+    every zoo net at the batches the main path gives it, from inputs in
+    each layout; and it agrees with the reference's float32 scorer and its
+    TPU kernel (interpret mode) as the plain version does."""
+    t, frame, io, args, want, ker = _schedule_inputs(name, B)
+    fr_t = torch.from_numpy(np.ascontiguousarray(frame))
+    io_t = torch.from_numpy(np.ascontiguousarray(io))
+    if layout == "row-major":
+        io_t = io_t.to(torch.float32)
+    else:
+        io_t = lane_major(io_t)
+    if layout == "lane-major":
+        fr_t = lane_major(fr_t)
+    if B > 1:                  # (a single row is both layouts at once)
+        row, lane = (t.g, 1), (1, B)
+        assert (fr_t.stride(), io_t.stride()) == {
+            "row-major": (row, row), "lane-major": (lane, lane),
+            "mixed": (row, lane)}[layout]
+    got, loads = score_schedule(t, fr_t, io_t, *args)
+    plain = port_sb.score_batch_torch(t, fr_t, io_t, *args).numpy()
+    assert got.shape == (B, port_sb.N_STATS)
+    assert np.array_equal(got.view(np.int32), plain.view(np.int32)), (
+        name, B, layout, np.max(np.abs(got - plain)))
+    assert (loads == 1).all()
+    for other in (want, ker):
+        assert np.allclose(got, other, rtol=RTOL, atol=ATOL), (
+            name, np.max(np.abs(got - other)))
+    assert np.array_equal(got[:, 2:], want[:, 2:])
+
+
+@pytest.mark.parametrize("G", [1, 31, 255, 256, 257, 600])
+def test_score_schedule_across_passes(G):
+    """Tables wider than one pass (the zoo's G is at most 160): the sums
+    carry from pass to pass in gid order, and the staged columns, lanes
+    and maxima of a ragged last pass stay right; equal to the plain
+    version bit for bit."""
+    rng = np.random.default_rng(G)
+    B = 5
+    rows = rng.integers(0, 1 << 20, size=(9, G)).astype(np.float32)
+    rows[port_sb.TABLE_KEYS.index("side")] = rng.random(G) < 0.2
+    rows[port_sb.TABLE_KEYS.index("compute")] = rng.random(G) < 0.7
+    t = port_sb.ScoreTables(g=G, rows=torch.from_numpy(rows))
+    frame = torch.from_numpy(random_masks(G, B, seed=G))
+    io = torch.from_numpy(rng.integers(0, 1 << 22, size=(B, G),
+                                       dtype=np.int32))
+    for fr_t, io_t in ((frame, io), (lane_major(frame), lane_major(io))):
+        got, loads = score_schedule(t, fr_t, io_t, 8.0, 3.0)
+        plain = port_sb.score_batch_torch(t, fr_t, io_t, 8.0, 3.0).numpy()
+        assert np.array_equal(got.view(np.int32), plain.view(np.int32))
+        assert (loads == 1).all()
 
 
 # ------------------------------------------------------- the engine backend
