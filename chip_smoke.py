@@ -68,7 +68,8 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                three bfloat16 products alone in ``torch.matmul``
                (``matmul_ms``); K6, K7 and K8 also beside their SIMT
                kernels on the same bfloat16 inputs, launched by their C
-               entry points (``earlier_design_ms``).
+               entry points (``earlier_design_ms``); K8 also in float32
+               at the serve's shape (the SIMT kernel).
 3. main     -- ``compile_graph`` on the 8 zoo nets in four sweeps: default
                options (``engine="pipeline"`` on ``device="cuda"``, among
                them yolov2@416 with its full space of 7,962,624 cut tuples),
@@ -86,6 +87,25 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                compile with ``device="cpu"`` (yolov2's exhaustive plan under
                ``pipeline``, which the scorer never touches, against the
                pinned values).
+3b. pool    -- ``core/search_pool.py`` on the card, after phase 3 (CUDA is
+               live in this process): one ``ParallelSearchDriver(workers=2)``
+               with a defaulted context, which the first search must
+               ratchet to spawn.  yolov2@416 (all 7,962,624 tuples, 18
+               tasks) under ``pipeline@1048576`` and the four descent nets
+               under ``backend="pallas"`` (K5) and ``engine="device"`` (K1),
+               each equal to its serial plan of phase 3 with no fault event
+               (under ``pallas`` without ``evaluated``: ROADMAP R10); the
+               yolov2 search cold and warm.  Launch counts are per process,
+               so ``pool_task_probe`` runs each task through ``driver.map``
+               with its worker's counts set to 0 just before: every yolov2
+               task must launch K1, K2 and K3 (K4 in each K3), every
+               descent task K5 or K1, and the probes must merge to the
+               plan.  Then a chaos ``kill`` at the last yolov2 prefix
+               (the injector reaches spawn workers through the pool's
+               initializer): one ``retry`` for it and the same plan; the
+               same kill with ``max_retries=0`` under a ``resume_dir``
+               raises, and a second search there resumes the journaled
+               tasks to the same plan.
 4. numerics -- the quickstart pipeline (``examples/quickstart.py``) on the
                card at full width, for each zoo net at its published size:
                compile with ``verify="strict"``, the dry simulator audit
@@ -117,7 +137,8 @@ What it does, in order; any failure ends the run with a non-zero exit code:
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
-               share; one JSON line listing the kernels (times, bounds,
+               share; the pool's walls beside that median, its workers'
+               memory on the card and ``os.cpu_count()``; one JSON line listing the kernels (times, bounds,
                launches per sweep or serve), the card line, and a last line
                ``{"ok": true, "device": {...}}``.
 
@@ -131,6 +152,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1460,6 +1482,20 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
     p2 = time_ms(plain, reps=2, warmup=0)
     bnd = ssd_bound(b, s, h, g, p, n, q, 2)
     earlier_ms, earlier_err = ssd_earlier_design_time(serve_in, q, reps)
+    # the float32 case at the serve's shape (no state): the SIMT kernel
+    f32_in = ssd_cases[1][1]
+
+    def kernel_f32():
+        return ss.ssd_scan_cuda(*f32_in, chunk=q)
+
+    def plain_f32():
+        return ss.ssd_scan_torch(*f32_in, chunk=q)
+
+    fp1 = time_ms(plain_f32, reps=2)
+    fk1 = time_ms(kernel_f32, reps=reps, warmup=1)
+    fk2 = time_ms(kernel_f32, reps=reps, warmup=0)
+    fp2 = time_ms(plain_f32, reps=2, warmup=0)
+    bnd32 = ssd_bound(b, s, h, g, p, n, q, 4)
     out["times"] = {"ssd_scan": {
         "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bnd[0],
         "bound_by": bnd[1], "library_ms": None,
@@ -1468,7 +1504,14 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
         "multiply_adds": ssd_multiply_adds(b, s, h, g, p, n, q),
         "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
                       dtype="bfloat16", h0="zero",
-                      variant=ran_variant(ss.ssd_scan_cuda, kernel)[1])}}
+                      variant=ran_variant(ss.ssd_scan_cuda, kernel)[1]),
+        "float32": {
+            "ms": min(fk1, fk2), "plain_ms": min(fp1, fp2),
+            "bound_ms": bnd32[0], "bound_by": bnd32[1], "library_ms": None,
+            "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
+                          dtype="float32", h0=None,
+                          variant=ran_variant(ss.ssd_scan_cuda,
+                                              kernel_f32)[1])}}}
     return out
 
 
@@ -1814,6 +1857,282 @@ def check_pallas_path(results):
         require_same_plan(sig, want, f"{what} vs device='cpu'")
 
 
+# ------------------------------------------------------------------- pool
+POOL_WORKERS = 2
+# the descent nets of the main path, each searched in the pool under the
+# float32 scorer (K5) and under the device replay (K1): (engine, backend)
+# -> the kernel every worker task must launch
+DESCENT_NETS = ("yolov3", "efficientnet-b1", "retinanet", "mobilenet-v3")
+DESCENT_SWEEPS = {("pipeline", "pallas"): "score_batch",
+                  ("device", "numpy"): "alloc_scan"}
+RESULT_KEYS = ("cuts", "evaluated", "path", "latency_cycles", "dram_total",
+               "dram_fm", "sram_total", "bram18k", "feasible")
+
+
+def result_signature(result) -> dict:
+    """The part of ``plan_signature`` a ``SearchResult`` holds."""
+    b = result.best
+    return {"cuts": tuple(b.cuts), "evaluated": result.evaluated,
+            "path": result.path, "latency_cycles": b.latency_cycles,
+            "dram_total": b.dram_total, "dram_fm": b.dram_fm,
+            "sram_total": b.sram_total, "bram18k": b.bram18k,
+            "feasible": b.feasible}
+
+
+def serial_signature(sig: dict) -> dict:
+    return {k: sig[k] for k in RESULT_KEYS}
+
+
+def pool_task_probe(task) -> dict:
+    """Runs in a pool worker (sent through ``ParallelSearchDriver.map``):
+    one search task with that process's launch counts set to 0 just
+    before, returned with the counts it left and the worker's memory on
+    the card."""
+    import torch
+    from repro_torch.core import search_pool
+    from repro_torch.kernels import (fused_launch_counts, launch_counts,
+                                     launch_counts_by_variant,
+                                     reset_launch_counts)
+
+    reset_launch_counts()
+    if isinstance(task, search_pool.SubspaceTask):
+        best, evals, _pruned, events = search_pool._run_subspace(task)
+        visited = None
+    else:
+        best, visited, events = search_pool._run_descent(task)
+        evals = len(visited)
+    torch.cuda.synchronize()
+    return {"pid": os.getpid(), "best": best, "evals": evals,
+            "visited": visited, "events": events,
+            "launches": launch_counts(), "fused": fused_launch_counts(),
+            "score_batch_by_variant":
+                launch_counts_by_variant()["score_batch"],
+            "memory_reserved_bytes": torch.cuda.memory_reserved(),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def require_probes(probes, needed, what) -> None:
+    """Every task ran on the card, in a worker, and launched ``needed``."""
+    for p in probes:
+        require(p["events"] == (),
+                f"{what}: a worker task degraded: {p['events']}")
+        for name in needed:
+            require(p["launches"][name] > 0,
+                    f"{what}: worker {p['pid']} ran a task without "
+                    f"launching {name}: {p['launches']}")
+
+
+def compute_apps() -> list:
+    """``nvidia-smi``'s processes on the card and the memory of each."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return [f"nvidia-smi failed: {e}"]
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def pool_phase(results) -> dict:
+    """The search pool on the card (see the module docstring, phase 3b):
+    one driver with a defaulted context, which the first search must
+    ratchet to spawn; yolov2@416 at full width under the pipeline and the
+    four descent nets under the float32 scorer and the device replay, each
+    equal to its serial plan of phase 3 with no fault events; probes
+    through ``driver.map`` that count each task's launches in its worker;
+    then a chaos kill, and a kill that exhausts the retries of a journaled
+    search followed by its resume."""
+    import shutil
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.cutpoint import (_key, descent_starts,
+                                           monotone_runs, split_blocks)
+    from repro_torch.core.grouping import group_nodes
+    from repro_torch.core.hw import KCU1500
+    from repro_torch.core.search_pool import (TASKS_PER_WORKER,
+                                              ParallelSearchDriver,
+                                              partition_space)
+    from repro_torch.runtime import chaos
+
+    out = {"pool": "ParallelSearchDriver", "workers": POOL_WORKERS,
+           "os_cpu_count": os.cpu_count()}
+    gg = group_nodes(build_cnn("yolov2"))
+    serial_sig, _s, opts = results["yolov2", "pipeline", "numpy"]
+    serial = serial_signature(serial_sig)
+    runs = monotone_runs(split_blocks(gg))
+    prefixes, suffix_dims = partition_space(
+        runs, POOL_WORKERS * TASKS_PER_WORKER)
+    out["yolov2_tasks"] = len(prefixes)
+
+    def same(result, want, what):
+        require(result.events == [],
+                f"{what}: fault events {result.events}")
+        require_same_plan(result_signature(result), want,
+                          f"{what} vs the serial plan")
+
+    import torch
+    driver = ParallelSearchDriver(workers=POOL_WORKERS)
+    try:
+        require(driver.start_method == "fork",
+                f"the defaulted context is {driver.start_method}, not fork")
+        free_before = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        cold = driver.search(gg, KCU1500, opts)
+        out["yolov2_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+        # the card's memory the live workers hold: contexts and caches
+        out["card_memory_taken_by_the_workers_bytes"] = (
+            free_before - torch.cuda.mem_get_info()[0])
+        require(driver.start_method == "spawn",
+                f"a search on the card left the pool under "
+                f"{driver.start_method}, not spawn")
+        same(cold, serial, "yolov2 in the pool, cold")
+        warm_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            warm = driver.search(gg, KCU1500, opts)
+            warm_ms.append(1e3 * (time.perf_counter() - t0))
+            same(warm, serial, "yolov2 in the pool, warm")
+        out["yolov2_warm_ms"] = warm_ms
+        log(f"  yolov2 in the pool ({len(prefixes)} tasks, "
+            f"{POOL_WORKERS} spawn workers): equals the serial plan, cold "
+            f"{out['yolov2_cold_ms']:.0f} ms, warm "
+            f"{[round(w, 1) for w in warm_ms]} ms")
+
+        # every task launched its kernels in its worker
+        probes = driver.map(pool_task_probe, driver.subspace_tasks(
+            gg, KCU1500, prefixes, suffix_dims, opts))
+        require_probes(probes, ("alloc_scan", "enum_frames", "cost_rows"),
+                       "yolov2 probe")
+        for p in probes:
+            require(p["launches"]["argmin_rows"] == 0
+                    and p["fused"]["argmin_rows"]
+                    == p["launches"]["cost_rows"],
+                    f"yolov2 probe: K4 not in every K3 launch: "
+                    f"{p['launches']}, fused {p['fused']}")
+        best = min((p["best"] for p in probes),
+                   key=lambda m: (_key(m, "latency"), m.cuts))
+        merged = {"cuts": tuple(best.cuts),
+                  "evaluated": sum(p["evals"] for p in probes),
+                  "latency_cycles": best.latency_cycles,
+                  "dram_total": best.dram_total, "dram_fm": best.dram_fm,
+                  "sram_total": best.sram_total, "bram18k": best.bram18k,
+                  "feasible": best.feasible}
+        require_same_plan(merged, {k: serial[k] for k in merged},
+                          "yolov2 probes merged vs the serial plan")
+        pids = sorted({p["pid"] for p in probes})
+        out["worker_pids"] = pids
+        out["probe_launches_by_task"] = [
+            {k: v for k, v in p["launches"].items() if v} for p in probes]
+        out["worker_memory"] = {
+            str(pid): {k: max(p[k] for p in probes if p["pid"] == pid)
+                       for k in ("memory_reserved_bytes",
+                                 "max_memory_allocated_bytes")}
+            for pid in pids}
+        out["nvidia_smi_compute_apps"] = compute_apps()
+        log(f"  yolov2 probes: every task launched K1, K2 and K3 in its "
+            f"worker, K4 in each K3; workers {pids}; nvidia-smi: "
+            f"{out['nvidia_smi_compute_apps']}")
+
+        # the descent nets
+        out["descent_ms"] = {}
+        for net in DESCENT_NETS:
+            ngg = group_nodes(build_cnn(net))
+            for (engine, backend), kernel in DESCENT_SWEEPS.items():
+                sig, serial_s, nopts = results[net, engine, backend]
+                what = f"{net} in the pool under {nopts.engine}, {backend}"
+                t0 = time.perf_counter()
+                r = driver.search(ngg, KCU1500, nopts)
+                ms = 1e3 * (time.perf_counter() - t0)
+                want = serial_signature(sig)
+                if backend == "pallas":
+                    # ROADMAP R10: the serial engine never memoizes a
+                    # float32 score, so its count includes re-scorings;
+                    # the pool counts distinct tuples (below)
+                    want.pop("evaluated")
+                same(r, want, what)
+                require(r.path == "descent", f"{what}: path {r.path}")
+                blocks = split_blocks(ngg)
+                probes = driver.map(pool_task_probe, driver.descent_tasks(
+                    ngg, KCU1500,
+                    descent_starts(blocks, monotone_runs(blocks)), nopts))
+                require_probes(probes, (kernel,), what + " probe")
+                if kernel == "score_batch":
+                    for p in probes:
+                        require(p["score_batch_by_variant"]["thread"] == 0,
+                                f"{what}: K5 not all split: "
+                                f"{p['score_batch_by_variant']}")
+                visited = set().union(*(p["visited"] for p in probes))
+                require(len(visited) == r.evaluated
+                        and (backend == "pallas"
+                             or r.evaluated == sig["evaluated"]),
+                        f"{what}: probes visited {len(visited)}, pool "
+                        f"evaluated {r.evaluated}, serial "
+                        f"{sig['evaluated']}")
+                out["descent_ms"][f"{net} {engine}+{backend}"] = {
+                    "pool_ms": ms, "serial_ms": 1e3 * serial_s,
+                    "pool_evaluated": r.evaluated,
+                    "serial_evaluated": sig["evaluated"],
+                    "launches_by_task": [p["launches"][kernel]
+                                         for p in probes]}
+                log(f"  {what}: equals the serial plan ({ms:.0f} ms; "
+                    f"serial {1e3 * serial_s:.0f} ms); {kernel} launched "
+                    f"in every worker task")
+    finally:
+        driver.close()
+
+    # fault tolerance: a kill at the last yolov2 prefix reaches the spawn
+    # workers (through the pool's initializer)
+    victim = prefixes[-1]
+    journal = ROOT / "build" / "pool_journal"
+    shutil.rmtree(journal, ignore_errors=True)
+    chaos.install(chaos.ChaosInjector(
+        events={("task", victim): chaos.ChaosEvent("kill")}))
+    try:
+        with ParallelSearchDriver(workers=POOL_WORKERS) as d:
+            t0 = time.perf_counter()
+            r = d.search(gg, KCU1500, opts)
+            out["yolov2_with_a_kill_ms"] = 1e3 * (time.perf_counter() - t0)
+            method = d.start_method
+        require(method == "spawn", f"chaos search ran under {method}")
+        mine = [e for e in r.events if e.kind == "retry" and e.task == victim]
+        require(len(mine) == 1 and mine[0].attempt == 1,
+                f"the kill at {victim} gave {mine}, not one retry")
+        require(all(e.kind == "retry" and "died" in e.detail
+                    for e in r.events),
+                f"the kill gave other events: {r.events}")
+        require_same_plan(result_signature(r), serial,
+                          "yolov2 after a kill vs the serial plan")
+        out["kill_events"] = [[e.kind, list(e.task), e.attempt]
+                              for e in r.events]
+        log(f"  a kill at {victim} reached a spawn worker: retry events "
+            f"{out['kill_events']} (the victim once; other retries are "
+            f"the tasks in flight when the pool broke), the same plan")
+        failed = None
+        with ParallelSearchDriver(workers=POOL_WORKERS, max_retries=0) as d:
+            try:
+                d.search(gg, KCU1500, opts.replace(resume_dir=journal))
+            except RuntimeError as e:
+                failed = e
+        require(failed is not None and "worker process died" in str(failed),
+                f"a kill with max_retries=0 did not raise: {failed!r}")
+    finally:
+        chaos.uninstall()
+    journaled = len(list(journal.glob("search_*/task_*.rec")))
+    with ParallelSearchDriver(workers=POOL_WORKERS) as d:
+        r = d.search(gg, KCU1500, opts.replace(resume_dir=journal))
+    resumed = [e for e in r.events if e.kind == "resume"]
+    require(journaled >= 1 and len(resumed) == journaled
+            and len(resumed) == len(r.events),
+            f"resume: {journaled} records, events {r.events}")
+    require_same_plan(result_signature(r), serial,
+                      "yolov2 resumed vs the serial plan")
+    shutil.rmtree(journal, ignore_errors=True)
+    out["journaled_before_the_kill"] = journaled
+    log(f"  max_retries=0 raised ({failed}); the resume reused "
+        f"{journaled} journaled tasks and equals the serial plan")
+    return out
+
+
 # ------------------------------------------------------------- numerics
 def quickstart(nets, device="cuda") -> list:
     """The quickstart pipeline on the card at full width, one row per net
@@ -2055,6 +2374,12 @@ def main(argv=None) -> int:
     check_main_path(results)
     check_pallas_path(results)
 
+    # ---- phase 3b: the search pool on the card, its kernels launched in
+    # spawned workers, and its fault tolerance
+    t0 = time.perf_counter()
+    pool = pool_phase(results)
+    log(f"pool phase ({time.perf_counter() - t0:.1f} s)")
+
     # ---- phase 4: the quickstart pipeline at full width
     t0 = time.perf_counter()
     quick = quickstart(nets)
@@ -2176,13 +2501,19 @@ def main(argv=None) -> int:
             entry["earlier_design_ms"] = t["earlier_design_ms"]
             entry["earlier_design"] = ("the SIMT kernel on the same "
                                        "bfloat16 inputs")
+        if name == "ssd_scan":
+            entry["at_float32"] = t["float32"]
         if name == "fused_block":
             entry["at_decode"] = lm_times["fused_block_decode"]
             entry["matmul_ms"] = t["matmul_ms"]
             entry["matmul"] = ("torch.matmul of n @ Wg, n @ Wu and h @ Wd "
                                "in bfloat16, the block's products alone")
         kernels.append(entry)
-    log(json.dumps(yolov2_wall_and_busy()))
+    serial_wall = yolov2_wall_and_busy()
+    log(json.dumps(serial_wall))
+    pool["serial_wall_ms_median"] = serial_wall["wall_ms_median"]
+    pool["card"] = card
+    log(json.dumps(pool))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -133,16 +133,17 @@ def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
     ``device="cuda"``) and raises on a host without one; pass
     ``CompileOptions(device="cpu")`` for the plain torch versions.
 
-    Not part of this package yet, and refused with
-    ``NotImplementedError`` rather than ignored: ``workers != 1`` /
-    ``resume_dir`` / ``guard`` (the process pool).
+    ``workers=None`` or ``> 1`` and ``resume_dir`` run the search in the
+    process pool (``core/search_pool.py``), whose workers launch the
+    engine's kernels; the plan is bit-identical to ``workers=1``.
 
     Three arguments stay outside the options value because they are not
     reusable configuration: ``policy`` (gid -> "row"/"frame") skips the
     optimizer and compiles the given policy verbatim -- this is how the
     all-row baseline and ablation plans are built (feasibility is still
     computed honestly for the resulting Candidate); ``guard`` is a live
-    preemption guard for the process pool; ``warm_start`` is a cut tuple
+    :class:`~repro_torch.runtime.fault_tolerance.PreemptionGuard` the
+    process pool polls to drain and journal on SIGTERM; ``warm_start`` is a cut tuple
     (typically from a plan cache) forwarded to
     :func:`repro_torch.core.cutpoint.search`, which prices it through the
     oracle and seeds the branch-and-bound incumbent -- exhaustive-path

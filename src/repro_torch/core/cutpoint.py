@@ -88,9 +88,11 @@ Oracle contract: ``CutpointEngine.evaluate(cuts)`` returns the same
 returned Candidate is byte-identical to what the seed implementation
 produced.
 
-The search runs serially in-process here: the process pool behind
-``workers != 1`` / ``resume_dir`` is not part of this package yet, and
-``search`` raises ``NotImplementedError`` when asked for it.
+``search`` runs serially in-process at ``workers=1``; ``workers=None`` or
+``> 1`` and ``resume_dir`` hand it to the process pool of
+``core/search_pool.py``, whose workers run the same engine (and launch its
+kernels) on disjoint sub-spaces or descent starts and merge to the
+bit-identical result.
 """
 from __future__ import annotations
 
@@ -1272,9 +1274,11 @@ def search(gg: GroupedGraph, hw: FPGAConfig,
     ``guard`` (a live preemption guard the process pool polls for a
     clean SIGTERM drain) and ``warm_start`` (a cut tuple from a plan
     cache) are not options: the former is a runtime object, the latter
-    is derived per-request state.  The pool is not part of this package
-    yet, so ``workers != 1``, ``resume_dir`` and a non-``None`` ``guard``
-    raise ``NotImplementedError``.  On the exhaustive path a valid ``warm_start`` is
+    is derived per-request state.  ``workers=None`` or ``> 1`` and
+    ``resume_dir`` route the search through
+    :class:`repro_torch.core.search_pool.ParallelSearchDriver` (which
+    polls ``guard``; the serial path has nothing to drain and ignores
+    it).  On the exhaustive path a valid ``warm_start`` is
     scored through the direct oracle and seeds the branch-and-bound
     incumbent -- the result stays bit-identical to a cold search
     (including ``evaluated`` under the default ``count_pruned``
@@ -1290,11 +1294,14 @@ def search(gg: GroupedGraph, hw: FPGAConfig,
     seed implementation produced for the same graph.
     """
     opts = resolve_options(options, legacy, site="search")
-    if opts.workers != 1 or opts.resume_dir is not None or guard is not None:
-        raise NotImplementedError(
-            "workers != 1, resume_dir and guard need the parallel search "
-            "pool, which is not part of this package yet; search serially "
-            "with workers=1")
+    if (opts.workers is None or opts.workers > 1
+            or opts.resume_dir is not None):
+        from repro_torch.core.search_pool import ParallelSearchDriver
+        with ParallelSearchDriver(workers=opts.workers,
+                                  max_retries=opts.max_retries,
+                                  task_deadline_s=opts.task_deadline_s,
+                                  guard=guard) as driver:
+            return driver.search(gg, hw, opts, warm_start=warm_start)
 
     blocks = split_blocks(gg)
     runs = monotone_runs(blocks)

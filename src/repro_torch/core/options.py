@@ -19,10 +19,10 @@ test_torch_search_pipeline.py is what makes that split sound.  The same
 ``plan_key()`` keys the ``resume_dir`` task journals, so journals
 written under different plan-affecting option sets can never collide.
 
-Not every value is implemented in this package yet: ``workers != 1`` and
-``resume_dir`` (the process pool) are accepted by the dataclass, so option
-sets stay interchangeable with the JAX package's, and raise
-``NotImplementedError`` where the compile would need them.
+Every value is implemented: ``workers != 1`` and ``resume_dir`` run the
+process pool of ``core/search_pool.py``, whose workers start under
+``spawn`` when they will touch a CUDA device (a forked child of a CUDA
+parent cannot use CUDA) and under ``fork`` otherwise.
 
 Field reference (the one knob table; README mirrors it)
 -------------------------------------------------------
@@ -69,8 +69,10 @@ Scheduling-only (wall clock / resilience / post-checks; excluded from
 
 ``workers``
     ``1`` (default) searches serially in-process; ``N > 1`` farms
-    disjoint sub-spaces over a process pool
-    (``core/search_pool.py``); ``None`` uses ``os.cpu_count()``.
+    disjoint sub-spaces (or descent starts) over a process pool
+    (``core/search_pool.py``) whose workers launch the engine's kernels
+    themselves; ``None`` uses ``os.cpu_count()`` -- on a CUDA ``device``
+    that many CUDA contexts on the card.
 ``batch_size``
     Cut tuples priced per ``CutpointEngine.score_batch`` call
     (``1`` falls back to the per-tuple loop).  An ``@N`` suffix on
@@ -120,11 +122,13 @@ Scheduling-only (wall clock / resilience / post-checks; excluded from
     re-dispatch (``None`` disables).
 ``resume_dir``
     Directory for the task-granular completion journal
-    (``checkpoint/checkpoint.py::TaskJournal``): completed tasks are
-    committed atomically and skipped on re-run, so a killed or
-    preempted compile resumes byte-identically.  The journal's search
-    key derives from ``plan_key()`` + the partition, never from
-    scheduling knobs.
+    (``checkpoint/checkpoint.py::TaskJournal``, standard-library records):
+    completed tasks are committed atomically and skipped on re-run, so a
+    killed or preempted compile resumes byte-identically; it also routes
+    the search through the pool's partitioned path even at ``workers=1``.
+    The journal's search key derives from ``plan_key()`` + the
+    partition, never from scheduling knobs, so a journal written under
+    one engine or device resumes a search under another.
 ``verify``
     Static plan verifier post-pass (``repro_torch.analysis``): ``"off"``
     (default), ``"warn"`` (diagnostics recorded on
@@ -250,6 +254,22 @@ def resolve_engine(engine: str,
                          f"CUDA kernels need a CUDA device (use "
                          f"'{name}:torch' or device='cuda')")
     return EngineSpec(name=name, variant=variant, batch_size=batch)
+
+
+def degrade_engine(engine: str) -> str:
+    """The safe fallback spelling for ``engine``: the journal replay,
+    preserving any explicit ``@batch`` suffix.
+
+    The single degrade target of the parallel runtime on the host: a
+    failing device or pipeline task, and every speculative straggler
+    duplicate, re-runs under the returned engine.  A task on a CUDA
+    ``device`` never degrades (``search_pool`` keeps it on the card).
+    Bit-identical by the replay contract, so degradation only costs wall
+    clock; the pool reports each one as a ``FaultEvent``."""
+    spec = resolve_engine(engine)
+    if spec.batch_size is not None:
+        return f"journal@{spec.batch_size}"
+    return "journal"
 
 
 @runtime_checkable

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package ``repro``, it can be imported on a host with no GPU and no CUDA
-compiler, and it refuses to run a GPU engine on the CPU behind the caller's
-back."""
+package ``repro`` (nor ``msgpack``), it can be imported on a host with no
+GPU and no CUDA compiler, and it refuses to run a GPU engine on the CPU
+behind the caller's back."""
 import ast
 import importlib
 import subprocess
@@ -12,7 +12,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# msgpack too: the machine with the GPU has none (the task journal's codec
+# is the standard library's)
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
@@ -80,7 +82,12 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.models.attention",
                  "repro_torch.models.mamba2", "repro_torch.models.rglru",
                  "repro_torch.models.transformer",
-                 "repro_torch.models.model", "repro_torch.launch.serve"):
+                 "repro_torch.models.model", "repro_torch.launch.serve",
+                 "repro_torch.core.search_pool", "repro_torch.runtime",
+                 "repro_torch.runtime.chaos",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",
@@ -165,20 +172,57 @@ def test_engine_grammar_and_device_field():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"workers": 2}, "pool"), ({"workers": None}, "pool"),
+    ({"workers": 2, "resume_dir": "journal-dir"}, "pool"),
+    ({"workers": None, "resume_dir": "journal-dir"}, "pool"),
     ({"resume_dir": "journal-dir"}, "pool"),
-    ({"workers": 2, "backend": "pallas"}, "pool"),
-    ({"workers": 2, "verify": "strict"}, "pool"),
+    ({"workers": 2, "backend": "pallas", "resume_dir": "journal-dir"},
+     "pool"),
+    ({"workers": 2, "verify": "strict", "resume_dir": "journal-dir"},
+     "pool"),
     ({"resume_dir": "journal-dir", "verify": "warn"}, "pool"),
 ])
-def test_what_the_slice_leaves_out_raises(kwargs, match):
+def test_what_the_slice_leaves_out_raises(kwargs, match, tmp_path,
+                                          monkeypatch):
+    """What earlier slices refused now runs: ``workers`` and ``resume_dir``
+    go through the process pool (``match`` names the module that serves
+    them), and the plan equals ``workers=1``.  vgg16-conv's 1,080 tuples
+    are below the pool's cutoff, so every case sets ``resume_dir``, which
+    forces the partitioned path: the driver runs it once with the asked
+    worker count, and every task of that partition is journaled."""
+    import os
+
     from repro_torch.cnn import build_cnn
+    from repro_torch.core import search_pool
     from repro_torch.core.compiler import compile_graph
     from repro_torch.core.options import CompileOptions
 
-    opts = CompileOptions(engine="journal", device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        compile_graph(build_cnn("vgg16-conv"), options=opts)
+    calls = []
+    run_subspaces = search_pool.ParallelSearchDriver.run_subspaces
+
+    def spy(self, *args, **kw):
+        calls.append((type(self).__module__, self.workers))
+        return run_subspaces(self, *args, **kw)
+
+    monkeypatch.setattr(search_pool.ParallelSearchDriver, "run_subspaces",
+                        spy)
+    journal = tmp_path / kwargs["resume_dir"]
+    g = build_cnn("vgg16-conv")
+    opts = CompileOptions(engine="journal", device="cpu",
+                          **dict(kwargs, resume_dir=journal))
+    plan = compile_graph(g, options=opts)
+    [(module, workers)] = calls
+    assert match in module
+    assert workers == (opts.workers or os.cpu_count())
+    prefixes, _ = search_pool.partition_space(
+        plan.search.runs, workers * search_pool.TASKS_PER_WORKER)
+    assert len(list(journal.glob("search_*/task_*.rec"))) == len(prefixes)
+    serial = compile_graph(g, options=opts.replace(workers=1,
+                                                   resume_dir=None))
+    assert tuple(plan.candidate.cuts) == tuple(serial.candidate.cuts)
+    assert plan.search.evaluated == serial.search.evaluated == 1080
+    assert plan.latency.cycles == serial.latency.cycles
+    assert plan.instructions == serial.instructions
+    assert plan.search.events == []
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -199,14 +243,20 @@ def test_scorer_and_verifier_options_run(kwargs):
 
 
 def test_guard_raises_and_legacy_shim_still_works():
+    """A ``PreemptionGuard`` is taken (the pool polls it; the serial path
+    has nothing to drain) and the plan is unchanged; the legacy shim still
+    maps loose knobs."""
     from repro_torch.cnn import build_cnn
     from repro_torch.core.compiler import compile_graph
     from repro_torch.core.options import CompileOptions, LegacyKnobWarning
+    from repro_torch.runtime.fault_tolerance import PreemptionGuard
 
     g = build_cnn("vgg16-conv")
-    with pytest.raises(NotImplementedError, match="pool"):
-        compile_graph(g, options=CompileOptions(engine="journal"),
-                      guard=object())
+    opts = CompileOptions(engine="journal")
+    guarded = compile_graph(g, options=opts, guard=PreemptionGuard())
+    assert guarded.search.evaluated == 1080
+    assert (tuple(guarded.candidate.cuts)
+            == tuple(compile_graph(g, options=opts).candidate.cuts))
     with pytest.warns(LegacyKnobWarning):
         plan = compile_graph(g, replay="journal", device="cpu")
     assert plan.search.evaluated == 1080
