@@ -45,7 +45,12 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K7 there in bfloat16 and in float32, at ragged shapes, K6
                with gemma2's soft cap and GQA, K7 ungated and with the
                sandwich norm: within 2e-5 in float32 and 2e-2 in
-               bfloat16.  K9 bit for bit at the serve's shape, at S shorter
+               bfloat16.  K7 also in float32 at rows wider than its SIMT
+               row tiles hold (d > 2,560: the ``simt_wide`` passes):
+               gemma2-27b's MLP (d 4,608, F 36,864, gated gelu, sandwich
+               norm) at prefill (M 1,024) and decode (M 2), granite-20b's
+               (d 6,144, F 24,576, ungated) at M 1,024, each timed beside
+               its plain version with its bound.  K9 bit for bit at the serve's shape, at S shorter
                than its ring, S 3,071, W 2,561, B 1 x W 16 and on unaligned
                rows (its 4-byte copies).  K6 and K7 each pick a kernel by a
                fixed rule (``flash_attention_variant``,
@@ -106,6 +111,23 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                same kill with ``max_retries=0`` under a ``resume_dir``
                raises, and a second search there resumes the journaled
                tasks to the same plan.
+3c. service -- ``service.CompileService`` on the card with its default
+               options (``pipeline`` on ``device="cuda"``), one thread, a
+               cache under ``build/``: the 8 zoo nets at their published
+               sizes, each ``request_key`` equal to the JAX package's
+               (pinned in ``SERVICE_KEYS``: the standard-library msgpack
+               writer's bytes), each a miss whose plan equals phase 3's
+               default plan (yolov2 the pinned one), the four exhaustive
+               ones launching K2, K1 and K3 (the descent nets score on the
+               host under these options, as in phase 3); the 8 again, each a hit that launches nothing and
+               whose ``encode_plan`` equals the miss's, with its ms, its
+               record's bytes and codec; a second service on the same
+               directory serves all 8 as hits; yolov2 on a config with
+               half the SRAM budget, a warm-started miss whose plan equals
+               a cold compile of it in a fresh cache; a descent net under
+               ``backend="pallas"``, a miss that launches K5 and whose hit
+               is byte-equal; two threads taking two misses at once
+               (yolov2 and resnet152), each equal to its serial record.
 4. numerics -- the quickstart pipeline (``examples/quickstart.py``) on the
                card at full width, for each zoo net at its published size:
                compile with ``verify="strict"``, the dry simulator audit
@@ -133,7 +155,10 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                kernels and through their plain versions
                (``ops.plain_versions()``), logits within 1e-3 of their
                scale, with exactly the launches ``LM_SERVES`` states (on
-               the SIMT kernels: float32).
+               the SIMT kernels: float32).  Then the same check of
+               gemma2-27b (``LM_CHECKS``: not served) at full width, depth
+               2 (one local and one global layer), batch 1, 1,024 tokens:
+               its MLPs on K7's ``simt_wide`` passes.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -228,7 +253,8 @@ KERNEL_INFO = {
         "variants": {
             "tensor_core": "src/repro_torch/kernels/csrc/fused_block_tc.cu",
             "simt": "src/repro_torch/kernels/csrc/fused_block.cu",
-            "simt_split": "src/repro_torch/kernels/csrc/fused_block.cu"}},
+            "simt_split": "src/repro_torch/kernels/csrc/fused_block.cu",
+            "simt_wide": "src/repro_torch/kernels/csrc/fused_block.cu"}},
     "ssd_scan": {
         "source": "src/repro_torch/kernels/csrc/ssd_scan_tc.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:26",
@@ -917,6 +943,24 @@ LM_SERVES = {
         # float32 runs on the SIMT kernel
         "check_launches_by_variant": {"ssd_scan": {"simt": 4}}},
 }
+# float32 model checks of architectures phase 5 does not serve, as
+# LM_SERVES[arch]["check"]: gemma2-27b, the widest MLP, whose rows only K7's
+# wide SIMT path takes in float32
+LM_CHECKS = {
+    "gemma2-27b": {
+        # one local and one global layer (the pattern's cycle), batch 1,
+        # 1,024 tokens: K6 once a layer in the prefill (the decode step
+        # attends in torch); K7 once a layer in the prefill (M 1,024) and
+        # in the decode step (M 1), all on the wide path (d 4,608)
+        "check": {"n_layers": 2, "batch": 1, "prompt_len": 1024},
+        "check_launches": {"flash_attention": 2, "fused_block": 4},
+        "check_launches_by_variant": {
+            "flash_attention": {"simt": 2},
+            "fused_block": {"simt_wide": 4}}},
+}
+# K7 in float32 at rows wider than the SIMT row tiles hold: (arch, M), the
+# arch's MLP at its full width
+K7_WIDE = (("gemma2-27b", 1024), ("gemma2-27b", 2), ("granite-20b", 1024))
 LM_ARCH = "recurrentgemma-2b"        # K6, K7, K9 are checked at its shapes
 SSD_ARCH = "mamba2-2.7b"             # K8 at its shapes
 LM_KERNELS = ("flash_attention", "fused_block", "ssd_scan", "rglru_scan")
@@ -1160,6 +1204,8 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     for what, args, kw, variant in block_cases:
         close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
                       what, variant)
+    wide = [check_wide_block(arch, m, block, close_variant, cases, timed)
+            for arch, m in K7_WIDE]
 
     # ---- K9: equal bit for bit
     def scan(b, s, width):
@@ -1194,7 +1240,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                      rs.rglru_scan_torch(a, bb),
                      f"{what}, {4 * plan.vec}-byte copies", errs, cases)
     torch.cuda.synchronize()
-    out = {"errs": errs, "cases": cases}
+    out = {"errs": errs, "cases": cases, "wide": wide}
     if not timed:
         return out
 
@@ -1266,6 +1312,53 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         out["times"][name].update(earlier_design_ms=ms,
                                   earlier_design_max_abs_err=err)
     return out
+
+
+def check_wide_block(arch, m, block, close_variant, cases, timed) -> dict:
+    """K7 on ``arch``'s MLP at its full width in float32, M rows: rows wider
+    than the SIMT row tiles hold, so the ``simt_wide`` passes; held against
+    the plain version at ``LM_TOL["float32"]`` and, if ``timed``, timed
+    beside it (plain, kernel, kernel, plain) with its bound.  The weights
+    are freed before the next case."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_block as fb
+
+    cfg = get_config(arch)
+    d, f = cfg.d_model, cfg.d_ff
+    args = block(m, d, f, torch.float32)
+    kw = dict(act=cfg.act, gated=cfg.mlp_gated, sandwich=cfg.sandwich_norm)
+    what = (f"{arch} width float32, M {m}, d {d}, F {f}, "
+            f"{'gated' if cfg.mlp_gated else 'ungated'} {cfg.act}"
+            f"{', sandwich' if cfg.sandwich_norm else ''}")
+    close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw, what,
+                  "simt_wide")
+    bnd = fused_block_bound(m, d, f, cfg.mlp_gated, 4)
+    entry = {"arch": arch, "M": m, "d": d, "F": f, "gated": cfg.mlp_gated,
+             "sandwich": cfg.sandwich_norm, "dtype": "float32",
+             "variant": cases[-1]["variant"],
+             "max_abs_err": cases[-1]["max_abs_err"],
+             "splits": fb.simt_wide_splits(
+                 m, d, f, torch.cuda.get_device_properties(0)
+                 .multi_processor_count),
+             "bound_ms": bnd[0], "bound_by": bnd[1]}
+    if timed:
+        def kernel():
+            return fb.fused_block_cuda(*args, **kw)
+
+        def plain():
+            return fb.fused_block_torch(*args, **kw)
+        p1 = time_ms(plain, reps=2)
+        k1 = time_ms(kernel, reps=3, warmup=1)
+        k2 = time_ms(kernel, reps=3, warmup=0)
+        p2 = time_ms(plain, reps=2, warmup=0)
+        entry.update(ms=min(k1, k2), plain_ms=min(p1, p2))
+        log(f"  fused_block {what}: {entry['ms']:.4g} ms on "
+            f"{entry['variant']} (bound {bnd[0]:.4g} ms, {bnd[1]}), plain "
+            f"{entry['plain_ms']:.4g} ms")
+    del args
+    torch.cuda.empty_cache()
+    return entry
 
 
 def earlier_design_times(full_attn, win, prefill_x, decode_x, gelu,
@@ -1567,6 +1660,10 @@ TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
                                    "flash_attention_tc_kernel"),
                "fused_block": ("fused_block_kernel",
                                "fused_block_reduce_kernel",
+                               "fused_block_wide_norm_kernel",
+                               "fused_block_wide_up_kernel",
+                               "fused_block_wide_down_kernel",
+                               "fused_block_wide_post_kernel",
                                "fused_block_norm_kernel",
                                "fused_block_up_kernel",
                                "fused_block_down_kernel",
@@ -1682,9 +1779,10 @@ def serve_phase(arch: str) -> dict:
 
 def model_check(arch: str) -> dict:
     """``arch`` at full width in float32, at the depth, batch and prompt
-    length of ``LM_SERVES[arch]["check"]``: the prefill and one decode
-    step, through the kernels and again through their plain versions
-    (``ops.plain_versions()``) on the same weights and tokens."""
+    length of ``LM_SERVES[arch]["check"]`` (or ``LM_CHECKS[arch]``): the
+    prefill and one decode step, through the kernels and again through
+    their plain versions (``ops.plain_versions()``) on the same weights and
+    tokens."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1694,7 +1792,8 @@ def model_check(arch: str) -> dict:
 
     require(not torch.backends.cuda.matmul.allow_tf32,
             "float32 matmuls would run in TF32")
-    check = LM_SERVES[arch]["check"]
+    spec = {**LM_SERVES, **LM_CHECKS}[arch]
+    check = spec["check"]
     b, s = check["batch"], check["prompt_len"]
     cfg = get_config(arch).replace(n_layers=check["n_layers"],
                                    dtype="float32", max_seq=s + 1)
@@ -1720,11 +1819,10 @@ def model_check(arch: str) -> dict:
     require(not any(launch_counts()[k] - counts.get(k, 0)
                     for k in launch_counts()),
             "plain_versions() launched a kernel")
-    require(counts == LM_SERVES[arch]["check_launches"],
+    require(counts == spec["check_launches"],
             f"the kernel path of {arch} launched {counts}, not "
-            f"{LM_SERVES[arch]['check_launches']}")
-    require_variants(by_variant,
-                     LM_SERVES[arch].get("check_launches_by_variant", {}),
+            f"{spec['check_launches']}")
+    require_variants(by_variant, spec.get("check_launches_by_variant", {}),
                      f"the kernel path of {arch}")
     out = {"model_check": arch, **check, "dtype": "float32",
            "tolerance_of_scale": MODEL_CHECK_TOL, "launches": counts,
@@ -2133,6 +2231,212 @@ def pool_phase(results) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- service
+# request_key of each zoo net at its published size under the default
+# CompileOptions(), as the JAX package's repro.service.request_key computes
+# it (canonicalization alone, no search): the port's standard-library
+# msgpack writer must give the same bytes on a machine with no msgpack
+SERVICE_KEYS = {
+    "vgg16-conv":
+        "cce13a698fc4652962aea8c6ab70e6d62d7b0b20ea1f2785d85522e8d0cf1a8c",
+    "yolov2":
+        "8afcceb3a18fc2b712962303b77c92afdceb33bdde604821e26bf1f7b7fc9197",
+    "yolov3":
+        "5fc60518879f602068aeac507e3c29f376bd57225a4b8005fafd6d84c0ab79f1",
+    "resnet50":
+        "7b27ddb83e5710558dd91b9eca87608c34fec61bb02dfd810f48e72534a80e86",
+    "resnet152":
+        "d5770384cdb7ba4f04e1815bcac9ca853b54a3f7bdcc767a4fcf1c4d3ac6d759",
+    "efficientnet-b1":
+        "bb4c6125dd1f17692539c66ec3992f6e5c37abfd3bc3e62a0bd92f300bf1dde8",
+    "retinanet":
+        "389fb300714739b6895368d028b28e91513b16e62738c4b792831290505e65b8",
+    "mobilenet-v3":
+        "0e8e4a413b3697b8a4a8c98f778ac86692ceeca3fb4a8aae2456064928336d11",
+}
+SERVICE_PALLAS_NET = "yolov3"        # a descent net, K5 on its miss
+SERVICE_CONCURRENT = ("yolov2", "resnet152")
+SERVICE_TIMEOUT_S = 600
+
+
+def service_phase(results) -> dict:
+    """The compile service on the card (phase 3c, see the module
+    docstring).  Launch counts are set to 0 just before each request and
+    read just after it (the service's threads share the process's
+    counters); their sum over the phase is ``launches``."""
+    import shutil
+    import torch
+    from repro_torch.cnn import build_cnn
+    from repro_torch.core.hw import KCU1500
+    from repro_torch.core.options import CompileOptions
+    from repro_torch.kernels import (fused_launch_counts, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.service import CompileService, encode_plan, request_key
+    from repro_torch.service.packing import unpackb
+
+    root = ROOT / "build" / "service_cache"
+    shutil.rmtree(root, ignore_errors=True)
+    graphs = {net: build_cnn(net) for net in SERVICE_KEYS}
+    total = dict.fromkeys(launch_counts(), 0)
+    fused_total = dict.fromkeys(fused_launch_counts(), 0)
+
+    def served(svc, net, hw=KCU1500, options=None):
+        """One request through ``svc``: (ticket, plan, its launches)."""
+        reset_launch_counts()
+        t = svc.submit(graphs[net], hw, options)
+        plan = t.result(timeout=SERVICE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name, n in counts.items():
+            total[name] += n
+        for name, n in fused_launch_counts().items():
+            fused_total[name] += n
+        return t, plan, {k: n for k, n in counts.items() if n}
+
+    def record(svc, key):
+        path = svc.cache._path(key)
+        return path.stat().st_size, unpackb(path.read_bytes())["codec"]
+
+    out = {"service": "CompileService", "nets": {}}
+    cold = {}
+    try:
+        with CompileService(root / "main", threads=1) as svc:
+            require(svc.options == CompileOptions()
+                    and svc.options.device == "cuda"
+                    and svc.options.engine_spec().variant == "cuda",
+                    "the service's default options are not the card's")
+            for net, pinned in SERVICE_KEYS.items():
+                key = request_key(graphs[net], KCU1500, svc.options)
+                require(key == pinned, f"{net}: request_key {key} != the "
+                                       f"JAX package's {pinned}")
+                t, plan, counts = served(svc, net)
+                require(not t.hit, f"{net}: the first request was a hit")
+                # an exhaustive search runs the pipeline's kernels; a
+                # descent (space > exhaustive_limit) scores on the host
+                # under backend="numpy", as in phase 3
+                require(plan.search.path != "exhaustive"
+                        or all(counts.get(k) for k in ("enum_frames",
+                                                       "alloc_scan",
+                                                       "cost_rows")),
+                        f"{net}: the miss launched {counts}, not K2, K1, K3")
+                sig = plan_signature(plan)
+                require_same_plan(sig, results[net, "pipeline", "numpy"][0],
+                                  f"{net} from the service vs phase 3")
+                if net == "yolov2":
+                    require_same_plan(sig, YOLOV2_PINNED,
+                                      "yolov2 from the service vs the "
+                                      "pinned reference")
+                cold[net] = encode_plan(plan)
+                out["nets"][net] = {"request_key": key,
+                                    "path": plan.search.path,
+                                    "cold_ms": 1e3 * t.service_s,
+                                    "miss_launches": counts}
+            for net in SERVICE_KEYS:
+                t, plan, counts = served(svc, net)
+                require(t.hit and not counts,
+                        f"{net}: the second request hit={t.hit}, launched "
+                        f"{counts}")
+                require(encode_plan(plan) == cold[net],
+                        f"{net}: the hit's record differs from the miss's")
+                size, codec = record(svc, t.key)
+                out["nets"][net].update(hit_ms=1e3 * t.service_s,
+                                        record_bytes=size, codec=codec,
+                                        plan_bytes=len(cold[net]))
+                log(f"  service {net}: miss {out['nets'][net]['cold_ms']:.2f}"
+                    f" ms ({out['nets'][net]['path']}, launched "
+                    f"{out['nets'][net]['miss_launches']}), "
+                    f"hit {1e3 * t.service_s:.3f} ms (decode + verify, no "
+                    f"launch), record {size} B ({len(cold[net])} B of plan, "
+                    f"{codec}), hit == miss byte for byte")
+            out["stats"] = dict(svc.stats)
+        require(out["stats"]["misses"] == 8 and out["stats"]["hits"] == 8,
+                f"service stats {out['stats']}")
+
+        with CompileService(root / "main", threads=1) as svc:
+            for net in SERVICE_KEYS:
+                t, plan, counts = served(svc, net)
+                require(t.hit and not counts
+                        and encode_plan(plan) == cold[net],
+                        f"{net} after a restart: hit={t.hit}, launched "
+                        f"{counts}, or a record unlike the miss's")
+            out["after_restart"] = dict(svc.stats)
+        require(out["after_restart"]["hits"] == 8
+                and out["after_restart"]["misses"] == 0,
+                f"a restarted service: {out['after_restart']}")
+        log("  a second service on the same directory served all 8 as hits")
+
+        hw2 = dataclasses.replace(KCU1500, name="kcu1500-smallsram",
+                                  sram_budget=KCU1500.sram_budget // 2)
+        with CompileService(root / "main", threads=1) as svc:
+            t, warm, counts = served(svc, "yolov2", hw2)
+            require(not t.hit and t.warm_started,
+                    f"yolov2 on {hw2.name}: hit={t.hit}, warm_started="
+                    f"{t.warm_started}")
+        with CompileService(root / "fresh", threads=1) as svc:
+            t2, cold2, _ = served(svc, "yolov2", hw2)
+            require(not t2.hit and not t2.warm_started,
+                    "yolov2 on a fresh cache was not a cold miss")
+        require(encode_plan(warm) == encode_plan(cold2),
+                f"yolov2 on {hw2.name}: the warm-started plan differs from "
+                f"a cold compile")
+        out["warm_start"] = {"net": "yolov2", "hw": hw2.name,
+                             "warm_ms": 1e3 * t.service_s,
+                             "cold_ms": 1e3 * t2.service_s,
+                             "launches": counts}
+        log(f"  yolov2 on {hw2.name}: a warm-started miss "
+            f"({1e3 * t.service_s:.2f} ms) equals a cold compile in a fresh "
+            f"cache ({1e3 * t2.service_s:.2f} ms)")
+
+        net = SERVICE_PALLAS_NET
+        pallas = CompileOptions(backend="pallas")
+        with CompileService(root / "main", threads=1) as svc:
+            t, miss, counts = served(svc, net, options=pallas)
+            require(not t.hit and counts.get("score_batch"),
+                    f"{net} under pallas: hit={t.hit}, launched {counts}")
+            require_same_plan(plan_signature(miss),
+                              results[net, "pipeline", "pallas"][0],
+                              f"{net} under pallas from the service vs "
+                              f"phase 3")
+            t2, hit, hit_counts = served(svc, net, options=pallas)
+            require(t2.hit and not hit_counts
+                    and encode_plan(hit) == encode_plan(miss),
+                    f"{net} under pallas: the hit launched {hit_counts} or "
+                    f"differs from the miss")
+        out["pallas"] = {"net": net, "miss_ms": 1e3 * t.service_s,
+                         "hit_ms": 1e3 * t2.service_s,
+                         "miss_launches": counts}
+        log(f"  {net} under backend='pallas': the miss launched {counts}, "
+            f"the hit none and equals it byte for byte")
+
+        with CompileService(root / "two", threads=2) as svc:
+            tickets = {}
+            for net in SERVICE_CONCURRENT:
+                tickets[net] = svc.submit(graphs[net])
+            t0 = time.perf_counter()
+            plans = {net: t.result(timeout=SERVICE_TIMEOUT_S)
+                     for net, t in tickets.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(svc.stats["misses"] == 2,
+                    f"two threads: stats {svc.stats}")
+        for net, plan in plans.items():
+            require(encode_plan(plan) == cold[net],
+                    f"{net} on two threads differs from its serial record")
+        out["concurrent"] = {
+            "nets": list(SERVICE_CONCURRENT), "threads": 2,
+            "wall_ms": 1e3 * wall,
+            "service_ms": {n: 1e3 * t.service_s for n, t in tickets.items()},
+            "queue_wait_ms": {n: 1e3 * t.queue_wait_s
+                              for n, t in tickets.items()}}
+        log(f"  two threads, two misses at once {list(SERVICE_CONCURRENT)}:"
+            f" each equals its serial record ({1e3 * wall:.1f} ms)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {k: n for k, n in total.items() if n}
+    out["fused_launches"] = {k: n for k, n in fused_total.items() if n}
+    return out
+
+
 # ------------------------------------------------------------- numerics
 def quickstart(nets, device="cuda") -> list:
     """The quickstart pipeline on the card at full width, one row per net
@@ -2380,6 +2684,13 @@ def main(argv=None) -> int:
     pool = pool_phase(results)
     log(f"pool phase ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- phase 3c: the compile service on the card, each request with its
+    # own launch counts
+    t0 = time.perf_counter()
+    service = service_phase(results)
+    log(json.dumps(service))
+    log(f"service phase ({time.perf_counter() - t0:.1f} s)")
+
     # ---- phase 4: the quickstart pipeline at full width
     t0 = time.perf_counter()
     quick = quickstart(nets)
@@ -2397,6 +2708,11 @@ def main(argv=None) -> int:
         checked[arch] = model_check(arch)
         log(json.dumps(checked[arch]))
         log(f"serve phase of {arch} ({time.perf_counter() - t0:.1f} s)")
+    for arch in LM_CHECKS:
+        t0 = time.perf_counter()
+        checked[arch] = model_check(arch)
+        log(json.dumps(checked[arch]))
+        log(f"model check of {arch} ({time.perf_counter() - t0:.1f} s)")
 
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
@@ -2447,6 +2763,9 @@ def main(argv=None) -> int:
                 "fused_into": info["fused_into"],
                 "standalone": info["standalone"],
                 "times_are_of": "the standalone kernel at L rows"})
+        kernels[-1]["launches_in_service_phase"] = (
+            service["fused_launches"] if name == "argmin_rows"
+            else service["launches"]).get(name, 0)
         if name in ("alloc_scan", "cost_rows"):
             kernels[-1]["at_other_shapes"] = {
                 net: {"B": checks[net]["B"], "G": checks[net]["G"],
@@ -2472,7 +2791,9 @@ def main(argv=None) -> int:
         "device_ms": t["device_ms"], "launch_floor_ms": t["launch_floor_ms"],
         "variant": t["variant"], "by_variant": t["by_variant"],
         "shape": {"B": t["B"], "G": t["G"]},
-        "at_chunk": chunk, "at_descent_batch": descent})
+        "at_chunk": chunk, "at_descent_batch": descent,
+        "launches_in_service_phase": service["launches"].get(
+            "score_batch", 0)})
     lm_times = lm["times"]
     for name in LM_KERNELS:
         info, t = KERNEL_INFO[name], lm_times[name]
@@ -2484,6 +2805,8 @@ def main(argv=None) -> int:
             "launches_by_serve": {a: served[a]["launches"][name]
                                   for a in LM_SERVES},
             "launches_in_model_check": checked[arch]["launches"][name],
+            "launches_in_lm_checks": {
+                a: checked[a]["launches"].get(name, 0) for a in LM_CHECKS},
             "max_abs_err": lm["errs"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2508,6 +2831,7 @@ def main(argv=None) -> int:
             entry["matmul_ms"] = t["matmul_ms"]
             entry["matmul"] = ("torch.matmul of n @ Wg, n @ Wu and h @ Wd "
                                "in bfloat16, the block's products alone")
+            entry["at_wide_float32"] = lm["wide"]
         kernels.append(entry)
     serial_wall = yolov2_wall_and_busy()
     log(json.dumps(serial_wall))

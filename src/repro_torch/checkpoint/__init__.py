@@ -1,2 +1,2 @@
-"""Crash-atomic records on disk: the search pool's task journal
-(``checkpoint.py``)."""
+"""Crash-atomic records on disk: the search pool's task journal and the
+plan cache's codec helpers (``checkpoint.py``)."""

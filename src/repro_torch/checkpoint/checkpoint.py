@@ -25,6 +25,12 @@ the machine with the GPU has no msgpack; the records therefore differ in
 bytes between the two packages but decode to the same values.  The
 training half of the JAX package's module (``save`` / ``restore`` /
 ``AsyncCheckpointer``) is not here.
+
+The compile service's plan cache (``service/cache.py``) compresses its
+records through :func:`get_codec` / :func:`get_decompressor`, the JAX
+package's codec helpers: zstd where the optional ``zstandard`` package is
+installed, else the standard library's zlib.  The journal above keeps its
+own codec.
 """
 from __future__ import annotations
 
@@ -34,8 +40,32 @@ import os
 import zlib
 from pathlib import Path
 
+try:
+    import zstandard
+except ImportError:            # optional: fall back to the standard zlib
+    zstandard = None
+
 CODEC = "zlib"
 MAGIC = b"repro_torch-journal-1\n"
+
+
+def get_codec():
+    """(name, compress) -- zstd when available, stdlib zlib otherwise."""
+    if zstandard is not None:
+        return "zstd", zstandard.ZstdCompressor(level=3).compress
+    return "zlib", (lambda b: zlib.compress(b, 3))
+
+
+def get_decompressor(codec: str):
+    """The decompressor of a record written under ``codec``; a zstd record
+    on a host without ``zstandard`` raises ``RuntimeError``."""
+    if codec == "zstd":
+        if zstandard is None:
+            raise RuntimeError(
+                "checkpoint was written with zstd but zstandard is not "
+                "installed")
+        return zstandard.ZstdDecompressor().decompress
+    return zlib.decompress
 
 
 def atomic_write_bytes(path, data: bytes) -> None:

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +53,10 @@ SOURCES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+# held while the library is built and loaded: threads whose first kernel
+# calls arrive together (the compile service's) build it once, not each
+# into the same object files
+_LOCK = threading.Lock()
 # seconds the last build took (0.0 when a cached library was loaded);
 # callers report it as set-up time
 build_seconds = 0.0
@@ -120,21 +125,25 @@ def _compile(out_dir: Path, lib_path: Path, verbose: bool) -> None:
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:
-    """The kernels' shared library, built on first use."""
+    """The kernels' shared library, built on first use (once, whatever
+    the number of threads that ask for it at the same time)."""
     global _LIB, build_seconds
     if _LIB is not None:
         return _LIB
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"librepro_torch_{_digest()}.so"
-    if not lib_path.exists():
-        t0 = time.perf_counter()
-        _compile(out_dir, lib_path, verbose)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _declare(lib)
-    _LIB = lib
-    return lib
+    with _LOCK:
+        if _LIB is not None:            # another thread built it meanwhile
+            return _LIB
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lib_path = out_dir / f"librepro_torch_{_digest()}.so"
+        if not lib_path.exists():
+            t0 = time.perf_counter()
+            _compile(out_dir, lib_path, verbose)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(lib_path))
+        _declare(lib)
+        _LIB = lib
+        return lib
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -184,6 +193,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,              # M, d, F, bf, splits
         i, i, i, f,                 # gated, gelu, sandwich, eps
         i, i, p]                    # is_bf16, device, stream
+    lib.fused_block_wide_launch.argtypes = [
+        p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
+        p, p, p,                    # scratch n, h, part
+        i, i, i, i,                 # M, d, F, splits
+        i, i, i, f,                 # gated, gelu, sandwich, eps
+        i, i, p]                    # is_bf16, device, stream
     lib.fused_block_tc_launch.argtypes = [
         p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
         p, p, p,                    # scratch n, h, y
@@ -209,8 +224,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.score_batch_launch, lib.score_batch_split_launch,
                lib.flash_attention_launch,
                lib.flash_attention_tc_launch, lib.fused_block_launch,
-               lib.fused_block_tc_launch, lib.ssd_scan_launch,
-               lib.ssd_scan_tc_launch, lib.rglru_scan_launch):
+               lib.fused_block_wide_launch, lib.fused_block_tc_launch,
+               lib.ssd_scan_launch, lib.ssd_scan_tc_launch,
+               lib.rglru_scan_launch):
         fn.restype = ctypes.c_int
 
 

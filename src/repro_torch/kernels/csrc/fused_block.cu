@@ -34,6 +34,39 @@
 // second kernel adds the splits in order and applies the epilogue.  With
 // one split the first kernel applies the epilogue itself.
 //
+// Wide rows (d > 2,560, fused_block_wide_launch).  The registers above hold
+// 10 columns a thread; gemma2-27b's d 4,608 and granite-20b's 6,144 do not
+// fit, and the two row-wide steps (the input norm before the products, the
+// sandwich norm after them) keep a block from owning a slice of d.  So the
+// wide path tiles d across blocks and takes the row-wide steps out into
+// passes of their own, the tensor-core source's layout, on SIMT float32
+// fused multiply-adds:
+//
+//   1. norm -- a warp a row: n = rmsnorm(x) * (1 + scale), rounded to the
+//              input type, to a [M, d] scratch;
+//   2. up   -- 64 x 64 tiles of h = act(n Wg) * (n Wu) (ungated
+//              act(n Wu)), K in steps of 16 through shared memory, a thread
+//              4 x 4 outputs of each product; h rounded to the input type
+//              to a [M, F] scratch;
+//   3. down -- 64 x 64 tiles of y = h Wd over d, F split across gridDim.z
+//              when the tiles are fewer than two blocks an SM (decode);
+//              each split's partial y to a float32 scratch [splits, M, d];
+//   4. post -- a warp a row: the splits added in split order, then
+//              out = x + [rmsnorm(y) * (1 + post)].
+//
+// The products are summed in float64 (float32 operands, exact float64
+// products, float64 fused multiply-adds) and rounded once to float32, where
+// the TPU kernel's float32 accumulator holds them, as the plain version
+// sums them: over F = 36,864 two float32 summation orders differ by up to
+// ~5e-5 after the sandwich norm, more than the float32 tolerance of 2e-5,
+// and the kernel is held to that tolerance.
+//
+// What bounds it: the products, 2 * M * d * F operations each, at the
+// vector rate at prefill (this kernel runs them as float64 fused
+// multiply-adds, half the float32 rate); the weights' bytes at decode.
+// Edges are masked (zero-filled loads, skipped stores), so any d, F and M
+// run, and loads are scalar, so no alignment is needed.
+//
 // Plain C interface; every launch goes to the stream it is given, allocates
 // nothing and does not synchronise.
 #include <cuda_bf16.h>
@@ -368,6 +401,218 @@ int launch_j(int j, const void* x, const void* scale, const void* wg,
     return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------- wide rows
+constexpr int WT = 64;              // rows and columns of a product tile
+constexpr int WK = 16;              // K per step
+constexpr int WPAD = WT + 4;        // A's shared rows, padded (16-byte rows)
+constexpr int WROWS = NT / 32;      // norm and post passes: a warp a row
+
+// pass 1: n = rmsnorm(x) * (1 + scale), rounded to the input type
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_block_wide_norm_kernel(
+        const T* __restrict__ x, const float* __restrict__ scale,
+        T* __restrict__ n, int M, int d, float eps) {
+    const int lane = threadIdx.x % 32;
+    const int row = blockIdx.x * WROWS + threadIdx.x / 32;
+    if (row >= M) return;
+    const T* xr = x + (long long)row * d;
+    float sq = 0.f;
+    for (int c = lane; c < d; c += 32) {
+        const float v = to_f(xr[c]);
+        sq += v * v;
+    }
+    const float inv = rsqrtf(warp_sum(sq) / (float)d + eps);
+    T* nr = n + (long long)row * d;
+    for (int c = lane; c < d; c += 32)
+        nr[c] = from_f<T>(to_f(xr[c]) * inv * (1.f + scale[c]));
+}
+
+// one K step's tiles in shared memory as float, zero past the edges: A's
+// [WT rows x WK] at (m0, k0) of a row-major [M, lda] matrix whose columns
+// below K are read, stored k-major; B's [WK x WT columns] at (k0, n0) of a
+// row-major [K, N] one
+template <typename T>
+__device__ __forceinline__ void stage_a(float (*As)[WPAD],
+                                        const T* __restrict__ A, int lda,
+                                        int M, int K, int m0, int k0) {
+#pragma unroll
+    for (int q = 0; q < WT * WK / NT; ++q) {
+        const int i = threadIdx.x + NT * q;
+        const int r = i / WK, k = i % WK;
+        const int row = m0 + r, kk = k0 + k;
+        As[k][r] = row < M && kk < K ? to_f(A[(long long)row * lda + kk])
+                                     : 0.f;
+    }
+}
+template <typename T>
+__device__ __forceinline__ void stage_b(float (*Bs)[WT],
+                                        const T* __restrict__ B, int K, int N,
+                                        int k0, int n0) {
+#pragma unroll
+    for (int q = 0; q < WT * WK / NT; ++q) {
+        const int i = threadIdx.x + NT * q;
+        const int k = i / WT, c = i % WT;
+        const int kk = k0 + k, col = n0 + c;
+        Bs[k][c] = kk < K && col < N ? to_f(B[(long long)kk * N + col]) : 0.f;
+    }
+}
+
+// acc[i][j] += A[ty*4 + i][k] * B[k][tx*4 + j] over the staged step, in
+// float64
+__device__ __forceinline__ void tile_fma(const float (*As)[WPAD],
+                                         const float (*Bs)[WT],
+                                         double (&acc)[4][4], int tx,
+                                         int ty) {
+#pragma unroll
+    for (int k = 0; k < WK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                acc[i][j] = fma((double)av[i], (double)bv[j], acc[i][j]);
+    }
+}
+
+// pass 2: h = act(n Wg) * (n Wu), or act(n Wu) ungated, rounded to the
+// input type; block (blockIdx.x, blockIdx.y) = (column tile of F, row tile)
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_block_wide_up_kernel(
+        const T* __restrict__ n, const T* __restrict__ wg,
+        const T* __restrict__ wu, T* __restrict__ h, int M, int d, int F,
+        int gated, int gelu) {
+    __shared__ __align__(16) float As[WK][WPAD];
+    __shared__ __align__(16) float Bu[WK][WT];
+    __shared__ __align__(16) float Bg[WK][WT];
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int n0 = blockIdx.x * WT, m0 = blockIdx.y * WT;
+    double u[4][4] = {}, g[4][4] = {};
+    for (int k0 = 0; k0 < d; k0 += WK) {
+        stage_a<T>(As, n, d, M, d, m0, k0);
+        stage_b<T>(Bu, wu, d, F, k0, n0);
+        if (gated) stage_b<T>(Bg, wg, d, F, k0, n0);
+        __syncthreads();
+        tile_fma(As, Bu, u, tx, ty);
+        if (gated) tile_fma(As, Bg, g, tx, ty);
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = m0 + ty * 4 + i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int col = n0 + tx * 4 + j;
+            if (col < F) {
+                const float uf = (float)u[i][j];
+                h[(long long)row * F + col] = from_f<T>(
+                    gated ? act((float)g[i][j], gelu) * uf : act(uf, gelu));
+            }
+        }
+    }
+}
+
+// pass 3: this split's share of y = h Wd; block (blockIdx.x, blockIdx.y,
+// blockIdx.z) = (column tile of d, row tile, split of F)
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_block_wide_down_kernel(
+        const T* __restrict__ h, const T* __restrict__ wd,
+        float* __restrict__ part, int M, int d, int F, int per_split) {
+    __shared__ __align__(16) float As[WK][WPAD];
+    __shared__ __align__(16) float Bs[WK][WT];
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    const int n0 = blockIdx.x * WT, m0 = blockIdx.y * WT;
+    const int k_lo = blockIdx.z * per_split;
+    const int k_hi = min(F, k_lo + per_split);
+    double acc[4][4] = {};
+    for (int k0 = k_lo; k0 < k_hi; k0 += WK) {
+        // per_split is a multiple of WK: a step never crosses into the
+        // next split's share
+        stage_a<T>(As, h, F, M, k_hi, m0, k0);
+        stage_b<T>(Bs, wd, k_hi, d, k0, n0);
+        __syncthreads();
+        tile_fma(As, Bs, acc, tx, ty);
+        __syncthreads();
+    }
+    float* out = part + (long long)blockIdx.z * M * d;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int row = m0 + ty * 4 + i;
+        if (row >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int col = n0 + tx * 4 + j;
+            if (col < d) out[(long long)row * d + col] = (float)acc[i][j];
+        }
+    }
+}
+
+// pass 4: y = the splits added in split order (in float64, rounded once);
+// out = x + [rmsnorm(y) * (1 + post)]
+template <typename T>
+__global__ void __launch_bounds__(NT) fused_block_wide_post_kernel(
+        const T* __restrict__ x, const float* __restrict__ part,
+        const float* __restrict__ post, T* __restrict__ out, int M, int d,
+        int splits, int sandwich, float eps) {
+    const int lane = threadIdx.x % 32;
+    const int row = blockIdx.x * WROWS + threadIdx.x / 32;
+    if (row >= M) return;
+    const long long plane = (long long)M * d;
+    const float* yr = part + (long long)row * d;
+    float inv = 0.f;
+    if (sandwich) {
+        float sq = 0.f;
+        for (int c = lane; c < d; c += 32) {
+            double y = 0.0;
+            for (int q = 0; q < splits; ++q) y += yr[q * plane + c];
+            sq += (float)y * (float)y;
+        }
+        inv = rsqrtf(warp_sum(sq) / (float)d + eps);
+    }
+    const T* xr = x + (long long)row * d;
+    T* orow = out + (long long)row * d;
+    for (int c = lane; c < d; c += 32) {
+        double ys = 0.0;
+        for (int q = 0; q < splits; ++q) ys += yr[q * plane + c];
+        float y = (float)ys;
+        if (sandwich) y = y * inv * (1.f + post[c]);
+        orow[c] = from_f<T>(to_f(xr[c]) + y);
+    }
+}
+
+template <typename T>
+int launch_wide(const void* x, const void* scale, const void* wg,
+                const void* wu, const void* wd, const void* post, void* out,
+                void* n, void* h, void* part, int M, int d, int F, int splits,
+                int gated, int gelu, int sandwich, float eps,
+                cudaStream_t s) {
+    const unsigned row_blocks = (unsigned)((M + WROWS - 1) / WROWS);
+    const unsigned m_tiles = (unsigned)((M + WT - 1) / WT);
+    fused_block_wide_norm_kernel<T><<<row_blocks, NT, 0, s>>>(
+        (const T*)x, (const float*)scale, (T*)n, M, d, eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    fused_block_wide_up_kernel<T><<<dim3((F + WT - 1) / WT, m_tiles), NT, 0,
+                                    s>>>(
+        (const T*)n, (const T*)wg, (const T*)wu, (T*)h, M, d, F, gated, gelu);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int steps = (F + WK - 1) / WK;
+    const int per_split = (steps + splits - 1) / splits * WK;
+    fused_block_wide_down_kernel<T><<<dim3((d + WT - 1) / WT, m_tiles,
+                                           splits), NT, 0, s>>>(
+        (const T*)h, (const T*)wd, (float*)part, M, d, F, per_split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    fused_block_wide_post_kernel<T><<<row_blocks, NT, 0, s>>>(
+        (const T*)x, (const float*)part, (const float*)post, (T*)out, M, d,
+        splits, sandwich, eps);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: [M, d] (is_bf16: bfloat16, else float32); scale, post: [d]
@@ -397,4 +642,31 @@ extern "C" int fused_block_launch(const void* x, const void* scale,
                                        sandwich, eps, s);
     return launch_j<float>(j, x, scale, wg, wu, wd, post, out, part, M, d, F,
                            bf, splits, gated, gelu, sandwich, eps, s);
+}
+
+// The wide path, any d (the wrapper takes it for d > 2,560): x, out, scale,
+// post, wg, wu, wd as for fused_block_launch.  Scratch, allocated by the
+// caller: n [M, d] and h [M, F] of x's type, part [splits, M, d] float32.
+// F is split across `splits` blocks in the down product (1 <= splits).
+extern "C" int fused_block_wide_launch(const void* x, const void* scale,
+                                       const void* wg, const void* wu,
+                                       const void* wd, const void* post,
+                                       void* out, void* n, void* h,
+                                       void* part, int M, int d, int F,
+                                       int splits, int gated, int gelu,
+                                       int sandwich, float eps, int is_bf16,
+                                       int device, void* stream) {
+    if (M <= 0) return 0;
+    if (d <= 0 || F <= 0 || splits < 1 || (M + WT - 1) / WT > 65535
+        || splits > 65535)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (is_bf16)
+        return launch_wide<__nv_bfloat16>(x, scale, wg, wu, wd, post, out, n,
+                                          h, part, M, d, F, splits, gated,
+                                          gelu, sandwich, eps, s);
+    return launch_wide<float>(x, scale, wg, wu, wd, post, out, n, h, part, M,
+                              d, F, splits, gated, gelu, sandwich, eps, s);
 }

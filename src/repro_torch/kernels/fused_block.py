@@ -14,12 +14,19 @@ Two implementations of the same function:
 
 * :func:`fused_block_torch` -- the plain version, the JAX package's oracle
   ``kernels/ref.py::fused_block_ref`` in torch: the normalised tile and
-  ``h`` are rounded to the input type, the products are taken in float32
-  (``preferred_element_type=float32`` there).
+  ``h`` are rounded to the input type, and each product is rounded to
+  float32 where the oracle's float32 accumulator holds it
+  (``preferred_element_type=float32`` there).  The products are summed in
+  float64 before that rounding: two float32 summation orders over F =
+  36,864 (gemma2-27b) differ by up to ~5e-5 after the sandwich norm, more
+  than the kernels' float32 tolerance, so a float32 yardstick could not
+  tell a right kernel from a wrong one at that width.
 * :func:`fused_block_cuda` -- the hand-written kernels, which replace the
   TPU kernel ``repro/kernels/fused_block.py::_kernel``: on bfloat16 two
   tiled tensor-core products (``csrc/fused_block_tc.cu``), on float32 SIMT
-  row tiles (``csrc/fused_block.cu``).
+  row tiles (``csrc/fused_block.cu``), and for rows wider than those tiles
+  hold (d > ``MAX_D``) SIMT product tiles over d in four passes (the same
+  source).
   :func:`fused_block_variant` is the fixed rule that picks one.  Both keep
   the rounding points of the TPU kernel; the designs, and what bounds
   them, are in the sources.
@@ -34,9 +41,11 @@ import torch
 import torch.nn.functional as F
 
 EPS = 1e-6
-MAX_D = 2560            # the SIMT kernel keeps at most 10 columns a thread
+MAX_D = 2560            # the SIMT row tiles keep at most 10 columns a thread
 BLOCK_M = 8             # rows per block (csrc/fused_block.cu: BM)
-VARIANTS = ("tensor_core", "simt", "simt_split")
+WIDE_TILE = 64          # the wide path's product tiles (csrc: WT)
+WIDE_K = 16             # and their K step (csrc: WK)
+VARIANTS = ("tensor_core", "simt", "simt_split", "simt_wide")
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -75,14 +84,19 @@ def fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                       eps: float = EPS) -> torch.Tensor:
     """The plain version: ``kernels/ref.py::fused_block_ref`` in torch."""
     _check(x, scale, w_gate, w_up, w_down, post_scale, gated, sandwich)
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
+
+    def product(a, w):
+        """``a @ w`` summed in float64, rounded once to float32."""
+        return (a.to(f64) @ w.to(f64)).to(f32)
+
     n = _norm(x, scale, eps).to(x.dtype)
-    u = n.to(f32) @ w_up.to(f32)
+    u = product(n, w_up)
     if gated:
-        h = _act(act, n.to(f32) @ w_gate.to(f32)) * u
+        h = _act(act, product(n, w_gate)) * u
     else:
         h = _act(act, u)
-    y = h.to(x.dtype).to(f32) @ w_down.to(f32)
+    y = product(h.to(x.dtype), w_down)
     if sandwich:
         y = _norm(y, post_scale, eps)
     return (x.to(f32) + y).to(x.dtype)
@@ -101,14 +115,19 @@ def fused_block_variant(dtype: torch.dtype, m: int, d: int, f: int,
       other input with a row tile for every one of the ``sms`` SMs (a
       float32 prefill);
     * ``"simt_split"`` (the same kernel with F split across blocks and a
-      second pass) -- the rest: a float32 decode (M = batch), short
-      unaligned bfloat16 inputs.
+      second pass) -- the rest up to d = ``MAX_D``: a float32 decode
+      (M = batch), short unaligned bfloat16 inputs;
+    * ``"simt_wide"`` (``csrc/fused_block.cu``'s four passes, product tiles
+      over d) -- any other input wider than ``MAX_D``: gemma2-27b's and
+      granite-20b's float32 MLPs, prefill and decode alike.
 
     float32 never takes the tensor cores: they would compute in TF32.
     """
     if (dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0
             and aligned):
         return "tensor_core"
+    if d > MAX_D:
+        return "simt_wide"
     return "simt" if -(-m // BLOCK_M) >= sms else "simt_split"
 
 
@@ -119,6 +138,17 @@ def simt_slabs(variant: str, m: int, f: int, sms: int) -> tuple:
     if variant == "simt":
         return 256, 1
     return 64, min(-(-f // 64), -(-2 * sms // -(-m // BLOCK_M)))
+
+
+def simt_wide_splits(m: int, d: int, f: int, sms: int) -> int:
+    """How many blocks the ``"simt_wide"`` down product splits F across:
+    one where its 64 x 64 tiles of y fill two blocks an SM (a prefill),
+    else enough splits to (a decode: gemma2-27b's M 2 has 72 tiles), at
+    most one a K step of F."""
+    tiles = -(-m // WIDE_TILE) * -(-d // WIDE_TILE)
+    if tiles >= 2 * sms:
+        return 1
+    return min(-(-f // WIDE_K), -(-2 * sms // tiles))
 
 
 def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
@@ -153,9 +183,6 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
     variant = fused_block_variant(
         x.dtype, m, d, f, sms,
         aligned=all(t.data_ptr() % 16 == 0 for t in mats))
-    if variant != "tensor_core" and d > MAX_D:
-        raise ValueError(f"fused_block_cuda takes d <= {MAX_D} on the SIMT "
-                         f"kernel, got {d}")
     scale32 = scale.to(device=dev, dtype=torch.float32).contiguous()
     post32 = (post_scale.to(device=dev, dtype=torch.float32).contiguous()
               if sandwich else None)
@@ -175,6 +202,19 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
             h.data_ptr(), y.data_ptr() if sandwich else None, m, d, f,
             int(gated), int(act == "gelu"), int(sandwich), float(eps),
             dev.index or 0, stream)
+    elif variant == "simt_wide":
+        # scratch: the normalised rows and h in x's type, the down
+        # product's partial y in float32, a plane a split of F
+        splits = simt_wide_splits(m, d, f, sms)
+        n = torch.empty_like(x)
+        h = torch.empty((m, f), dtype=x.dtype, device=dev)
+        part = torch.empty((splits, m, d), dtype=torch.float32, device=dev)
+        err = lib.fused_block_wide_launch(
+            x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
+            w_down.data_ptr(), post_ptr, out.data_ptr(), n.data_ptr(),
+            h.data_ptr(), part.data_ptr(), m, d, f, splits, int(gated),
+            int(act == "gelu"), int(sandwich), float(eps),
+            int(x.dtype == torch.bfloat16), dev.index or 0, stream)
     else:
         bf, splits = simt_slabs(variant, m, f, sms)
         part = (torch.empty((splits, m, d), dtype=torch.float32, device=dev)

@@ -87,7 +87,11 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.runtime.chaos",
                  "repro_torch.runtime.fault_tolerance",
                  "repro_torch.checkpoint",
-                 "repro_torch.checkpoint.checkpoint"):
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.service", "repro_torch.service.packing",
+                 "repro_torch.service.canonical",
+                 "repro_torch.service.codec", "repro_torch.service.cache",
+                 "repro_torch.service.daemon"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",

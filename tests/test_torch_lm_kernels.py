@@ -402,6 +402,17 @@ SMS = 132                      # an H100 SXM's SMs
     (torch.float32, 8 * SMS - 7, 2560, 7680, True, "simt"),
     (torch.float32, 8 * SMS - 8, 2560, 7680, True, "simt_split"),
     (torch.float32, 2, 2560, 7680, True, "simt_split"),
+    # rows wider than the SIMT row tiles hold: gemma2-27b (d 4,608) and
+    # granite-20b (d 6,144) in float32, prefill and decode
+    (torch.float32, 1024, 4608, 36864, True, "simt_wide"),
+    (torch.float32, 2, 4608, 36864, True, "simt_wide"),
+    (torch.float32, 1024, 6144, 24576, True, "simt_wide"),
+    (torch.float32, 1, 2561, 100, True, "simt_wide"),
+    (torch.bfloat16, 1024, 4609, 36864, True, "simt_wide"),
+    (torch.bfloat16, 1024, 4608, 36864, False, "simt_wide"),
+    # ... while aligned bfloat16 stays on the tensor cores at any width
+    (torch.bfloat16, 1024, 4608, 36864, True, "tensor_core"),
+    (torch.bfloat16, 2, 6144, 24576, True, "tensor_core"),
 ])
 def test_fused_block_variant_rule(dtype, m, d, f, aligned, want):
     from repro_torch.kernels.fused_block import VARIANTS, fused_block_variant
@@ -418,6 +429,44 @@ def test_fused_block_variant_rule(dtype, m, d, f, aligned, want):
 def test_fused_block_simt_slabs(variant, m, f, want):
     from repro_torch.kernels.fused_block import simt_slabs
     assert simt_slabs(variant, m, f, SMS) == want
+
+
+@pytest.mark.parametrize("m,d,f,want", [
+    (1024, 4608, 36864, 1),      # gemma2-27b prefill: 16 x 72 tiles of y
+    (1024, 6144, 24576, 1),      # granite-20b prefill: 16 x 96
+    (2, 4608, 36864, 4),         # gemma2-27b decode: 72 tiles, 4 splits
+    (1, 6144, 24576, 3),         # 96 tiles
+    (1, 2561, 20, 2),            # capped by F's 2 steps of 16
+    (4096, 2561, 100, 1),
+])
+def test_fused_block_simt_wide_splits(m, d, f, want):
+    """The wide path's split of F in its down product: one split when the
+    tiles of y fill two blocks an SM, else enough to, at most one a K step
+    of F; a pure function of the shape.  With the rule above, no width is
+    refused before the launch any more (the kernel itself runs on the card,
+    in ``chip_smoke.py``)."""
+    from repro_torch.kernels.fused_block import simt_wide_splits
+    assert simt_wide_splits(m, d, f, SMS) == want
+
+
+def test_fused_block_plain_matches_jax_kernel_at_gemma2_27b_width():
+    """The plain version against the JAX K7 (interpret mode) and its oracle
+    at gemma2-27b's d 4,608 (gated gelu, sandwich norm), at a small M and
+    F, in float32: the width the wide path exists for."""
+    m, d, f = 8, 4608, 128
+    xj, xt = both(rnd(0, (m, d)), "float32")
+    sj, st = both(rnd(1, (d,), 0.1), "float32")
+    pj, pt = both(rnd(5, (d,), 0.1), "float32")
+    gj, gt = both(rnd(2, (d, f), d ** -0.5), "float32")
+    uj, ut = both(rnd(3, (d, f), d ** -0.5), "float32")
+    dj, dt = both(rnd(4, (f, d), f ** -0.5), "float32")
+    kw = dict(act="gelu", gated=True, sandwich=True)
+    got = fused_block_torch(xt, st, gt, ut, dt, pt, **kw)
+    assert got.shape == (m, d)
+    close(got, fused_block_ref(xj, sj, gj, uj, dj, pj, **kw),
+          **TOL["float32"])
+    close(got, jax_fused(xj, sj, gj, uj, dj, pj, block_m=8, block_f=128,
+                         interpret=True, **kw), **TOL["float32"])
 
 
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
@@ -490,7 +539,7 @@ def test_chip_smoke_names_each_variant_it_expects():
     smoke = _chip_smoke()
     known = {"flash_attention": set(FA), "fused_block": set(FB),
              "ssd_scan": set(SS)}
-    for arch, serve in smoke.LM_SERVES.items():
+    for arch, serve in {**smoke.LM_SERVES, **smoke.LM_CHECKS}.items():
         for key in ("launches_by_variant", "check_launches_by_variant"):
             total = "launches" if key == "launches_by_variant" else \
                 "check_launches"
@@ -501,6 +550,12 @@ def test_chip_smoke_names_each_variant_it_expects():
     assert rg["launches_by_variant"]["flash_attention"] == {"tensor_core": 8}
     assert rg["check_launches_by_variant"]["fused_block"].get(
         "tensor_core", 0) == 0
+    # gemma2-27b's float32 MLPs (d 4,608) take only the wide SIMT path
+    g27 = smoke.LM_CHECKS["gemma2-27b"]
+    assert g27["check_launches_by_variant"]["fused_block"] == {
+        "simt_wide": g27["check_launches"]["fused_block"]}
+    assert {arch for arch, _m in smoke.K7_WIDE} == {"gemma2-27b",
+                                                     "granite-20b"}
     m2 = smoke.LM_SERVES["mamba2-2.7b"]
     assert m2["launches_by_variant"]["ssd_scan"] == {"tensor_core": 64}
     assert m2["check_launches_by_variant"]["ssd_scan"] == {"simt": 4}
@@ -524,7 +579,7 @@ def test_per_variant_counts_start_at_zero_after_reset():
     assert all(n == 0 for v in by_variant.values() for n in v.values())
     assert all(n == 0 for n in launch_counts().values())
     assert set(by_variant["fused_block"]) == {"tensor_core", "simt",
-                                              "simt_split"}
+                                              "simt_split", "simt_wide"}
     assert set(by_variant["ssd_scan"]) == {"tensor_core", "simt"}
     assert set(by_variant["score_batch"]) == {"thread", "split"}
 
@@ -550,7 +605,7 @@ def test_per_variant_counts_are_read_by_variant():
                                                       "simt": 1}
     assert launch_counts()["ssd_scan"] == 3
     assert launch_counts_by_variant()["fused_block"] == {
-        "tensor_core": 0, "simt": 0, "simt_split": 0}
+        "tensor_core": 0, "simt": 0, "simt_split": 0, "simt_wide": 0}
     reset_launch_counts()
     assert launch_counts_by_variant()["ssd_scan"] == {"tensor_core": 0,
                                                       "simt": 0}

@@ -27,7 +27,8 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.serve import ServeConfig, serve
 from repro_torch.models.model import Model
 
-ARCHS = ["recurrentgemma-2b", "gemma2-2b", "smollm-360m", "mamba2-2.7b"]
+ARCHS = ["recurrentgemma-2b", "gemma2-2b", "smollm-360m", "mamba2-2.7b",
+         "gemma2-27b", "granite-20b"]
 REL_TOL = 1e-4          # of the logits' scale (their largest magnitude)
 _CACHE: dict = {}
 
