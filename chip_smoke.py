@@ -159,12 +159,39 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                gemma2-27b (``LM_CHECKS``: not served) at full width, depth
                2 (one local and one global layer), batch 1, 1,024 tokens:
                its MLPs on K7's ``simt_wide`` passes.
+7. train    -- after phase 5 and before the report: ``launch/train.py::
+               train`` on smollm-360m at its published width and depth (32
+               layers, d 960), float32 masters and bfloat16 activations,
+               ``remat="full"``, batch 8 x 512 tokens of the synthetic data
+               (seed 0), 12 steps of AdamW (lr 6e-4, warmup 4), with its own
+               launch counts: exactly K6 and K7 64 a step (the forward and
+               the recomputation of each layer), all on the tensor cores,
+               nothing else; every loss finite and the last below the
+               first; the median step (steps 2-12), tokens per second, peak
+               memory; one more step of ``make_train_step`` traced, with
+               CUDA events at its marks around the forward, backward and
+               optimizer and the device time by kernel.  (Phase 5 holds K6
+               and K7 at this run's bfloat16 shapes against their plain
+               versions.)  Then float32 gradient checks at full width and
+               cut depth (smollm-360m 2 layers, once more under
+               ``remat="full"``, recurrentgemma-2b 3, mamba2-2.7b 2; batch
+               2 x 512; ``GRAD_CHECKS``): the loss through the kernels
+               within 1e-5 (relative) of the loss under
+               ``ops.plain_versions()`` without remat, each parameter's
+               gradient within
+               1e-3 of its largest magnitude, none missing, K6-K9 each
+               launched as pinned (K9 also in the backward).  Then the
+               restart: smollm-360m at depth 2, 6 steps straight against 3,
+               a checkpoint and a fresh ``train()`` resuming at 3, losses
+               at steps 3-5 within 1e-4; the checkpoint's bytes, read and
+               write seconds, and its parameters equal to the 3-step run's.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
                share; the pool's walls beside that median, its workers'
-               memory on the card and ``os.cpu_count()``; one JSON line listing the kernels (times, bounds,
-               launches per sweep or serve), the card line, and a last line
+               memory on the card and ``os.cpu_count()``; one JSON line
+               listing the kernels (times, bounds, launches per sweep,
+               serve and training run), the card line, and a last line
                ``{"ok": true, "device": {...}}``.
 
 The chunk of the pipeline engine is ``CHUNK`` candidates (``@1048576``): the
@@ -177,6 +204,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -770,7 +798,7 @@ def scorer_device_replay(reps: int) -> dict:
     import random
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.cnn import build_cnn
     from repro_torch.core.cutpoint import CutpointEngine
     from repro_torch.core.grouping import group_nodes
@@ -791,10 +819,18 @@ def scorer_device_replay(reps: int) -> dict:
             return score_stats(t, frame, res.io, engine.hw)
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a warm-up cycle first, which the trace drops: a trace that starts
+        # with the calls can miss the first few (5 of 20 once on an H100)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            call()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
+            prof.step()
         seen = {k: v["count"] for k, v in device_time_all(prof).items()}
         kernels = {k: n for k, n in seen.items()
                    if not k.startswith("Memcpy")}
@@ -1084,7 +1120,8 @@ def ran_variant(wrapper, call):
 
 def check_lm_kernels(timed: bool, reps: int) -> dict:
     """K6, K7 and K9 against their plain versions on the GPU: at the
-    full-width shapes of LM_ARCH's serve, at ragged shapes, K6 with gemma2's
+    full-width shapes of LM_ARCH's serve and of phase 7's training run
+    (bfloat16, on the tensor cores), at ragged shapes, K6 with gemma2's
     soft cap and GQA, K7 ungated and with the sandwich norm.  Each K6 and
     K7 case names the variant it must run.  Returns ``{"errs", "cases"[,
     "times"]}``; each time is a launch through the wrapper by CUDA events,
@@ -1098,6 +1135,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     from repro_torch.kernels import rglru_scan as rs
 
     cfg = get_config(LM_ARCH)
+    tcfg, tb, ts = train_config(), TRAIN_RUN["batch"], TRAIN_RUN["seq"]
     shape = LM_SERVES[LM_ARCH]["shape"]
     B, S = shape["batch"], shape["prompt_len"]
     nh, nkv, hd, win = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
@@ -1161,6 +1199,11 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
          dict(causal=True, window=100, softcap=30.0), tc),
         ("ragged, not causal, S 70 T 45, hd 16, bf16",
          attn(2, 70, 45, 2, 1, 16, bf16), dict(causal=False, window=0), tc),
+        # phase 7's training shape (each layer's forward and recomputation)
+        (f"{TRAIN_ARCH} training, B {tb} S {ts}, GQA {tcfg.n_heads}/"
+         f"{tcfg.n_kv_heads}, hd {tcfg.hd}, bf16",
+         attn(tb, ts, ts, tcfg.n_heads, tcfg.n_kv_heads, tcfg.hd, bf16),
+         dict(causal=True, window=0, softcap=tcfg.attn_softcap), tc),
     ]
     for what, args, kw, variant in attn_cases:
         close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
@@ -1200,6 +1243,12 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         ("gemma2-27b width, M 130, d 4608, F 36864, sandwich, bf16",
          block(130, 4608, 36864, bf16),
          dict(act="gelu", gated=True, sandwich=True), tc),
+        # phase 7's training shape: every MLP of the trained run
+        (f"{TRAIN_ARCH} training, M {tb * ts}, d {tcfg.d_model}, F "
+         f"{tcfg.d_ff}, gated {tcfg.act}, bf16",
+         block(tb * ts, tcfg.d_model, tcfg.d_ff, bf16),
+         dict(act=tcfg.act, gated=tcfg.mlp_gated,
+              sandwich=tcfg.sandwich_norm), tc),
     ]
     for what, args, kw, variant in block_cases:
         close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
@@ -1839,6 +1888,324 @@ def model_check(arch: str) -> dict:
                      "same_argmax": bool((k.argmax(-1) == p.argmax(-1))
                                          .all())}
     return out
+
+
+# ------------------------------------------------------------------ train
+# phase 7's full run: smollm-360m at its published width and depth, the JAX
+# CLI's batch and sequence, float32 masters, bfloat16 activations
+TRAIN_ARCH = "smollm-360m"
+TRAIN_RUN = {"batch": 8, "seq": 512, "steps": 12,
+             "opt": {"lr": 6e-4, "warmup_steps": 4, "total_steps": 12}}
+# launches a step: remat="full" runs each layer's forward again in the
+# backward, so K6 and K7 launch twice a layer (the forward and the
+# recomputation; their backwards are plain torch); bfloat16 with 16-byte
+# rows: all on the tensor cores
+TRAIN_LAUNCHES_PER_STEP = {"flash_attention": 2 * 32, "fused_block": 2 * 32}
+# the float32 gradient checks, full width, cut depth, each against plain
+# autograd with remat="none": each forward kernel once a layer, twice under
+# remat="full" (the per-layer checkpoint runs the layer again in the
+# backward), and K9 again in each recurrent layer's backward (the reversed
+# recurrence); float32 runs on the SIMT kernels (K7's 1,024 rows are 128 row
+# tiles, fewer than the SMs: simt_split)
+GRAD_CHECKS = {
+    "smollm-360m": {
+        "arch": "smollm-360m", "n_layers": 2, "remat": "none",
+        "launches": {"flash_attention": 2, "fused_block": 2},
+        "by_variant": {"flash_attention": {"simt": 2},
+                       "fused_block": {"simt_split": 2}}},
+    "smollm-360m remat=full": {
+        "arch": "smollm-360m", "n_layers": 2, "remat": "full",
+        "launches": {"flash_attention": 4, "fused_block": 4},
+        "by_variant": {"flash_attention": {"simt": 4},
+                       "fused_block": {"simt_split": 4}}},
+    "recurrentgemma-2b": {
+        "arch": "recurrentgemma-2b", "remat": "none",
+        "n_layers": 3,                  # recurrent, recurrent, local
+        "launches": {"flash_attention": 1, "fused_block": 3,
+                     "rglru_scan": 2 + 2},
+        "by_variant": {"flash_attention": {"simt": 1},
+                       "fused_block": {"simt_split": 3}}},
+    "mamba2-2.7b": {
+        "arch": "mamba2-2.7b", "n_layers": 2, "remat": "none",
+        "launches": {"ssd_scan": 2},
+        "by_variant": {"ssd_scan": {"simt": 2}}},
+}
+GRAD_BATCH = (2, 512)
+GRAD_LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-3                  # of each parameter's largest gradient
+RESTART_TOL = 1e-4               # the JAX package's restart test's
+RESTART_LAYERS = 2
+
+
+def train_config(n_layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH).replace(max_seq=TRAIN_RUN["seq"])
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg
+
+
+def train_data(cfg):
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(seq_len=TRAIN_RUN["seq"],
+                      global_batch=TRAIN_RUN["batch"], vocab=cfg.vocab,
+                      seed=0)
+
+
+def fresh_dir(name: str) -> Path:
+    import shutil
+    path = ROOT / "build" / name
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def trace_groups(by_name: dict) -> dict:
+    """Device ms of a trace by group: K6, K7, the cuBLAS products, the
+    rest."""
+    groups = {"flash_attention": 0.0, "fused_block": 0.0, "gemm": 0.0,
+              "other": 0.0}
+    for key, v in by_name.items():
+        if any(n in key for n in TRACE_NAMES["flash_attention"]):
+            g = "flash_attention"
+        elif any(n in key for n in TRACE_NAMES["fused_block"]):
+            g = "fused_block"
+        elif any(n in key.lower() for n in ("gemm", "cutlass", "xmma")):
+            g = "gemm"
+        else:
+            g = "other"
+        groups[g] += v["device_ms"]
+    return groups
+
+
+def train_full_run() -> dict:
+    """``train()`` on smollm-360m at full width and depth (phase 7): the
+    counted main-path run, then one more step traced, with CUDA events
+    around its forward, backward and optimizer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import SyntheticSource
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     reset_launch_counts)
+    from repro_torch.launch.steps import STEP_MARKS, make_train_step
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = train_config()
+    dc = train_data(cfg)
+    opt = AdamWConfig(**TRAIN_RUN["opt"])
+    steps = TRAIN_RUN["steps"]
+    tc = TrainConfig(steps=steps, log_every=1, ckpt_every=steps + 1,
+                     ckpt_dir=str(fresh_dir("train_full")), seed=0,
+                     remat="full", opt=opt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = train(cfg, tc, data_cfg=dc)                  # the main path
+    counts = launch_counts()
+    by_variant = launch_counts_by_variant()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"launches in {steps} train steps of {TRAIN_ARCH}: {counts}, by "
+        f"variant {by_variant}")
+    for name, n in counts.items():
+        want = steps * TRAIN_LAUNCHES_PER_STEP.get(name, 0)
+        require(n == want, f"training launched {name} {n} times, not {want}")
+    require_variants(by_variant, {
+        name: {"tensor_core": steps * n}
+        for name, n in TRAIN_LAUNCHES_PER_STEP.items()}, "training")
+    losses = [loss for _s, loss in out["losses"]]
+    require(len(losses) == steps
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0],
+            f"training losses {losses}: not {steps} finite, falling ones")
+    step_ms_each = [1e3 * t for t in out["step_s"]]
+    median_s = sorted(out["step_s"][1:])[(steps - 1) // 2]
+
+    model, opt_state = out["model"], out["opt_state"]
+    batch = SyntheticSource(dc).batch_at(steps)
+    ev = {m: torch.cuda.Event(enable_timing=True) for m in STEP_MARKS}
+    step_fn = make_train_step(model, opt, remat="full",
+                              mark=lambda m: ev[m].record())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(opt_state, batch)
+        torch.cuda.synchronize()
+    parts = {f"{b}_ms": ev[a].elapsed_time(ev[b])
+             for a, b in zip(STEP_MARKS, STEP_MARKS[1:])}
+    step_ms = sum(parts.values())
+    by_name = device_time_all(prof)
+    busy = sum(v["device_ms"] for v in by_name.values())
+    del model, opt_state, step_fn, out
+    torch.cuda.empty_cache()
+    return {
+        "train": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": TRAIN_RUN["batch"], "seq": TRAIN_RUN["seq"],
+        "steps": steps, "remat": "full", "dtype": cfg.dtype,
+        "param_dtype": "float32", "opt": TRAIN_RUN["opt"], "losses": losses,
+        "step_ms": step_ms_each,
+        "step_ms_median_2_to_12": 1e3 * median_s,
+        "tokens_per_s": TRAIN_RUN["batch"] * TRAIN_RUN["seq"] / median_s,
+        "peak_memory_bytes": peak, "launches": counts,
+        "launches_by_variant": by_variant,
+        "traced_step": {
+            **parts, "step_ms": step_ms,
+            "backward_share": parts["backward_ms"] / step_ms,
+            "device_busy_ms": busy if by_name else "not measured",
+            "by_group_device_ms": trace_groups(by_name)
+            if by_name else "not measured",
+            "top_device_time": dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1]["device_ms"])[:10])}}
+
+
+def grad_check(check: str) -> dict:
+    """``GRAD_CHECKS[check]``'s model in float32 at full width and its
+    depth, weights from ``torch.Generator(0)``, batch 2 x 512: the loss and
+    every parameter's gradient through the kernels (their
+    ``autograd.Function``s) under the check's remat, against the same
+    under ``ops.plain_versions()`` with remat="none" (ordinary autograd
+    through the plain versions, no checkpoint)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
+                                     ops, reset_launch_counts)
+    from repro_torch.launch.steps import train_params
+    from repro_torch.models.model import Model
+
+    spec = GRAD_CHECKS[check]
+    arch = spec["arch"]
+    b, s = GRAD_BATCH
+    cfg = get_config(arch).replace(n_layers=spec["n_layers"],
+                                   dtype="float32", max_seq=s)
+    model = Model(cfg, device="cuda", param_dtype=torch.float32)
+    model.init_weights(0)
+    params = train_params(model)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)).cuda() for k in ("tokens", "labels")}
+
+    def run(remat):
+        loss, _ = model.loss(batch, remat=remat)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        return loss.detach(), grads
+
+    reset_launch_counts()
+    loss_k, grads_k = run(spec["remat"])
+    counts = {k: n for k, n in launch_counts().items() if n}
+    by_variant = launch_counts_by_variant()
+    with ops.plain_versions():
+        loss_p, grads_p = run("none")
+    require(not any(launch_counts()[k] - counts.get(k, 0)
+                    for k in launch_counts()),
+            "plain_versions() launched a kernel")
+    require(counts == spec["launches"],
+            f"the gradient check {check} launched {counts}, not "
+            f"{spec['launches']}")
+    require_variants(by_variant, spec["by_variant"],
+                     f"the gradient check {check}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    require(math.isfinite(float(loss_k)) and loss_rel <= GRAD_LOSS_RTOL,
+            f"{arch}: loss {float(loss_k)} through the kernels vs "
+            f"{float(loss_p)} plain ({loss_rel:.3g} relative)")
+    worst = (0.0, "")
+    for name, gk, gp in zip(params, grads_k, grads_p):
+        require(gk is not None and gp is not None,
+                f"{arch}: no gradient for {name}")
+        scale = float(gp.abs().max())
+        rel = max_abs_err(gk, gp) / scale if scale else max_abs_err(gk, gp)
+        require(bool(torch.isfinite(gk).all()) and rel <= GRAD_TOL,
+                f"{arch}: gradient of {name} {rel:.3g} of its scale "
+                f"{scale:.3g} from the plain versions'")
+        worst = max(worst, (rel, name))
+    del model, params, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return {"grad_check": check, "arch": arch, "n_layers": spec["n_layers"],
+            "batch": b, "seq": s, "dtype": "float32", "remat": spec["remat"],
+            "remat_plain": "none",
+            "loss": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": loss_rel,
+            "worst_grad_err_of_scale": worst[0], "worst_grad": worst[1],
+            "tolerance": {"loss_rtol": GRAD_LOSS_RTOL,
+                          "grad_of_scale": GRAD_TOL},
+            "launches": counts, "launches_by_variant": by_variant}
+
+
+def restart_check() -> dict:
+    """smollm-360m at full width, depth ``RESTART_LAYERS``, batch 8 x 512:
+    6 steps straight, against 3 steps, a checkpoint, and a fresh
+    ``train()`` on the same directory that resumes at step 3; then the
+    checkpoint read back (equal to the model of the 3-step run) and written
+    again, each timed."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import latest_step, restore, save
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = train_config(n_layers=RESTART_LAYERS)
+    dc = train_data(cfg)
+    opt = AdamWConfig(**TRAIN_RUN["opt"])
+
+    def run(steps, directory, ckpt_every):
+        return train(cfg, TrainConfig(steps=steps, log_every=1,
+                                      ckpt_every=ckpt_every,
+                                      ckpt_dir=str(directory), seed=0,
+                                      opt=opt), data_cfg=dc)
+
+    straight = dict(run(6, fresh_dir("train_straight"), 7)["losses"])
+    directory = fresh_dir("train_restart")
+    first = run(3, directory, 3)
+    require(latest_step(directory) == 3, "no checkpoint at step 3")
+    want = {k: v.cpu() for k, v in first["model"].state_dict().items()}
+    del first
+    resumed = run(6, directory, 7)
+    got = dict(resumed["losses"])
+    require(sorted(got) == [3, 4, 5],
+            f"the resumed run logged steps {sorted(got)}, not 3-5")
+    errs = {s: abs(got[s] - straight[s]) for s in got}
+    require(all(e < RESTART_TOL for e in errs.values()),
+            f"restart: losses {got} vs straight {straight}")
+    del resumed
+    torch.cuda.empty_cache()
+    step_dir = directory / "step_000000003"
+    n_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    t0 = time.perf_counter()
+    tree = restore(directory, 3)
+    read_s = time.perf_counter() - t0
+    from repro_torch.convert import lm_params_from_numpy
+    back = lm_params_from_numpy(cfg, tree[0])
+    require(all(torch.equal(back[k], want[k]) for k in want),
+            "the checkpoint's parameters are not the 3-step run's")
+    t0 = time.perf_counter()
+    save(tree, fresh_dir("train_rewrite"), 3)
+    write_s = time.perf_counter() - t0
+    return {"restart": TRAIN_ARCH, "n_layers": RESTART_LAYERS,
+            "batch": TRAIN_RUN["batch"], "seq": TRAIN_RUN["seq"],
+            "straight_losses": [straight[s] for s in sorted(straight)],
+            "resumed_losses_3_to_5": [got[s] for s in (3, 4, 5)],
+            "max_abs_diff": max(errs.values()), "tolerance": RESTART_TOL,
+            "checkpoint_bytes": n_bytes,
+            "checkpoint_files": sorted(f.name for f in step_dir.iterdir()),
+            "checkpoint_read_s": read_s, "checkpoint_write_s": write_s,
+            "os_cpu_count": os.cpu_count()}
+
+
+def train_phase() -> dict:
+    """Phase 7 (see the module docstring)."""
+    t0 = time.perf_counter()
+    full = train_full_run()
+    log(json.dumps(full))
+    log(f"  train run ({time.perf_counter() - t0:.1f} s)")
+    checks = {}
+    for check in GRAD_CHECKS:
+        t1 = time.perf_counter()
+        checks[check] = grad_check(check)
+        log(json.dumps(checks[check]))
+        log(f"  gradient check {check} ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    restart = restart_check()
+    log(json.dumps(restart))
+    log(f"  restart check ({time.perf_counter() - t1:.1f} s)")
+    return {"full": full, "grad_checks": checks, "restart": restart,
+            "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------- main path
@@ -2714,6 +3081,11 @@ def main(argv=None) -> int:
         log(json.dumps(checked[arch]))
         log(f"model check of {arch} ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- phase 7: the training path at full width, its gradients through
+    # the kernels, and a restart from a checkpoint
+    trained = train_phase()
+    log(f"train phase ({trained['seconds']:.1f} s)")
+
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
@@ -2824,6 +3196,12 @@ def main(argv=None) -> int:
             entry["earlier_design_ms"] = t["earlier_design_ms"]
             entry["earlier_design"] = ("the SIMT kernel on the same "
                                        "bfloat16 inputs")
+        if name in TRAIN_LAUNCHES_PER_STEP:
+            entry["launches_in_train_phase"] = trained["full"]["launches"][
+                name]
+        entry["launches_in_grad_checks"] = {
+            a: c["launches"].get(name, 0)
+            for a, c in trained["grad_checks"].items()}
         if name == "ssd_scan":
             entry["at_float32"] = t["float32"]
         if name == "fused_block":

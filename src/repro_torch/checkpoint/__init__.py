@@ -1,2 +1,3 @@
-"""Crash-atomic records on disk: the search pool's task journal and the
-plan cache's codec helpers (``checkpoint.py``)."""
+"""Crash-atomic records on disk: training checkpoints in the JAX package's
+format, the search pool's task journal and the codec helpers
+(``checkpoint.py``)."""

@@ -2,10 +2,11 @@
 
 On the compiler's path what has to be identical on both sides is the graph
 and the packed tables; on the numerics path (``cnn/torch_ref.py``, the
-simulator) it is the CNN weights too; on the LM path the model's weights.  The functions here take the other
-package's objects as plain Python / numpy data (``dataclasses.asdict`` of
-its nodes, dicts of its numpy tables and weights) -- this package never
-imports the other one.
+simulator) it is the CNN weights too; on the LM path the model's weights
+and, for training, the optimizer's state.  The functions here take the
+other package's objects as plain Python / numpy data (``dataclasses.asdict``
+of its nodes, dicts of its numpy tables and weights) and give the port's
+state back in the same form -- this package never imports the other one.
 """
 from __future__ import annotations
 
@@ -104,3 +105,74 @@ def lm_params_from_numpy(cfg, tree: dict, device="cpu") -> dict:
                 out[f"layers.{n_groups * len(pattern) + i}.{block}.{name}"] = \
                     _tensor(a, device)
     return out
+
+
+def _leaf_path(cfg, name: str) -> tuple[tuple[str, ...], int]:
+    """The JAX tree's path to a port parameter's leaf, and the layer's
+    index along that leaf's group axis (-1: not stacked)."""
+    from repro_torch.models.transformer import stack_structure
+
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), -1
+    pattern, n_groups, _ = stack_structure(cfg)
+    i, block, leaf = int(parts[1]), parts[2], parts[3]
+    if i < n_groups * len(pattern):
+        return ("stack", "groups", f"p{i % len(pattern)}", block,
+                leaf), i // len(pattern)
+    return ("stack", "tail", f"t{i - n_groups * len(pattern)}", block,
+            leaf), -1
+
+
+def lm_leaf_key(cfg, name: str) -> tuple:
+    """A sort key that puts the port's parameter names in the order of the
+    JAX tree's leaves (its dict keys sorted; a stacked leaf's layers by
+    group)."""
+    path, g = _leaf_path(cfg, name)
+    return path + (g,)
+
+
+def lm_params_to_numpy(cfg, state_dict: dict) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the JAX package's
+    ``Model.init`` tree, its leaves numpy copies of ``state_dict``'s
+    tensors (each pattern slot's layers stacked along a leading group
+    axis, on the tensors' device), each copied to the host once and sharing
+    no memory with them.  numpy has no bfloat16, so a bfloat16 tensor
+    raises ``TypeError``."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, t in state_dict.items():
+        if t.dtype == torch.bfloat16:
+            raise TypeError(f"{name}: bfloat16 has no numpy type here")
+        path, g = _leaf_path(cfg, name)
+        if g >= 0:
+            stacked.setdefault(path, {})[g] = t.detach()
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = t.detach().to("cpu", copy=True).numpy()
+    for path, by_group in stacked.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack(     # a new tensor: .cpu() copies once
+            [by_group[g] for g in sorted(by_group)]).cpu().numpy()
+    return tree
+
+
+def opt_state_to_numpy(cfg, state: dict) -> dict:
+    """The JAX package's ``init_opt_state`` tree of an
+    ``optim/adamw.py`` state: ``m`` and ``v`` as parameter trees, ``step``
+    a 0-d int32 array."""
+    return {"m": lm_params_to_numpy(cfg, state["m"]),
+            "v": lm_params_to_numpy(cfg, state["v"]),
+            "step": np.asarray(state["step"], dtype=np.int32)}
+
+
+def opt_state_from_numpy(cfg, tree: dict, device="cpu") -> dict:
+    """An ``optim/adamw.py`` state from the JAX package's optimizer
+    tree."""
+    return {"m": lm_params_from_numpy(cfg, tree["m"], device),
+            "v": lm_params_from_numpy(cfg, tree["v"], device),
+            "step": int(np.asarray(tree["step"]))}

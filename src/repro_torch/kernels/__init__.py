@@ -20,6 +20,8 @@ beside its plain torch version:
     rglru_scan.py      -- the RG-LRU linear recurrence of a prefill
     ops.py             -- the LM kernels' dispatch: kernel on CUDA, plain
                           version on the CPU
+    autograd.py        -- K6-K9 as autograd Functions: training takes its
+                          gradient through the kernels
     csrc/*.cu          -- the kernels' sources, CUDA C++ for sm_90a
     _build.py          -- nvcc + ctypes: build at first use, load once
 

@@ -3,17 +3,23 @@
 Each function dispatches by the device of its tensors: the hand-written
 CUDA kernel for CUDA tensors, the plain torch version for CPU tensors.
 There is no fallback and no switch in the environment: a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  Either runs inside the kernel's
+``torch.autograd.Function`` (``kernels/autograd.py``), whose backward is
+the same on both devices, so a training step takes its gradient through
+the kernels on the card and through the same backward code on the CPU.
 
 :func:`plain_versions` is the one exception, for checking: inside it the
-plain versions run on the card as well, so that a whole model can be held
-against itself, kernels against plain versions, on the same weights.
-``launch/serve.py`` never enters it.
+plain versions run on the card as well, under ordinary autograd, so that a
+whole model -- its loss and its gradients -- can be held against itself,
+kernels against plain versions, on the same weights.  ``launch/serve.py``
+and ``launch/train.py`` never enter it.
 """
 from __future__ import annotations
 
 import contextlib
 
+from repro_torch.kernels.autograd import (FlashAttention, FusedBlock,
+                                          RGLRUScan, SSDScan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_torch)
 from repro_torch.kernels.fused_block import (fused_block_cuda,
@@ -35,30 +41,40 @@ def plain_versions():
         _PLAIN = before
 
 
-def _kernel(t) -> bool:
-    return t.is_cuda and not _PLAIN
-
-
-def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, **kw):
+def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, *,
+                act="silu", gated=True, sandwich=False):
     """K7: ``x + [post_norm](act(n @ Wg) * (n @ Wu)) @ Wd`` on ``x [M, d]``."""
-    fn = fused_block_cuda if _kernel(x) else fused_block_torch
-    return fn(x, scale, w_gate, w_up, w_down, post_scale, **kw)
+    kw = dict(act=act, gated=gated, sandwich=sandwich)
+    if _PLAIN:
+        return fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale,
+                                 **kw)
+    fn = fused_block_cuda if x.is_cuda else fused_block_torch
+    return FusedBlock.apply(fn, kw, x, scale, w_gate, w_up, w_down,
+                            post_scale)
 
 
-def flash_attention(q, k, v, **kw):
-    """K6: attention of a prefill from position 0."""
-    fn = flash_attention_cuda if _kernel(q) else flash_attention_torch
-    return fn(q, k, v, **kw)
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """K6: attention of a sequence from position 0 (a prefill, or a
+    training forward)."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    if _PLAIN:
+        return flash_attention_torch(q, k, v, **kw)
+    fn = flash_attention_cuda if q.is_cuda else flash_attention_torch
+    return FlashAttention.apply(fn, kw, q, k, v)
 
 
 def rglru_scan(a, b):
     """K9: ``h_t = a_t * h_{t-1} + b_t`` from ``h_{-1} = 0``."""
-    fn = rglru_scan_cuda if _kernel(a) else rglru_scan_torch
-    return fn(a, b)
+    if _PLAIN:
+        return rglru_scan_torch(a, b)
+    fn = rglru_scan_cuda if a.is_cuda else rglru_scan_torch
+    return RGLRUScan.apply(fn, a, b)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, h0=None, *, chunk):
     """K8: the SSD chunked scan of a prefill from state ``h0`` (or 0);
     returns ``(y, final_state)``."""
-    fn = ssd_scan_cuda if _kernel(x) else ssd_scan_torch
-    return fn(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+    if _PLAIN:
+        return ssd_scan_torch(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+    fn = ssd_scan_cuda if x.is_cuda else ssd_scan_torch
+    return SSDScan.apply(fn, chunk, x, dt, A, Bm, Cm, D, h0)

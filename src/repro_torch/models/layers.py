@@ -11,8 +11,10 @@ and the distribution is the same.  The layouts are the JAX package's
 (``x @ W`` with ``W [in, out]``), so weights cross between the two
 packages without a transpose (``convert.py::lm_params_from_numpy``).
 
-The training and sharding half of that module (``grad_fence``,
-``partition_specs``, ``abstract``, the loss) is left out: the port serves.
+Parameters are registered without gradients (serving needs none);
+training turns them on (``launch/steps.py::train_params``).  The
+sharding half of that module (``partition_specs``, ``abstract``) is left
+out: the port runs on one card.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ def D(shape, init="normal", scale=0.0) -> ParamDef:
 
 class Params(nn.Module):
     """A flat set of parameters declared by a ``{name: ParamDef}`` dict,
-    allocated (uninitialised) with ``dtype`` on ``device``."""
+    allocated (uninitialised) with ``dtype`` on ``device``, without
+    gradients until ``requires_grad_(True)``."""
 
     def __init__(self, defs: dict, dtype, device):
         super().__init__()
@@ -77,6 +80,25 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
                 p.copy_(scale * draw)
+
+
+# -------------------------------------------------------------- grad fence
+class _GradFence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def grad_fence(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward casts the cotangent to the primal's
+    type (the JAX package's ``grad_fence``: attention's float32 scores must
+    not make dq / dk / dv float32)."""
+    return _GradFence.apply(x)
 
 
 # ------------------------------------------------------------------- norms
@@ -171,10 +193,35 @@ def mlp_defs(cfg) -> dict:
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     """(Gated-)linear-unit MLP with residual, as one fused block (K7,
-    ``kernels/ops.py::fused_block``) over the rows of ``x [..., d]``."""
+    ``kernels/ops.py::fused_block``) over the rows of ``x [..., d]``; the
+    weights are cast to ``x``'s type first, as the JAX package casts them
+    for each product (float32 masters, bfloat16 activations)."""
     shape = x.shape
+
+    def w(name):
+        t = p.get(name)
+        return None if t is None else t.to(x.dtype)
+
     y = ops.fused_block(
-        x.reshape(-1, shape[-1]).contiguous(), p.pre_norm, p.get("w_gate"),
-        p.w_up, p.w_down, p.get("post_norm"), act=cfg.act,
+        x.reshape(-1, shape[-1]).contiguous(), p.pre_norm, w("w_gate"),
+        w("w_up"), w("w_down"), p.get("post_norm"), act=cfg.act,
         gated=cfg.mlp_gated, sandwich=cfg.sandwich_norm)
     return y.reshape(shape)
+
+
+def mlp_unfused(x, scale, w_gate, w_up, w_down, post_scale=None, *,
+                act: str = "silu", gated: bool = True,
+                sandwich: bool = False) -> torch.Tensor:
+    """The JAX package's ``mlp_apply`` step by step, each product in
+    ``x``'s type: the function K7's backward differentiates
+    (``kernels/autograd.py``)."""
+    h = rms_norm(x, scale)
+    u = h @ w_up.to(h.dtype)
+    if gated:
+        u = act_fn(act)(h @ w_gate.to(h.dtype)) * u
+    else:
+        u = act_fn(act)(u)
+    y = u @ w_down.to(h.dtype)
+    if sandwich:
+        y = rms_norm(y, post_scale)
+    return x + y

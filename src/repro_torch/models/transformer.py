@@ -14,22 +14,30 @@ which has no MLP, as in the JAX package).  ``cross`` (vlm), ``enc`` /
 ``encdec`` (whisper) and MoE MLPs (``n_experts > 0``) raise
 ``NotImplementedError``.  The sharding context (``set_mesh_axes``,
 ``shard_hidden``) is dropped: the port runs on one card.
+
+Training (no cache) rematerialises each layer under ``remat="full"``
+(``torch.utils.checkpoint``, non-reentrant), where the JAX package remats
+each group of the scan: the same function, recomputed per layer, tail
+layers included.  A layer's kernels launch again in its recomputation.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (blocked_attention, cache_update,
                                           init_kv_cache, plain_attention,
                                           ring_positions)
-from repro_torch.models.layers import (D, Params, apply_rope, mlp_apply,
-                                       mlp_defs, rms_norm, rope_angles)
+from repro_torch.models.layers import (D, Params, apply_rope, grad_fence,
+                                       mlp_apply, mlp_defs, rms_norm,
+                                       rope_angles)
 from repro_torch.models.mamba2 import init_ssm_state, ssm_apply, ssm_defs
 from repro_torch.models.rglru import init_rglru_state, rglru_apply, rglru_defs
 
 PORTED_KINDS = ("global", "local", "recurrent", "ssm")
+REMAT = ("full", "none")
 
 
 def _require_kind(cfg, kind: str) -> None:
@@ -96,11 +104,12 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
                cache: dict | None = None, pos: int = 0):
     """One self-attention sub-block with residual.  Returns (y, cache).
 
-    A prefill (S > 1 with a cache) runs K6 and must start at position 0,
-    as the JAX package's serving path always does; the decode step attends
-    the cache (ring: blocked attention over slot positions; linear: plain
-    attention over ``pos + 1`` entries); without a cache it is plain
-    attention over the fresh keys."""
+    A prefill (S > 1 with a cache) and a forward without a cache (the
+    training path, q, k and v behind ``grad_fence`` as in the JAX package)
+    run K6 and must start at position 0, as the JAX package's serving and
+    training paths always do; the decode step attends the cache (ring:
+    blocked attention over slot positions; linear: plain attention over
+    ``pos + 1`` entries)."""
     _require_kind(cfg, kind)
     B, S, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -116,31 +125,29 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     window = cfg.window if kind == "local" else 0
-    if cache is None:
-        out = plain_attention(q, k, v, q_offset=pos, causal=True,
-                              window=window, softcap_val=cfg.attn_softcap)
-    else:
+    if cache is not None:
         ring = cache["k"].shape[1] < cfg.max_seq
         cache = cache_update(cache, k, v, pos, ring=ring)
-        if S > 1:
-            if pos != 0:
-                raise NotImplementedError(
-                    f"a prefill from position {pos}: the port's prefill "
-                    f"(K6) attends the fresh keys from position 0, as the "
-                    f"JAX package's serving path does")
-            out = ops.flash_attention(q, k, v, causal=True, window=window,
-                                      softcap=cfg.attn_softcap)
-        elif ring:
-            kpos = ring_positions(pos + S, cache["k"].shape[1], x.device)
-            out = blocked_attention(q, cache["k"], cache["v"], q_offset=pos,
-                                    causal=True, window=window,
-                                    softcap_val=cfg.attn_softcap,
-                                    k_positions=kpos)
-        else:
-            out = plain_attention(q, cache["k"], cache["v"], q_offset=pos,
-                                  causal=True, window=window,
-                                  softcap_val=cfg.attn_softcap,
-                                  kv_len=pos + S)
+    if cache is None or S > 1:
+        if pos != 0:
+            raise NotImplementedError(
+                f"attention of fresh keys from position {pos}: the port's "
+                f"prefill and training forward (K6) start at position 0, "
+                f"as the JAX package's do")
+        if cache is None:
+            q, k, v = grad_fence(q), grad_fence(k), grad_fence(v)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.attn_softcap)
+    elif ring:
+        kpos = ring_positions(pos + S, cache["k"].shape[1], x.device)
+        out = blocked_attention(q, cache["k"], cache["v"], q_offset=pos,
+                                causal=True, window=window,
+                                softcap_val=cfg.attn_softcap,
+                                k_positions=kpos)
+    else:
+        out = plain_attention(q, cache["k"], cache["v"], q_offset=pos,
+                              causal=True, window=window,
+                              softcap_val=cfg.attn_softcap, kv_len=pos + S)
     y = out.reshape(B, S, nh * hd) @ p.wo.to(x.dtype)
     if cfg.sandwich_norm:
         y = rms_norm(y, p.post_norm)
@@ -164,6 +171,10 @@ def apply_layer(layer: Layer, x: torch.Tensor, cfg, *, cache=None,
         x, cache = attn_apply(layer.attn, x, cfg, layer.kind, cache=cache,
                               pos=pos)
     return ffn_apply(layer.ffn, x, cfg), cache
+
+
+def _layer_output(layer: Layer, x: torch.Tensor, cfg) -> torch.Tensor:
+    return apply_layer(layer, x, cfg)[0]
 
 
 # ------------------------------------------------------------- caches
@@ -210,8 +221,23 @@ def stack_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def apply_stack(layers: nn.ModuleList, x: torch.Tensor, cfg, *,
-                cache: list | None = None, pos: int = 0):
-    """Run the whole layer stack.  Returns (x, new_cache)."""
+                cache: list | None = None, pos: int = 0,
+                remat: str = "none"):
+    """Run the whole layer stack.  Returns (x, new_cache).
+
+    ``remat="full"`` (without a cache) recomputes each layer in the
+    backward instead of keeping its activations; ``"dots"`` (the JAX
+    package's policy of keeping the products) is not ported."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the products, recompute the rest) is not "
+            "ported; use 'full' or 'none'")
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if cache is None and remat == "full":
+        for layer in layers:
+            x = checkpoint(_layer_output, layer, x, cfg, use_reentrant=False)
+        return x, None
     new_cache = None if cache is None else []
     for i, layer in enumerate(layers):
         x, c = apply_layer(layer, x, cfg,

@@ -1,2 +1,3 @@
-"""The search pool's runtime: deterministic fault injection (``chaos.py``)
-and preemption / straggler handling (``fault_tolerance.py``)."""
+"""The search pool's and the training loop's runtime: deterministic fault
+injection (``chaos.py``), preemption / straggler handling and restart
+(``fault_tolerance.py``)."""

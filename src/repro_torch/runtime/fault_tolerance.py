@@ -1,5 +1,5 @@
-"""Fault tolerance of the search pool: preemption handling and straggler
-statistics.
+"""Fault tolerance of the search pool and the training loop: preemption
+handling, straggler statistics and restart.
 
 * :class:`PreemptionGuard` -- SIGTERM/SIGINT flips a flag; the search
   pool (core/search_pool.py) polls it and drains cleanly: completed tasks
@@ -10,11 +10,9 @@ statistics.
   flagged) and an EWMA (``observe`` / ``straggler_after``), which the
   search pool uses at *task* grain to derive speculative re-dispatch
   deadlines.  Duplicating a straggling task is always sound there, since
-  tasks are pure.
-
-The JAX package's module also holds ``resume_or_init``, a training loop's
-restart from its newest checkpoint; that belongs with training, which this
-package does not have yet.
+  tasks are pure; the training loop flags its slow steps.
+* :func:`resume_or_init` -- a training loop's restart from its newest
+  committed checkpoint, the data pipeline fast-forwarded to it.
 """
 from __future__ import annotations
 
@@ -73,6 +71,23 @@ class PreemptionGuard:
 
     def request(self) -> None:              # for tests / manual drain
         self._requested = True
+
+
+def resume_or_init(ckpt_dir, init_fn, load_fn, pipeline=None):
+    """Returns ``(state, start_step)``: ``init_fn()`` and 0 when
+    ``ckpt_dir`` holds no committed checkpoint, else ``load_fn(tree)`` of
+    the newest one's tree (``checkpoint.py::restore``) and its step, with
+    ``pipeline`` fast-forwarded to that step."""
+    # lazy: the search pool's users of this module need no checkpoints
+    from repro_torch.checkpoint.checkpoint import latest_step, restore
+
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return init_fn(), 0
+    state = load_fn(restore(ckpt_dir, step))
+    if pipeline is not None:
+        pipeline.fast_forward(step)
+    return state, step
 
 
 @dataclass

@@ -91,7 +91,10 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.service", "repro_torch.service.packing",
                  "repro_torch.service.canonical",
                  "repro_torch.service.codec", "repro_torch.service.cache",
-                 "repro_torch.service.daemon"):
+                 "repro_torch.service.daemon",
+                 "repro_torch.kernels.autograd", "repro_torch.data.pipeline",
+                 "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                 "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",
