@@ -50,9 +50,24 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                gemma2-27b's MLP (d 4,608, F 36,864, gated gelu, sandwich
                norm) at prefill (M 1,024) and decode (M 2), granite-20b's
                (d 6,144, F 24,576, ungated) at M 1,024, each timed beside
-               its plain version with its bound.  K9 bit for bit at the serve's shape, at S shorter
-               than its ring, S 3,071, W 2,561, B 1 x W 16 and on unaligned
-               rows (its 4-byte copies).  K6 and K7 each pick a kernel by a
+               its plain version with its bound.  K6 and K7 also at the
+               vlm and audio serves' shapes in bfloat16 (``FAMILY_*``):
+               K6 not causal at llama-3.2-vision's cross-attention (B 2,
+               S 1,024, T 1,600, 32/8 heads, hd 128), whisper-base's
+               encoder (B 4, S = T = 1,500, a ragged last tile) and its
+               decoder's cross-attention (S 128, T 1,500); K7 at
+               llama-3.2-vision's MLP (d 4,096, F 14,336) at M 2,048 and
+               M 2 and whisper's encoder MLP (M 6,000, d 512), each timed
+               beside its plain version, K6 beside
+               ``scaled_dot_product_attention``, K7 beside its three
+               products in ``torch.matmul``, with its bound.  Those K6
+               cases draw scores near -6 (``FAMILY_SCORE_SHIFT``), are held
+               also within 4 bfloat16 ulps of the largest output, and at
+               T 1,500 a planted fault (the plain version over the ragged
+               tile's keys zero-padded and unmasked) must fail both
+               limits.  K9 bit for bit at the serve's shape, at S shorter
+               than its ring, S 3,071, W 2,561, B 1 x W 16 and on
+               unaligned rows (its 4-byte copies).  K6 and K7 each pick a kernel by a
                fixed rule (``flash_attention_variant``,
                ``fused_block_variant``):
                bfloat16 runs on the tensor cores, float32 on the SIMT
@@ -146,12 +161,28 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                K9 18, K7 416 (K6 and K7 all on the tensor-core kernels);
                then mamba2-2.7b (64 layers, d 2,560, 80 heads of 64, state
                128), batch 4, a 2,048-token prompt, 16 tokens, exactly K8 64
-               (all on the tensor-core kernel) and every other kernel 0.  Each: prefill / decode seconds,
-               tokens per second and peak memory; two more runs on the same
-               weights, one traced for the kernels' device time.  Then
-               each model at full width in float32, depth 4 (recurrentgemma
-               a 1,024-token prompt, mamba2 1,000 tokens, a ragged last
-               chunk): prefill and one decode step through the
+               (all on the tensor-core kernel) and every other kernel 0;
+               then moonshot-v1-16b-a3b (48 MoE layers, 64 experts top 6,
+               ~55 GB of weights: served with nothing else on the card),
+               batch 2, 2,048 tokens, 16 tokens, exactly K6 48 (the
+               experts are batched products in torch); llama-3.2-vision-11b
+               (32 self- and 8 cross-attention layers over 1,600 patches of
+               zeros, as the JAX ``serve()``), batch 2, 1,024 tokens, 16
+               tokens, exactly K6 40, K7 640; whisper-base (6 encoder
+               layers over 1,500 frames of zeros, 6 decoder layers), batch
+               4, 128 tokens, 16 tokens, exactly K6 18, K7 102; all on the
+               tensor cores.  Each: prefill / decode seconds, tokens per
+               second, peak memory and the serve's bounds (counted from
+               the layers that run, ``serve_bounds``); two more runs on
+               the same weights (handed in: the serve holds them in place),
+               one traced for the kernels' device time.  Then each model
+               at full width in float32 at the depth of its check
+               (recurrentgemma 4 layers, a 1,024-token prompt; mamba2 4, 1,000 tokens, a ragged last
+               chunk; moonshot 2, batch 1, 1,024 tokens, its routes
+               compared between the two runs; llama-3.2-vision 5 (one
+               pattern cycle), batch 1, 512 tokens, random patches, both
+               gates 0.5; whisper-base whole, batch 2, random frames, 128
+               tokens): prefill and one decode step through the
                kernels and through their plain versions
                (``ops.plain_versions()``), logits within 1e-3 of their
                scale, with exactly the launches ``LM_SERVES`` states (on
@@ -202,6 +233,7 @@ It imports ``torch`` and ``repro_torch`` only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -346,6 +378,17 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(kernel, plain, reps) -> dict:
+    """``{"ms", "plain_ms"}``: CUDA-event times of a kernel and its plain
+    version taken in turns (plain, kernel, kernel, plain), the less of
+    each pair."""
+    p1 = time_ms(plain, reps=2)
+    k1 = time_ms(kernel, reps=reps, warmup=1)
+    k2 = time_ms(kernel, reps=reps, warmup=0)
+    p2 = time_ms(plain, reps=2, warmup=0)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
 
 
 def device_time_by_kernel(prof) -> dict:
@@ -978,6 +1021,57 @@ LM_SERVES = {
         "check_launches": {"ssd_scan": 4},
         # float32 runs on the SIMT kernel
         "check_launches_by_variant": {"ssd_scan": {"simt": 4}}},
+    # 48 layers, d 2,048, 64 experts top 6 (27.7 G parameters, ~55 GB in
+    # bfloat16: served alone on the card, the earlier serves' models freed)
+    "moonshot-v1-16b-a3b": {
+        "shape": {"batch": 2, "prompt_len": 2048, "gen_len": 16},
+        # a flash attention per layer (48) in the prefill; the experts are
+        # batched products in torch, so K7 never runs
+        "launches": {"flash_attention": 48},
+        "launches_by_variant": {"flash_attention": {"tensor_core": 48}},
+        # depth 2, batch 1, 1,024 tokens; the routes of the kernel and the
+        # plain run are compared
+        "check": {"n_layers": 2, "batch": 1, "prompt_len": 1024},
+        "check_launches": {"flash_attention": 2},
+        "check_launches_by_variant": {"flash_attention": {"simt": 2}}},
+    # 40 layers (32 self-attention, 8 cross-attention over 1,600 patches),
+    # d 4,096, F 14,336
+    "llama-3.2-vision-11b": {
+        "shape": {"batch": 2, "prompt_len": 1024, "gen_len": 16},
+        # a flash attention per layer (40: self and cross) in the prefill,
+        # a fused block per layer (40) in each of the 16 forwards
+        "launches": {"flash_attention": 40, "fused_block": 40 * 16},
+        "launches_by_variant": {
+            "flash_attention": {"tensor_core": 40},
+            "fused_block": {"tensor_core": 40 * 16}},
+        # one pattern cycle (4 self, 1 cross), batch 1, 512 tokens, random
+        # patches, both gates 0.5 (at 0, their initial value, a cross layer
+        # adds nothing); K7 at d 4,096 in float32: the wide passes
+        "check": {"n_layers": 5, "batch": 1, "prompt_len": 512,
+                  "gates": 0.5},
+        "check_launches": {"flash_attention": 5, "fused_block": 10},
+        "check_launches_by_variant": {
+            "flash_attention": {"simt": 5},
+            "fused_block": {"simt_wide": 10}}},
+    # 6 encoder layers over 1,500 frames, 6 decoder layers, d 512
+    "whisper-base": {
+        "shape": {"batch": 4, "prompt_len": 128, "gen_len": 16},
+        # K6 per encoder layer (6) and per decoder layer twice, self- and
+        # cross-attention (12), in the prefill; K7 per encoder layer (6)
+        # and per decoder layer (6) in each of the 16 forwards
+        "launches": {"flash_attention": 6 + 6 + 6,
+                     "fused_block": 6 + 6 * 16},
+        "launches_by_variant": {
+            "flash_attention": {"tensor_core": 18},
+            "fused_block": {"tensor_core": 102}},
+        # the whole model, batch 2, random frames, 128 tokens: the
+        # encoder's 3,000 rows fill the SMs (simt), the decoder's 256 and
+        # the decode step's 2 do not (simt_split)
+        "check": {"n_layers": 6, "batch": 2, "prompt_len": 128},
+        "check_launches": {"flash_attention": 18, "fused_block": 18},
+        "check_launches_by_variant": {
+            "flash_attention": {"simt": 18},
+            "fused_block": {"simt": 6, "simt_split": 12}}},
 }
 # float32 model checks of architectures phase 5 does not serve, as
 # LM_SERVES[arch]["check"]: gemma2-27b, the widest MLP, whose rows only K7's
@@ -1255,6 +1349,8 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                       what, variant)
     wide = [check_wide_block(arch, m, block, close_variant, cases, timed)
             for arch, m in K7_WIDE]
+    families = check_family_shapes(randn, block, close_variant, cases,
+                                   timed, reps)
 
     # ---- K9: equal bit for bit
     def scan(b, s, width):
@@ -1289,7 +1385,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                      rs.rglru_scan_torch(a, bb),
                      f"{what}, {4 * plan.vec}-byte copies", errs, cases)
     torch.cuda.synchronize()
-    out = {"errs": errs, "cases": cases, "wide": wide}
+    out = {"errs": errs, "cases": cases, "wide": wide, "families": families}
     if not timed:
         return out
 
@@ -1335,12 +1431,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     }
     out["times"] = {}
     for name, (kernel, plain, bnd, shape) in timing.items():
-        # in turns: plain, kernel, kernel, plain
-        p1 = time_ms(plain, reps=2)
-        k1 = time_ms(kernel, reps=reps, warmup=1)
-        k2 = time_ms(kernel, reps=reps, warmup=0)
-        p2 = time_ms(plain, reps=2, warmup=0)
-        out["times"][name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        out["times"][name] = {**in_turns(kernel, plain, reps),
                               "bound_ms": bnd[0], "bound_by": bnd[1],
                               "shape": shape}
     lib = [time_ms(library, reps=reps, warmup=1) for _ in range(2)]
@@ -1360,6 +1451,158 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                                                 reps).items():
         out["times"][name].update(earlier_design_ms=ms,
                                   earlier_design_max_abs_err=err)
+    return out
+
+
+# K6 at the shapes the vlm and audio serves give it, bfloat16 and not
+# causal: (case, arch, B, S, T), the arch giving the heads and head dim
+FAMILY_ATTENTION = (
+    ("llama-3.2-vision-11b cross-attention prefill",
+     "llama-3.2-vision-11b", 2, 1024, 1600),
+    ("whisper-base encoder", "whisper-base", 4, 1500, 1500),
+    ("whisper-base decoder cross-attention prefill", "whisper-base", 4, 128,
+     1500))
+# K7 at those serves' MLPs, bfloat16: (arch, M), the prefill's and the
+# decode step's rows (whisper's encoder: 4 x 1,500 frames)
+FAMILY_BLOCKS = (("llama-3.2-vision-11b", 2048), ("llama-3.2-vision-11b", 2),
+                 ("whisper-base", 6000))
+# K6's family cases draw q ~ N(1, 1) and k ~ N(-shift / sqrt(hd), 1) in
+# each element: every score then sits near -shift, so a key that the
+# kernel left unmasked past T (score 0, against zero padding) would
+# outweigh the real ones and show far beyond the limits
+FAMILY_SCORE_SHIFT = 6.0
+# and each is held, beyond LM_TOL, within this many bfloat16 ulps of the
+# largest |output| of the plain version
+FAMILY_ATTENTION_ULPS = 4
+
+
+def flash_tc_key_tile(hd: int) -> int:
+    """Keys a tile of the tensor-core K6 (``csrc/flash_attention_tc.cu``,
+    ``BKV``)."""
+    return 32 if hd == 256 else 64
+
+
+def bf16_ulps(x, n: int) -> float:
+    """``n`` bfloat16 ulps at the largest |value| of ``x``."""
+    top = float(x.float().abs().max())
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+
+
+def check_family_shapes(randn, block, close_variant, cases, timed,
+                        reps) -> dict:
+    """K6 and K7 against their plain versions at ``FAMILY_ATTENTION`` and
+    ``FAMILY_BLOCKS`` (bfloat16, on the tensor cores), each with its bound
+    and, if ``timed``, its time beside the plain version's and K6's
+    ``scaled_dot_product_attention`` / K7's three products in
+    ``torch.matmul`` (``matmul_ms``).  Returns ``{"flash_attention":
+    {case: ...}, "fused_block": {case: ...}}``; each case's inputs are
+    freed before the next."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_block as fb
+
+    bf16 = torch.bfloat16
+    out = {"flash_attention": {}, "fused_block": {}}
+    for what, arch, b, s, t in FAMILY_ATTENTION:
+        cfg = get_config(arch)
+        nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        f32 = torch.float32
+        q = (randn((b, s, nh, hd), f32) + 1).to(bf16)
+        k = (randn((b, t, nkv, hd), f32)
+             - FAMILY_SCORE_SHIFT / math.sqrt(hd)).to(bf16)
+        v = randn((b, t, nkv, hd), bf16)
+        kw = dict(causal=False, window=0)
+        label = (f"{what}, B {b} S {s} T {t}, GQA {nh}/{nkv}, hd {hd}, not "
+                 f"causal, bf16")
+        close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
+                      (q, k, v), kw, label, "tensor_core")
+        err = cases[-1]["max_abs_err"]
+        want = fa.flash_attention_torch(q, k, v, **kw)
+        limit = bf16_ulps(want, FAMILY_ATTENTION_ULPS)
+        require(err <= limit, f"flash_attention {label}: max abs err {err} "
+                              f"> {FAMILY_ATTENTION_ULPS} bf16 ulps of its "
+                              f"largest |output| ({limit})")
+        bnd = flash_bound(b, s, t, nh, nkv, hd, False, 0, 2)
+        entry = {"arch": arch, "B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
+                 "hd": hd, "causal": False, "dtype": "bfloat16",
+                 "variant": cases[-1]["variant"], "max_abs_err": err,
+                 "limit_abs": limit, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        pad = -t % flash_tc_key_tile(hd)
+        if pad:
+            # the fault the limits must catch: the ragged last tile's keys
+            # past T zero-padded and left unmasked
+            zeros = torch.zeros((b, pad, nkv, hd), dtype=bf16, device="cuda")
+            planted = fa.flash_attention_torch(
+                q, torch.cat([k, zeros], 1), torch.cat([v, zeros], 1), **kw)
+            planted_err = max_abs_err(planted, want)
+            log(f"  flash_attention {what}: a ragged tile left unmasked "
+                f"({pad} zero keys) would be off by {planted_err:.3g} "
+                f"(limit {limit:.3g}; kernel {err:.3g})")
+            rtol, atol = LM_TOL["bfloat16"]
+            require(planted_err > limit and not torch.allclose(
+                planted.float(), want.float(), rtol=rtol, atol=atol),
+                f"flash_attention {label}: the limits would pass an "
+                f"unmasked ragged tile (off by {planted_err})")
+            entry["planted_unmasked_tile_max_abs_err"] = planted_err
+            del planted, zeros
+        del want
+        if timed:
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      enable_gqa=True)
+            entry["library_max_abs_err"] = max_abs_err(
+                library().transpose(1, 2),
+                fa.flash_attention_torch(q, k, v, **kw))
+            entry.update(in_turns(
+                lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                lambda: fa.flash_attention_torch(q, k, v, **kw), reps))
+            entry["library_ms"] = min(time_ms(library, reps=reps, warmup=1)
+                                      for _ in range(2))
+            log(f"  flash_attention {what}: {entry['ms']:.4g} ms (bound "
+                f"{bnd[0]:.4g} ms, {bnd[1]}), plain {entry['plain_ms']:.4g}"
+                f" ms, scaled_dot_product_attention "
+                f"{entry['library_ms']:.4g} ms")
+        out["flash_attention"][what] = entry
+        del q, k, v
+        torch.cuda.empty_cache()
+    for arch, m in FAMILY_BLOCKS:
+        cfg = get_config(arch)
+        d, f = cfg.d_model, cfg.d_ff
+        args = block(m, d, f, bf16)
+        kw = dict(act=cfg.act, gated=cfg.mlp_gated,
+                  sandwich=cfg.sandwich_norm)
+        what = (f"{arch} MLP, M {m}, d {d}, F {f}, "
+                f"{'gated' if cfg.mlp_gated else 'ungated'} {cfg.act}, bf16")
+        close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
+                      what, "tensor_core")
+        bnd = fused_block_bound(m, d, f, cfg.mlp_gated, 2)
+        entry = {"arch": arch, "M": m, "d": d, "F": f,
+                 "gated": cfg.mlp_gated, "dtype": "bfloat16",
+                 "variant": cases[-1]["variant"],
+                 "max_abs_err": cases[-1]["max_abs_err"],
+                 "bound_ms": bnd[0], "bound_by": bnd[1]}
+        if timed:
+            x, _s, wg, wu, wd, _p = args
+            h = randn((m, f), bf16)
+
+            def products():
+                return x @ wg, x @ wu, h @ wd
+            entry.update(in_turns(lambda: fb.fused_block_cuda(*args, **kw),
+                                  lambda: fb.fused_block_torch(*args, **kw),
+                                  reps))
+            entry["matmul_ms"] = min(time_ms(products, reps=reps, warmup=1)
+                                     for _ in range(2))
+            log(f"  fused_block {what}: {entry['ms']:.4g} ms (bound "
+                f"{bnd[0]:.4g} ms, {bnd[1]}), plain {entry['plain_ms']:.4g}"
+                f" ms, products in cuBLAS {entry['matmul_ms']:.4g} ms")
+            del x, wg, wu, wd, h
+        out["fused_block"][what] = entry
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1397,11 +1640,7 @@ def check_wide_block(arch, m, block, close_variant, cases, timed) -> dict:
 
         def plain():
             return fb.fused_block_torch(*args, **kw)
-        p1 = time_ms(plain, reps=2)
-        k1 = time_ms(kernel, reps=3, warmup=1)
-        k2 = time_ms(kernel, reps=3, warmup=0)
-        p2 = time_ms(plain, reps=2, warmup=0)
-        entry.update(ms=min(k1, k2), plain_ms=min(p1, p2))
+        entry.update(in_turns(kernel, plain, reps=3))
         log(f"  fused_block {what}: {entry['ms']:.4g} ms on "
             f"{entry['variant']} (bound {bnd[0]:.4g} ms, {bnd[1]}), plain "
             f"{entry['plain_ms']:.4g} ms")
@@ -1617,11 +1856,7 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
     def plain():
         return ss.ssd_scan_torch(*serve_in, chunk=q)
 
-    # in turns: plain, kernel, kernel, plain
-    p1 = time_ms(plain, reps=2)
-    k1 = time_ms(kernel, reps=reps, warmup=1)
-    k2 = time_ms(kernel, reps=reps, warmup=0)
-    p2 = time_ms(plain, reps=2, warmup=0)
+    bf16_times = in_turns(kernel, plain, reps)
     bnd = ssd_bound(b, s, h, g, p, n, q, 2)
     earlier_ms, earlier_err = ssd_earlier_design_time(serve_in, q, reps)
     # the float32 case at the serve's shape (no state): the SIMT kernel
@@ -1633,13 +1868,10 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
     def plain_f32():
         return ss.ssd_scan_torch(*f32_in, chunk=q)
 
-    fp1 = time_ms(plain_f32, reps=2)
-    fk1 = time_ms(kernel_f32, reps=reps, warmup=1)
-    fk2 = time_ms(kernel_f32, reps=reps, warmup=0)
-    fp2 = time_ms(plain_f32, reps=2, warmup=0)
+    f32_times = in_turns(kernel_f32, plain_f32, reps)
     bnd32 = ssd_bound(b, s, h, g, p, n, q, 4)
     out["times"] = {"ssd_scan": {
-        "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": bnd[0],
+        **bf16_times, "bound_ms": bnd[0],
         "bound_by": bnd[1], "library_ms": None,
         "earlier_design_ms": earlier_ms,
         "earlier_design_max_abs_err": earlier_err,
@@ -1648,8 +1880,7 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
                       dtype="bfloat16", h0="zero",
                       variant=ran_variant(ss.ssd_scan_cuda, kernel)[1]),
         "float32": {
-            "ms": min(fk1, fk2), "plain_ms": min(fp1, fp2),
-            "bound_ms": bnd32[0], "bound_by": bnd32[1], "library_ms": None,
+            **f32_times, "bound_ms": bnd32[0], "bound_by": bnd32[1], "library_ms": None,
             "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
                           dtype="float32", h0=None,
                           variant=ran_variant(ss.ssd_scan_cuda,
@@ -1743,6 +1974,59 @@ def device_time_all(prof) -> dict:
     return out
 
 
+def serve_bounds(cfg, sc) -> dict:
+    """The least time a serve's prefill and a decode step could take on
+    the card, counted from the parameters of the layers that run (their
+    shapes from a model on the meta device).  Prefill: two operations per
+    weight per row it multiplies, at the bfloat16 tensor-core rate: the
+    decoder's matrices over the prompt's tokens (a MoE layer's experts at
+    top_k of E), a cross layer's key and value projections over the
+    context instead, the encoder's over its frames, the unembedding over
+    the last position only.  Decode step: every weight the step reads,
+    once, at the memory rate: a MoE step computes every expert on its
+    capacity buffer, so it reads them all; an untied embedding table gives
+    two rows, and the encoder and the cross key / value projections do not
+    run.  Left out: the embedding lookup, the norms, the attention's own
+    products and the KV cache."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device="meta")
+    b, s = sc.batch, sc.prompt_len
+    ctx = {"audio": cfg.enc_seq, "vlm": cfg.vision_seq}.get(cfg.family, 0)
+    ops = step_bytes = 0
+    for name, p in model.named_parameters():
+        n, parts = p.numel(), name.split(".")
+        if name == "embed.tok" and not cfg.tie_embeddings:
+            continue                             # a lookup of B rows
+        if parts[0] in ("enc_layers", "enc_norm"):
+            ops += 2 * n * b * ctx * (p.dim() >= 2)
+            continue
+        if parts[0] == "layers":
+            kind = model.layers[int(parts[1])].kind
+            if parts[-1] in ("wk", "wv") and (parts[2] == "xattn"
+                                              or kind == "cross"):
+                ops += 2 * n * b * ctx
+                continue
+        step_bytes += n * p.element_size()
+        if p.dim() < 2:
+            continue                             # norms and gates
+        if parts[0] == "embed":
+            ops += 2 * n * b                     # the last position's logits
+        elif cfg.n_experts and parts[2] == "ffn" and p.dim() == 3:
+            ops += 2 * n * b * s * cfg.top_k // cfg.n_experts
+        else:
+            ops += 2 * n * b * s
+    return {"prefill_bound_ms": 1e3 * ops / PEAK_BF16_OPS_PER_S,
+            "decode_step_bound_ms": 1e3 * step_bytes / PEAK_BYTES_PER_S,
+            "prefill_operations": ops, "decode_step_bytes": step_bytes,
+            "bounds_of": "prefill: 2 x each weight x the rows it multiplies "
+                         "(prompt tokens; experts at top_k / E; cross K/V "
+                         "and encoder: the context; unembedding: B rows) at "
+                         "989e12 operations/s; decode step: the weights it "
+                         "reads once at 3.35e12 B/s; embedding lookup, "
+                         "norms, attention products, KV cache left out"}
+
+
 def serve_phase(arch: str) -> dict:
     """``arch`` served at full width on the card (phase 5, see the module
     docstring): the counted main-path run, a second run for the times and a
@@ -1760,6 +2044,11 @@ def serve_phase(arch: str) -> dict:
     sc = ServeConfig(**shape, seed=0)
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    weight_bytes = 2 * cfg.param_count()
+    log(f"serve of {arch}: {weight_bytes / 1e9:.2f} GB of bfloat16 weights, "
+        f"{before / 1e9:.3f} GB allocated on the card before it, "
+        f"{card_bytes / 1e9:.1f} GB in all")
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     first = serve(cfg, sc)                          # the main path
@@ -1779,7 +2068,8 @@ def serve_phase(arch: str) -> dict:
     require(toks.shape == (sc.batch, sc.gen_len)
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
             f"serve returned tokens {toks.shape} outside [0, {cfg.vocab})")
-    # the same weights handed in again, for the times and the trace
+    # the same weights handed in again, for the times and the trace (the
+    # serve holds them in place: no second copy)
     weights = Model(cfg, device="cuda").init_weights(sc.seed).state_dict()
     second = serve(cfg, sc, params=weights)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1808,6 +2098,7 @@ def serve_phase(arch: str) -> dict:
     return {
         "serve": arch, **shape, "dtype": cfg.dtype,
         "runs": runs, "launches": counts, "launches_by_variant": by_variant,
+        **serve_bounds(cfg, sc),
         "peak_memory_bytes": peak, "allocated_before_bytes": before,
         "tokens_row0": toks[0].tolist(),
         "same_tokens_in_all_runs": bool(
@@ -1847,23 +2138,36 @@ def model_check(arch: str) -> dict:
     cfg = get_config(arch).replace(n_layers=check["n_layers"],
                                    dtype="float32", max_seq=s + 1)
     model = Model(cfg, device="cuda").init_weights(0)
+    if "gates" in check:
+        for layer in model.layers:
+            if layer.kind == "cross":
+                layer.attn.gate_attn.fill_(check["gates"])
+                layer.attn.gate_mlp.fill_(check["gates"])
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).cuda()
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).cuda()}
     nxt = torch.from_numpy(
         rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32)).cuda()
+    # random frames / patches: zeros would give every cross-attention
+    # keys and values of 0
+    for key, length in (("frames", cfg.enc_seq), ("patches",
+                                                   cfg.vision_seq)):
+        if key in model.batch_spec(s, b, "prefill"):
+            batch[key] = torch.from_numpy(rng.standard_normal(
+                (b, length, cfg.d_model)).astype(np.float32)).cuda()
 
     def run():
-        pre, cache = model.prefill({"tokens": prompt})
+        pre, cache = model.prefill(batch)
         dec, _ = model.decode_step(cache, nxt)
         torch.cuda.synchronize()
         return pre, dec
 
     reset_launch_counts()
-    kernel = run()
+    with recorded_routes(cfg) as kernel_routes:
+        kernel = run()
     counts = {k: n for k, n in launch_counts().items() if n}
     by_variant = launch_counts_by_variant()
-    with ops.plain_versions():
+    with ops.plain_versions(), recorded_routes(cfg) as plain_routes:
         plain = run()
     require(not any(launch_counts()[k] - counts.get(k, 0)
                     for k in launch_counts()),
@@ -1887,7 +2191,57 @@ def model_check(arch: str) -> dict:
         out[what] = {"max_abs_err_over_scale": rel, "scale": scale,
                      "same_argmax": bool((k.argmax(-1) == p.argmax(-1))
                                          .all())}
+    if cfg.n_experts:
+        out["routes"] = compare_routes(kernel_routes, plain_routes)
+        log(f"  routes of {arch}'s {len(plain_routes)} MoE calls, kernels "
+            f"against plain versions: {json.dumps(out['routes'])}")
     return out
+
+
+@contextlib.contextmanager
+def recorded_routes(cfg):
+    """Inside the block, record each MoE call's experts and its top
+    ``top_k + 1`` router probabilities (for the margins), in call order;
+    nothing without experts."""
+    import torch
+    from repro_torch.models import moe
+
+    calls = []
+    if not cfg.n_experts:
+        yield calls
+        return
+    route = moe._route
+
+    def recording(p, h2, c):
+        got = route(p, h2, c)
+        probs = torch.softmax(h2.to(torch.float32)
+                              @ p.router.to(torch.float32), dim=-1)
+        calls.append((got[1], torch.topk(probs, c.top_k + 1, dim=-1).values))
+        return got
+    moe._route = recording
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def compare_routes(kernel, plain) -> dict:
+    """Whether two runs routed every token of every MoE call to the same
+    experts in the same order; where not, each such token with its margin
+    in the plain run (the least gap between its top ``top_k + 1``
+    probabilities)."""
+    import torch
+    require(len(kernel) == len(plain),
+            f"{len(kernel)} MoE calls against {len(plain)}")
+    differ = []
+    for i, ((ki, _kp), (pi, pp)) in enumerate(zip(kernel, plain)):
+        rows = torch.nonzero((ki != pi).any(dim=-1)).flatten().tolist()
+        gaps = (pp[:, :-1] - pp[:, 1:]).amin(dim=-1)
+        differ += [{"call": i, "token": r, "margin": float(gaps[r])}
+                   for r in rows]
+    return {"calls": len(plain),
+            "tokens": sum(int(p[0].shape[0]) for p in plain),
+            "equal": not differ, "differences": differ[:20]}
 
 
 # ------------------------------------------------------------------ train
@@ -3176,7 +3530,8 @@ def main(argv=None) -> int:
             "launches": served[arch]["launches"][name],
             "launches_by_serve": {a: served[a]["launches"][name]
                                   for a in LM_SERVES},
-            "launches_in_model_check": checked[arch]["launches"][name],
+            "launches_in_model_checks": {
+                a: checked[a]["launches"].get(name, 0) for a in LM_SERVES},
             "launches_in_lm_checks": {
                 a: checked[a]["launches"].get(name, 0) for a in LM_CHECKS},
             "max_abs_err": lm["errs"][name],
@@ -3204,6 +3559,8 @@ def main(argv=None) -> int:
             for a, c in trained["grad_checks"].items()}
         if name == "ssd_scan":
             entry["at_float32"] = t["float32"]
+        if name in lm["families"]:
+            entry["at_other_shapes"] = lm["families"][name]
         if name == "fused_block":
             entry["at_decode"] = lm_times["fused_block_decode"]
             entry["matmul_ms"] = t["matmul_ms"]

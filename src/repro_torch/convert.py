@@ -71,6 +71,11 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+# the port's layer stacks and the JAX tree's: (module list, tree key,
+# decoder stack?)
+_STACKS = (("layers", "stack", True), ("enc_layers", "enc_stack", False))
+
+
 def lm_params_from_numpy(cfg, tree: dict, device="cpu") -> dict:
     """The ``state_dict`` of ``models/model.py::Model(cfg)`` from the other
     package's ``Model.init`` tree, its leaves as numpy arrays.
@@ -79,31 +84,43 @@ def lm_params_from_numpy(cfg, tree: dict, device="cpu") -> dict:
     (``stack/groups/p{i}/<block>/<name>[g]``) and keeps the remainder as
     ``stack/tail/t{i}``; the port holds one module per layer in depth
     order, so group ``g``, slot ``i`` is layer ``g * len(pattern) + i`` and
-    tail ``t{i}`` follows the groups.  The layouts are the same on both
-    sides (both compute ``x @ W`` with ``W [in, out]``), so no weight is
-    transposed; every array keeps its type."""
+    tail ``t{i}`` follows the groups.  Audio's encoder (``enc_stack``, the
+    pattern ``enc``) goes the same way into ``enc_layers``.  The layouts are
+    the same on both sides (both compute ``x @ W`` with ``W [in, out]``;
+    the experts' ``[E, d, ff]``), so no weight is transposed; every array
+    keeps its type, a vlm gate as a 0-dim tensor."""
     from repro_torch.models.transformer import stack_structure
 
-    pattern, n_groups, n_tail = stack_structure(cfg)
-    out = {"final_norm": _tensor(tree["final_norm"], device)}
+    known = {"embed", "final_norm", "enc_norm"} | {k for _, k, _ in _STACKS}
+    unknown = set(tree) - known
+    if unknown:
+        raise ValueError(f"leaves the port has no place for: "
+                         f"{sorted(unknown)}")
+    out = {name: _tensor(tree[name], device)
+           for name in ("final_norm", "enc_norm") if name in tree}
     for name, a in tree["embed"].items():
         out[f"embed.{name}"] = _tensor(a, device)
-    stack = tree["stack"]
-    for i in range(len(pattern)):
-        for block, leaves in stack["groups"][f"p{i}"].items():
-            for name, a in leaves.items():
-                a = np.asarray(a)
-                if a.shape[0] != n_groups:
-                    raise ValueError(f"p{i}/{block}/{name}: leading axis "
-                                     f"{a.shape[0]} != {n_groups} groups")
-                for g in range(n_groups):
-                    out[f"layers.{g * len(pattern) + i}.{block}.{name}"] = \
-                        _tensor(a[g], device)
-    for i in range(n_tail):
-        for block, leaves in stack["tail"][f"t{i}"].items():
-            for name, a in leaves.items():
-                out[f"layers.{n_groups * len(pattern) + i}.{block}.{name}"] = \
-                    _tensor(a, device)
+    for prefix, key, decoder in _STACKS:
+        if key not in tree:
+            continue
+        stack = tree[key]
+        pattern, n_groups, n_tail = stack_structure(cfg, decoder)
+        for i in range(len(pattern)):
+            for block, leaves in stack["groups"][f"p{i}"].items():
+                for name, a in leaves.items():
+                    a = np.asarray(a)
+                    if a.shape[0] != n_groups:
+                        raise ValueError(
+                            f"{key} p{i}/{block}/{name}: leading axis "
+                            f"{a.shape[0]} != {n_groups} groups")
+                    for g in range(n_groups):
+                        out[f"{prefix}.{g * len(pattern) + i}.{block}."
+                            f"{name}"] = _tensor(a[g], device)
+        for i in range(n_tail):
+            for block, leaves in stack["tail"][f"t{i}"].items():
+                for name, a in leaves.items():
+                    out[f"{prefix}.{n_groups * len(pattern) + i}.{block}."
+                        f"{name}"] = _tensor(a, device)
     return out
 
 
@@ -113,14 +130,16 @@ def _leaf_path(cfg, name: str) -> tuple[tuple[str, ...], int]:
     from repro_torch.models.transformer import stack_structure
 
     parts = name.split(".")
-    if parts[0] != "layers":
+    stacks = {prefix: (key, decoder) for prefix, key, decoder in _STACKS}
+    if parts[0] not in stacks:
         return tuple(parts), -1
-    pattern, n_groups, _ = stack_structure(cfg)
+    key, decoder = stacks[parts[0]]
+    pattern, n_groups, _ = stack_structure(cfg, decoder)
     i, block, leaf = int(parts[1]), parts[2], parts[3]
     if i < n_groups * len(pattern):
-        return ("stack", "groups", f"p{i % len(pattern)}", block,
+        return (key, "groups", f"p{i % len(pattern)}", block,
                 leaf), i // len(pattern)
-    return ("stack", "tail", f"t{i - n_groups * len(pattern)}", block,
+    return (key, "tail", f"t{i - n_groups * len(pattern)}", block,
             leaf), -1
 
 

@@ -1,13 +1,17 @@
-"""Hardware description of the back-end the compiler targets.
+"""Hardware descriptions for the two back-ends the compiler targets.
 
 ``FPGAConfig`` models the paper's KCU1500 accelerator (§III-B, §V) and is
-used for the faithful reproduction of Tables II-VII.
+used for the faithful reproduction of Tables II-VII.  ``TPUConfig`` models a
+TPU v5e chip and is used by the LM residency planner (core/residency.py);
+it is the JAX package's description, carried over unchanged so that the
+same call plans the same stack in both packages.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 MB = 1 << 20
+GB = 1 << 30
 
 
 @dataclass(frozen=True)
@@ -38,4 +42,19 @@ class FPGAConfig:
         return self.dram_bw / self.freq
 
 
+@dataclass(frozen=True)
+class TPUConfig:
+    """TPU v5e per-chip constants (roofline + residency planning)."""
+    name: str = "tpu-v5e"
+    peak_flops: float = 197e12           # bf16 FLOP/s
+    hbm_bw: float = 819e9                # bytes/s
+    ici_bw: float = 50e9                 # bytes/s per link
+    vmem_bytes: int = 128 * MB
+    hbm_bytes: int = 16 * GB
+    # MXU tiling granularity.
+    lane: int = 128
+    sublane: int = 8
+
+
+V5E = TPUConfig()
 KCU1500 = FPGAConfig()

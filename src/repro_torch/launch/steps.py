@@ -1,10 +1,16 @@
-"""The train step of the training loop (``train.py``).
+"""The step builders shared by the drivers (``train.py``, ``serve.py``).
 
-The counterpart of the JAX package's ``launch/steps.py::make_train_step``
-without ``jit``: the loss, its gradient with respect to every parameter
-(``torch.autograd.grad``; the LM kernels' backwards are
-``kernels/autograd.py``'s) and one AdamW step, which updates the model's
-parameters and the optimizer's state in place.
+The counterpart of the JAX package's ``launch/steps.py`` without ``jit``:
+
+* ``make_train_step`` -- the loss, its gradient with respect to every
+  parameter (``torch.autograd.grad``; the LM kernels' backwards are
+  ``kernels/autograd.py``'s) and one AdamW step, which updates the model's
+  parameters and the optimizer's state in place;
+* ``make_prefill_step`` -- a prefill of a batch into a cache;
+* ``make_decode_step`` -- one greedy token per sequence against the
+  standing cache.
+
+The model holds its parameters, so no step takes them.
 """
 from __future__ import annotations
 
@@ -53,3 +59,20 @@ def make_train_step(model, opt_cfg: AdamWConfig, remat: str = "full",
                 **{k: v.detach() for k, v in metrics.items()},
                 **opt_metrics}
     return train_step
+
+
+def make_prefill_step(model):
+    """``prefill_step(batch, cache) -> (logits, cache)``."""
+    def prefill_step(batch: dict, cache: dict):
+        return model.prefill(batch, cache)
+    return prefill_step
+
+
+def make_decode_step(model):
+    """``serve_step(cache, tokens) -> (next_tok [B, 1] int32, logits,
+    cache)``: the greedy token is the first index of the largest logit."""
+    def serve_step(cache: dict, tokens):
+        logits, new_cache = model.decode_step(cache, tokens)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return next_tok, logits, new_cache
+    return serve_step

@@ -94,7 +94,8 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.service.daemon",
                  "repro_torch.kernels.autograd", "repro_torch.data.pipeline",
                  "repro_torch.optim.adamw", "repro_torch.optim.compression",
-                 "repro_torch.launch.steps", "repro_torch.launch.train"):
+                 "repro_torch.launch.steps", "repro_torch.launch.train",
+                 "repro_torch.core.residency", "repro_torch.models.moe"):
         assert want in mods, want
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",

@@ -38,6 +38,7 @@ from repro_torch.kernels.fused_block import (fused_block_cuda,
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_torch
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
 from repro_torch.models.attention import blocked_attention
+from torch_parity import chip_smoke
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -488,15 +489,6 @@ def test_flash_attention_variant_rule(dtype, hd, aligned, want):
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _chip_smoke():
-    import importlib.util
-    path = REPO / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _global_functions():
     pattern = re.compile(r"__global__\s+void\s+"
                          r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
@@ -508,7 +500,7 @@ def test_every_kernel_is_named_in_the_trace_names():
     """chip_smoke.py sums each wrapper's device time over the trace entries
     that name one of its kernels: a __global__ function missing there would
     drop its time silently."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     names = {n for names in smoke.TRACE_NAMES.values() for n in names}
     found = _global_functions()
     for source, kernels in found.items():
@@ -536,7 +528,7 @@ def test_chip_smoke_names_each_variant_it_expects():
     from repro_torch.kernels.flash_attention import VARIANTS as FA
     from repro_torch.kernels.fused_block import VARIANTS as FB
     from repro_torch.kernels.ssd_scan import VARIANTS as SS
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     known = {"flash_attention": set(FA), "fused_block": set(FB),
              "ssd_scan": set(SS)}
     for arch, serve in {**smoke.LM_SERVES, **smoke.LM_CHECKS}.items():

@@ -178,14 +178,6 @@ def test_mamba2_prefill_continued_from_a_cache_matches_jax():
     assert_logits_close(got, want, "mamba2 decode after it")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "moonshot-v1-16b-a3b", "whisper-base",
-                                  "llama-3.2-vision-11b"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError):
-        Model(port_smoke(arch), device="cpu")
-
-
 def test_prefill_from_a_later_position_raises():
     model = Model(port_smoke("gemma2-2b").replace(max_seq=32), device="cpu")
     model.init_weights(0)

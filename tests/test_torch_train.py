@@ -46,6 +46,7 @@ from repro_torch.launch.train import TrainConfig, train
 from repro_torch.models.layers import grad_fence
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from torch_parity import LM_PLAIN, chip_smoke, count_lm_calls
 
 ARCHS = ["smollm-360m", "gemma2-2b", "recurrentgemma-2b", "mamba2-2.7b"]
 LOSS_RTOL = 1e-5
@@ -556,48 +557,21 @@ def test_train_command_line_on_the_cpu(tmp_path, capsys):
 
 
 # ------------------------------------------------ chip_smoke.py's phase 7
-def _chip_smoke():
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-PLAIN = {"flash_attention": "flash_attention_torch",
-         "fused_block": "fused_block_torch", "ssd_scan": "ssd_scan_torch",
-         "rglru_scan": "rglru_scan_torch"}
-
-
-def count_calls(monkeypatch):
-    """Count the forwards ``kernels/ops.py`` hands to the Functions: on
-    the card each is one launch."""
-    calls = dict.fromkeys(PLAIN, 0)
-    for name, attr in PLAIN.items():
-        def wrapped(*a, _fn=getattr(ops, attr), _name=name, **kw):
-            calls[_name] += 1
-            return _fn(*a, **kw)
-        monkeypatch.setattr(ops, attr, wrapped)
-    return calls
-
-
 @pytest.mark.parametrize("remat", ["full", "none"])
 def test_a_train_step_runs_each_kernel_as_chip_smoke_pins_it(remat,
                                                             monkeypatch):
     """A step's forwards and backward of smollm-360m (smoke width, 3
     layers) run K6 and K7 once a layer, twice under remat="full" (the
     recomputation): ``TRAIN_LAUNCHES_PER_STEP`` per layer."""
-    smoke = _chip_smoke()
-    calls = count_calls(monkeypatch)
+    smoke = chip_smoke()
+    calls = count_lm_calls(monkeypatch)
     cfg = port_smoke("smollm-360m").replace(n_layers=3)
     model = Model(cfg, device="cpu", param_dtype=torch.float32)
     model.init_weights(0)
     loss_and_grads(model, batch_of(cfg, 8), remat=remat)
     per_layer = {k: v // 32 for k, v in smoke.TRAIN_LAUNCHES_PER_STEP.items()}
     twice = 1 if remat == "full" else 2
-    assert calls == {k: 3 * per_layer.get(k, 0) // twice for k in PLAIN}
+    assert calls == {k: 3 * per_layer.get(k, 0) // twice for k in LM_PLAIN}
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b",
@@ -613,9 +587,9 @@ def test_gradient_checks_run_each_kernel_as_chip_smoke_pins_it(arch,
     from repro_torch.kernels.fused_block import fused_block_variant
     from repro_torch.kernels.flash_attention import flash_attention_variant
     from repro_torch.kernels.ssd_scan import ssd_scan_variant
-    smoke = _chip_smoke()
+    smoke = chip_smoke()
     spec = smoke.GRAD_CHECKS[arch]
-    calls = count_calls(monkeypatch)
+    calls = count_lm_calls(monkeypatch)
     cfg = port_smoke(spec["arch"]).replace(n_layers=spec["n_layers"])
     model = Model(cfg, device="cpu", param_dtype=torch.float32)
     model.init_weights(0)

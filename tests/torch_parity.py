@@ -191,3 +191,36 @@ def assert_plans_equal(pp, rp, ctx):
     assert pp.candidate.latency_cycles == pp.latency.cycles, ctx
     assert pp.latency.cycles == pytest.approx(rp.latency.cycles,
                                               rel=R1_RTOL, abs=0), ctx
+
+
+# ------------------------------------------------ chip_smoke.py's pins
+def chip_smoke():
+    """``chip_smoke.py`` loaded as a module (its constants: the launch
+    counts it pins); nothing in it runs at import."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# each LM kernel's plain version in ``kernels/ops.py``
+LM_PLAIN = {"flash_attention": "flash_attention_torch",
+            "fused_block": "fused_block_torch", "ssd_scan": "ssd_scan_torch",
+            "rglru_scan": "rglru_scan_torch"}
+
+
+def count_lm_calls(monkeypatch) -> dict:
+    """Count the forwards ``kernels/ops.py`` hands to the LM kernels'
+    Functions (on the CPU their plain versions): on the card each is one
+    launch.  Returns the live ``{kernel: calls}``."""
+    from repro_torch.kernels import ops
+    calls = dict.fromkeys(LM_PLAIN, 0)
+    for name, attr in LM_PLAIN.items():
+        def wrapped(*a, _fn=getattr(ops, attr), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, attr, wrapped)
+    return calls
