@@ -201,13 +201,20 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                first; the median step (steps 2-12), tokens per second, peak
                memory; one more step of ``make_train_step`` traced, with
                CUDA events at its marks around the forward, backward and
-               optimizer and the device time by kernel.  (Phase 5 holds K6
+               optimizer and the device time by kernel; the step's model
+               FLOPs (``utils/costmodel.py::cell_cost``) and their share
+               of the bfloat16 dense peak at the median step (``mfu``).
+               The same run again under ``remat="dots"`` (the products
+               with no batch dimension and K7's output kept): exactly K6
+               64 and K7 32 a step, each loss within 1e-4 of the
+               ``"full"`` run's, the same numbers.  (Phase 5 holds K6
                and K7 at this run's bfloat16 shapes against their plain
                versions.)  Then float32 gradient checks at full width and
                cut depth (smollm-360m 2 layers, once more under
-               ``remat="full"``, recurrentgemma-2b 3, mamba2-2.7b 2; batch
-               2 x 512; ``GRAD_CHECKS``): the loss through the kernels
-               within 1e-5 (relative) of the loss under
+               ``remat="full"`` and once under ``remat="dots"``,
+               recurrentgemma-2b 3, also under ``"dots"``, mamba2-2.7b 2;
+               batch 2 x 512; ``GRAD_CHECKS``): the loss through the
+               kernels within 1e-5 (relative) of the loss under
                ``ops.plain_versions()`` without remat, each parameter's
                gradient within
                1e-3 of its largest magnitude, none missing, K6-K9 each
@@ -216,6 +223,13 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                a checkpoint and a fresh ``train()`` resuming at 3, losses
                at steps 3-5 within 1e-4; the checkpoint's bytes, read and
                write seconds, and its parameters equal to the 3-step run's.
+8. examples -- after phase 7: the four example twins
+               (``examples/{quickstart,serve_compile,serve_lm,train_lm}
+               _torch.py``) on the card at their defaults, each through its
+               ``main`` in this process, with its own launch counts and a
+               line with its wall seconds and its last printed line; the
+               service's cache and the trainer's checkpoints in fresh
+               directories under ``build/``.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -237,7 +251,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import io
 import os
+import runpy
 import subprocess
 import sys
 import time
@@ -1402,11 +1418,13 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
                           fa.flash_attention_torch(q, k, v, window=win))
     # K7's three bfloat16 products alone (cuBLAS), on its prefill's shapes:
     # no single PyTorch call computes the block, so this is `matmul_ms`
-    x_mm, _s, wg_mm, wu_mm, wd_mm, _p = prefill_x
-    h_mm = randn((B * S, ff), bf16)
+    def products_of(block_x):
+        x_mm, _s, wg_mm, wu_mm, wd_mm, _p = block_x
+        h_mm = randn((x_mm.shape[0], ff), bf16)
+        return lambda: (x_mm @ wg_mm, x_mm @ wu_mm, h_mm @ wd_mm)
 
-    def products():
-        return x_mm @ wg_mm, x_mm @ wu_mm, h_mm @ wd_mm
+    products = products_of(prefill_x)
+    decode_products = products_of(decode_x)
     timing = {
         "flash_attention": (
             lambda: fa.flash_attention_cuda(q, k, v, window=win),
@@ -1437,8 +1455,10 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     lib = [time_ms(library, reps=reps, warmup=1) for _ in range(2)]
     out["times"]["flash_attention"].update(library_ms=min(lib),
                                            library_max_abs_err=lib_err)
-    mm = [time_ms(products, reps=reps, warmup=1) for _ in range(2)]
-    out["times"]["fused_block"]["matmul_ms"] = min(mm)
+    for name, fn in (("fused_block", products),
+                     ("fused_block_decode", decode_products)):
+        mm = [time_ms(fn, reps=reps, warmup=1) for _ in range(2)]
+        out["times"][name]["matmul_ms"] = min(mm)
     variants = {"flash_attention": (fa.flash_attention_cuda, q, k, v),
                 "fused_block": (fb.fused_block_cuda, *prefill_x),
                 "fused_block_decode": (fb.fused_block_cuda, *decode_x)}
@@ -2250,11 +2270,22 @@ def compare_routes(kernel, plain) -> dict:
 TRAIN_ARCH = "smollm-360m"
 TRAIN_RUN = {"batch": 8, "seq": 512, "steps": 12,
              "opt": {"lr": 6e-4, "warmup_steps": 4, "total_steps": 12}}
+# the full run's remat policies, in the order phase 7 runs them (same
+# weights, same data: the second run's losses are held to the first's)
+TRAIN_REMATS = ("full", "dots")
+TRAIN_LOSS_TOL = 1e-4            # remat changes no value
 # launches a step: remat="full" runs each layer's forward again in the
 # backward, so K6 and K7 launch twice a layer (the forward and the
-# recomputation; their backwards are plain torch); bfloat16 with 16-byte
-# rows: all on the tensor cores
-TRAIN_LAUNCHES_PER_STEP = {"flash_attention": 2 * 32, "fused_block": 2 * 32}
+# recomputation; their backwards are plain torch); "dots" keeps K7's
+# output and runs K6 again; bfloat16 with 16-byte rows: all on the tensor
+# cores
+TRAIN_LAUNCHES_PER_STEP = {
+    "full": {"flash_attention": 2 * 32, "fused_block": 2 * 32},
+    "dots": {"flash_attention": 2 * 32, "fused_block": 32}}
+# the cost model's cell of the full run (``utils/costmodel.py::cell_cost``:
+# 4 forwards' FLOPs a step under remat="full", 3 otherwise), its FLOPs
+# over the bfloat16 dense peak: the run's model FLOPs utilisation
+TRAIN_CELL = ("smollm_train", 512, 8, "train")
 # the float32 gradient checks, full width, cut depth, each against plain
 # autograd with remat="none": each forward kernel once a layer, twice under
 # remat="full" (the per-layer checkpoint runs the layer again in the
@@ -2283,6 +2314,19 @@ GRAD_CHECKS = {
         "arch": "mamba2-2.7b", "n_layers": 2, "remat": "none",
         "launches": {"ssd_scan": 2},
         "by_variant": {"ssd_scan": {"simt": 2}}},
+    # "dots": K6 again in the recomputation, K7's output kept; K9 as under
+    # "full" (the forward, the recomputation and the backward)
+    "smollm-360m remat=dots": {
+        "arch": "smollm-360m", "n_layers": 2, "remat": "dots",
+        "launches": {"flash_attention": 4, "fused_block": 2},
+        "by_variant": {"flash_attention": {"simt": 4},
+                       "fused_block": {"simt_split": 2}}},
+    "recurrentgemma-2b remat=dots": {
+        "arch": "recurrentgemma-2b", "remat": "dots", "n_layers": 3,
+        "launches": {"flash_attention": 2, "fused_block": 3,
+                     "rglru_scan": 2 + 2 + 2},
+        "by_variant": {"flash_attention": {"simt": 2},
+                       "fused_block": {"simt_split": 3}}},
 }
 GRAD_BATCH = (2, 512)
 GRAD_LOSS_RTOL = 1e-5
@@ -2329,26 +2373,29 @@ def trace_groups(by_name: dict) -> dict:
     return groups
 
 
-def train_full_run() -> dict:
-    """``train()`` on smollm-360m at full width and depth (phase 7): the
-    counted main-path run, then one more step traced, with CUDA events
-    around its forward, backward and optimizer."""
+def train_full_run(remat: str) -> dict:
+    """``train()`` on smollm-360m at full width and depth under ``remat``
+    (phase 7): the counted main-path run, then one more step traced, with
+    CUDA events around its forward, backward and optimizer."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeCell
     from repro_torch.data.pipeline import SyntheticSource
     from repro_torch.kernels import (launch_counts, launch_counts_by_variant,
                                      reset_launch_counts)
     from repro_torch.launch.steps import STEP_MARKS, make_train_step
     from repro_torch.launch.train import TrainConfig, train
     from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.utils.costmodel import cell_cost
 
     cfg = train_config()
     dc = train_data(cfg)
     opt = AdamWConfig(**TRAIN_RUN["opt"])
     steps = TRAIN_RUN["steps"]
+    per_step = TRAIN_LAUNCHES_PER_STEP[remat]
     tc = TrainConfig(steps=steps, log_every=1, ckpt_every=steps + 1,
-                     ckpt_dir=str(fresh_dir("train_full")), seed=0,
-                     remat="full", opt=opt)
+                     ckpt_dir=str(fresh_dir(f"train_{remat}")), seed=0,
+                     remat=remat, opt=opt)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -2356,14 +2403,15 @@ def train_full_run() -> dict:
     counts = launch_counts()
     by_variant = launch_counts_by_variant()
     peak = torch.cuda.max_memory_allocated()
-    log(f"launches in {steps} train steps of {TRAIN_ARCH}: {counts}, by "
-        f"variant {by_variant}")
+    log(f"launches in {steps} train steps of {TRAIN_ARCH} under "
+        f"remat={remat!r}: {counts}, by variant {by_variant}")
     for name, n in counts.items():
-        want = steps * TRAIN_LAUNCHES_PER_STEP.get(name, 0)
-        require(n == want, f"training launched {name} {n} times, not {want}")
+        want = steps * per_step.get(name, 0)
+        require(n == want, f"training under remat={remat!r} launched {name} "
+                           f"{n} times, not {want}")
     require_variants(by_variant, {
-        name: {"tensor_core": steps * n}
-        for name, n in TRAIN_LAUNCHES_PER_STEP.items()}, "training")
+        name: {"tensor_core": steps * n} for name, n in per_step.items()},
+        f"training under remat={remat!r}")
     losses = [loss for _s, loss in out["losses"]]
     require(len(losses) == steps
             and all(math.isfinite(x) for x in losses)
@@ -2371,13 +2419,20 @@ def train_full_run() -> dict:
             f"training losses {losses}: not {steps} finite, falling ones")
     step_ms_each = [1e3 * t for t in out["step_s"]]
     median_s = sorted(out["step_s"][1:])[(steps - 1) // 2]
+    flops = cell_cost(cfg, ShapeCell(*TRAIN_CELL), 1, remat=remat).flops
 
     model, opt_state = out["model"], out["opt_state"]
     batch = SyntheticSource(dc).batch_at(steps)
     ev = {m: torch.cuda.Event(enable_timing=True) for m in STEP_MARKS}
-    step_fn = make_train_step(model, opt, remat="full",
-                              mark=lambda m: ev[m].record())
+    peaks = {}
+
+    def mark(m):
+        ev[m].record()
+        peaks[m] = torch.cuda.max_memory_allocated()
+
+    step_fn = make_train_step(model, opt, remat=remat, mark=mark)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step_fn(opt_state, batch)
         torch.cuda.synchronize()
@@ -2391,16 +2446,26 @@ def train_full_run() -> dict:
     return {
         "train": TRAIN_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": TRAIN_RUN["batch"], "seq": TRAIN_RUN["seq"],
-        "steps": steps, "remat": "full", "dtype": cfg.dtype,
+        "steps": steps, "remat": remat, "dtype": cfg.dtype,
         "param_dtype": "float32", "opt": TRAIN_RUN["opt"], "losses": losses,
         "step_ms": step_ms_each,
         "step_ms_median_2_to_12": 1e3 * median_s,
         "tokens_per_s": TRAIN_RUN["batch"] * TRAIN_RUN["seq"] / median_s,
         "peak_memory_bytes": peak, "launches": counts,
         "launches_by_variant": by_variant,
+        "model_flops_per_step": flops,
+        "model_flops_of": f"utils/costmodel.py::cell_cost(smollm-360m, "
+                          f"ShapeCell{TRAIN_CELL}, 1, remat={remat!r})",
+        "mfu": flops / median_s / PEAK_BF16_OPS_PER_S,
+        "mfu_peak": "PEAK_BF16_OPS_PER_S",
+        "mfu_peak_ops_per_s": PEAK_BF16_OPS_PER_S,
         "traced_step": {
             **parts, "step_ms": step_ms,
             "backward_share": parts["backward_ms"] / step_ms,
+            # the peak up to the end of the backward (the activations a
+            # remat policy keeps), and the step's (AdamW's temporaries)
+            "peak_memory_bytes_to_backward": peaks["backward"],
+            "peak_memory_bytes": peaks["optimizer"],
             "device_busy_ms": busy if by_name else "not measured",
             "by_group_device_ms": trace_groups(by_name)
             if by_name else "not measured",
@@ -2545,9 +2610,22 @@ def restart_check() -> dict:
 def train_phase() -> dict:
     """Phase 7 (see the module docstring)."""
     t0 = time.perf_counter()
-    full = train_full_run()
-    log(json.dumps(full))
-    log(f"  train run ({time.perf_counter() - t0:.1f} s)")
+    runs = {}
+    for remat in TRAIN_REMATS:
+        t1 = time.perf_counter()
+        runs[remat] = train_full_run(remat)
+        log(json.dumps(runs[remat]))
+        log(f"  train run under remat={remat!r} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    first = runs[TRAIN_REMATS[0]]["losses"]
+    for remat in TRAIN_REMATS[1:]:
+        errs = [abs(a - b) for a, b in zip(runs[remat]["losses"], first)]
+        require(max(errs) <= TRAIN_LOSS_TOL,
+                f"remat={remat!r}: losses {runs[remat]['losses']} are "
+                f"{max(errs):.3g} from remat={TRAIN_REMATS[0]!r}'s {first}")
+        log(f"  remat={remat!r} losses within {max(errs):.3g} of "
+            f"remat={TRAIN_REMATS[0]!r}'s, step by step (limit "
+            f"{TRAIN_LOSS_TOL})")
     checks = {}
     for check in GRAD_CHECKS:
         t1 = time.perf_counter()
@@ -2558,8 +2636,52 @@ def train_phase() -> dict:
     restart = restart_check()
     log(json.dumps(restart))
     log(f"  restart check ({time.perf_counter() - t1:.1f} s)")
-    return {"full": full, "grad_checks": checks, "restart": restart,
+    return {"runs": runs, "grad_checks": checks, "restart": restart,
             "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------- examples
+# the example twins, each run at its defaults (``--device`` is cuda by
+# default; only where it writes goes to a fresh directory under build/),
+# with the kernels it must launch: the quickstart's efficientnet-b1 is a
+# descent net, which the default options score on the host (phase 3), so
+# it launches none; resnet50's 8,748 tuples go through the pipeline (K1-K3)
+EXAMPLES = {
+    "quickstart_torch": ({}, ()),
+    "serve_compile_torch": ({"--cache-dir": "examples/plans"},
+                            ("alloc_scan", "enum_frames", "cost_rows")),
+    "serve_lm_torch": ({}, ("flash_attention", "fused_block", "rglru_scan")),
+    "train_lm_torch": ({"--ckpt-dir": "examples/train_lm"},
+                       ("flash_attention", "fused_block")),
+}
+
+
+def examples_phase() -> dict:
+    """Phase 8: each example twin's ``main`` on the card, its output
+    captured, with its wall seconds and launch counts."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rows = {}
+    for name, (dirs, needed) in EXAMPLES.items():
+        argv = [arg for flag, sub in dirs.items()
+                for arg in (flag, str(fresh_dir(sub)))]
+        main_fn = runpy.run_path(str(ROOT / "examples" / f"{name}.py"))["main"]
+        out = io.StringIO()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_fn(argv)
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in launch_counts().items() if n}
+        lines = out.getvalue().splitlines()
+        require(lines and all(counts.get(k) for k in needed),
+                f"{name}: printed {len(lines)} lines, launched {counts}, "
+                f"not each of {needed}")
+        rows[name] = {"example": name, "argv": argv, "wall_s": wall,
+                      "launches": counts, "lines": len(lines),
+                      "last_line": lines[-1]}
+        log(json.dumps(rows[name]))
+    return rows
 
 
 # ---------------------------------------------------------------- main path
@@ -3440,6 +3562,11 @@ def main(argv=None) -> int:
     trained = train_phase()
     log(f"train phase ({trained['seconds']:.1f} s)")
 
+    # ---- phase 8: the example twins at their defaults
+    t0 = time.perf_counter()
+    examples_phase()
+    log(f"examples phase ({time.perf_counter() - t0:.1f} s)")
+
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
@@ -3551,9 +3678,10 @@ def main(argv=None) -> int:
             entry["earlier_design_ms"] = t["earlier_design_ms"]
             entry["earlier_design"] = ("the SIMT kernel on the same "
                                        "bfloat16 inputs")
-        if name in TRAIN_LAUNCHES_PER_STEP:
-            entry["launches_in_train_phase"] = trained["full"]["launches"][
-                name]
+        if name in TRAIN_LAUNCHES_PER_STEP["full"]:
+            entry["launches_in_train_phase"] = {
+                remat: run["launches"][name]
+                for remat, run in trained["runs"].items()}
         entry["launches_in_grad_checks"] = {
             a: c["launches"].get(name, 0)
             for a, c in trained["grad_checks"].items()}

@@ -13,10 +13,19 @@ plain versions run on the card as well, under ordinary autograd, so that a
 whole model -- its loss and its gradients -- can be held against itself,
 kernels against plain versions, on the same weights.  ``launch/serve.py``
 and ``launch/train.py`` never enter it.
-"""
-from __future__ import annotations
 
+Each kernel is also an operator of its own, ``torch.ops.repro_torch.<name>``
+(registered once, when this module is imported), whose body is that
+choice by device.  The dispatcher then sees a launch as one op, where it
+would otherwise see only the output's ``torch.empty`` (the launch itself is
+a ``ctypes`` call): so the training path's selective checkpoint
+(``remat="dots"``, ``models/transformer.py::apply_stack``) can keep a
+kernel's output, or run the kernel again, by the op's name, on the card
+and on the CPU alike.
+"""
 import contextlib
+
+import torch
 
 from repro_torch.kernels.autograd import (FlashAttention, FusedBlock,
                                           RGLRUScan, SSDScan)
@@ -41,6 +50,57 @@ def plain_versions():
         _PLAIN = before
 
 
+# ------------------------------------------------- the kernels as operators
+# Defined with ``torch.library.Library`` (a schema and one Python body for
+# every device, ``CompositeExplicitAutograd``), which costs a call a few
+# microseconds on the host where ``torch.library.custom_op`` costs tens.
+# Each body picks the kernel for CUDA tensors and the plain version for CPU
+# ones, looking the two up in this module when it runs; none returns a
+# tensor that aliases an input.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("fused_block(Tensor x, Tensor scale, Tensor? w_gate, "
+            "Tensor w_up, Tensor w_down, Tensor? post_scale, *, str act, "
+            "bool gated, bool sandwich) -> Tensor")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, *, bool causal, "
+            "int window, float softcap) -> Tensor")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+            "Tensor D, Tensor? h0, *, int chunk) -> (Tensor, Tensor)")
+_LIB.define("rglru_scan(Tensor a, Tensor b) -> Tensor")
+
+
+def _fused_block(x, scale, w_gate, w_up, w_down, post_scale, *, act, gated,
+                 sandwich):
+    fn = fused_block_cuda if x.is_cuda else fused_block_torch
+    return fn(x, scale, w_gate, w_up, w_down, post_scale, act=act,
+              gated=gated, sandwich=sandwich)
+
+
+def _flash_attention(q, k, v, *, causal, window, softcap):
+    fn = flash_attention_cuda if q.is_cuda else flash_attention_torch
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _ssd_scan(x, dt, A, Bm, Cm, D, h0, *, chunk):
+    fn = ssd_scan_cuda if x.is_cuda else ssd_scan_torch
+    return fn(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+
+
+def _rglru_scan(a, b):
+    fn = rglru_scan_cuda if a.is_cuda else rglru_scan_torch
+    return fn(a, b)
+
+
+_LIB.impl("fused_block", _fused_block, "CompositeExplicitAutograd")
+_LIB.impl("flash_attention", _flash_attention, "CompositeExplicitAutograd")
+_LIB.impl("ssd_scan", _ssd_scan, "CompositeExplicitAutograd")
+_LIB.impl("rglru_scan", _rglru_scan, "CompositeExplicitAutograd")
+fused_block_op = torch.ops.repro_torch.fused_block.default
+flash_attention_op = torch.ops.repro_torch.flash_attention.default
+ssd_scan_op = torch.ops.repro_torch.ssd_scan.default
+rglru_scan_op = torch.ops.repro_torch.rglru_scan.default
+
+
+# ------------------------------------------------------- the entry points
 def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                 act="silu", gated=True, sandwich=False):
     """K7: ``x + [post_norm](act(n @ Wg) * (n @ Wu)) @ Wd`` on ``x [M, d]``."""
@@ -48,9 +108,8 @@ def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, *,
     if _PLAIN:
         return fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale,
                                  **kw)
-    fn = fused_block_cuda if x.is_cuda else fused_block_torch
-    return FusedBlock.apply(fn, kw, x, scale, w_gate, w_up, w_down,
-                            post_scale)
+    return FusedBlock.apply(fused_block_op, kw, x, scale, w_gate, w_up,
+                            w_down, post_scale)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
@@ -59,16 +118,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     kw = dict(causal=causal, window=window, softcap=softcap)
     if _PLAIN:
         return flash_attention_torch(q, k, v, **kw)
-    fn = flash_attention_cuda if q.is_cuda else flash_attention_torch
-    return FlashAttention.apply(fn, kw, q, k, v)
+    return FlashAttention.apply(flash_attention_op, kw, q, k, v)
 
 
 def rglru_scan(a, b):
     """K9: ``h_t = a_t * h_{t-1} + b_t`` from ``h_{-1} = 0``."""
     if _PLAIN:
         return rglru_scan_torch(a, b)
-    fn = rglru_scan_cuda if a.is_cuda else rglru_scan_torch
-    return RGLRUScan.apply(fn, a, b)
+    return RGLRUScan.apply(rglru_scan_op, a, b)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, D, h0=None, *, chunk):
@@ -76,5 +133,4 @@ def ssd_scan(x, dt, A, Bm, Cm, D, h0=None, *, chunk):
     returns ``(y, final_state)``."""
     if _PLAIN:
         return ssd_scan_torch(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
-    fn = ssd_scan_cuda if x.is_cuda else ssd_scan_torch
-    return SSDScan.apply(fn, chunk, x, dt, A, Bm, Cm, D, h0)
+    return SSDScan.apply(ssd_scan_op, chunk, x, dt, A, Bm, Cm, D, h0)

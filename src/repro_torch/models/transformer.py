@@ -24,16 +24,22 @@ cross-attention alike; a decode step attends in torch.  The sharding
 context (``set_mesh_axes``, ``shard_hidden``) is dropped: the port runs on
 one card.
 
-Training (no cache) rematerialises each layer under ``remat="full"``
-(``torch.utils.checkpoint``, non-reentrant), where the JAX package remats
-each group of the scan: the same function, recomputed per layer, tail
-layers included.  A layer's kernels launch again in its recomputation.
+Training (no cache) rematerialises each layer under ``remat="full"`` or
+``"dots"`` (``torch.utils.checkpoint``, non-reentrant), where the JAX
+package remats each group of the scan: the same function, recomputed per
+layer, tail layers included.  Under ``"full"`` a layer's kernels launch
+again in its recomputation; ``"dots"`` keeps the products without a batch
+dimension and K7's output (``apply_stack`` states the policy op by op).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (blocked_attention, cache_update,
@@ -48,7 +54,10 @@ from repro_torch.models.rglru import init_rglru_state, rglru_apply, rglru_defs
 
 PORTED_KINDS = ("global", "local", "recurrent", "ssm", "cross", "enc",
                 "encdec")
-REMAT = ("full", "none")
+REMAT = ("full", "dots", "none")
+# what remat="dots" keeps of a layer's forward (see ``apply_stack``)
+DOTS_KEPT = frozenset((torch.ops.aten.mm.default,
+                       torch.ops.aten.addmm.default, ops.fused_block_op))
 
 
 # ------------------------------------------------------------- definitions
@@ -252,6 +261,14 @@ def _layer_output(layer: Layer, x: torch.Tensor, cfg, ctx):
     return apply_layer(layer, x, cfg, ctx=ctx)[::2]
 
 
+def _dots_policy(_ctx, op, *_args, **_kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_KEPT
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_contexts = partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 # ------------------------------------------------------------- caches
 def layer_cache(cfg, kind: str, batch: int, max_len: int,
                 dtype=torch.bfloat16, device="cpu"):
@@ -318,21 +335,59 @@ def apply_stack(layers: nn.ModuleList, x: torch.Tensor, cfg, *,
     MoE layers' aux losses summed in depth order (a float32 scalar), None
     for a stack without experts.
 
-    ``remat="full"`` (without a cache) recomputes each layer in the
-    backward instead of keeping its activations; ``"dots"`` (the JAX
-    package's policy of keeping the products) is not ported."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the products, recompute the rest) is not "
-            "ported; use 'full' or 'none'")
+    Without a cache (training), ``remat`` says what the backward gets of
+    each layer's forward:
+
+    * ``"none"``: every activation autograd saves;
+    * ``"full"``: the layer's input alone; the backward runs the layer
+      again (``torch.utils.checkpoint``, non-reentrant), each kernel with
+      it;
+    * ``"dots"``: the JAX package's ``checkpoint_dots_with_no_batch_dims``
+      -- the same checkpoint, made selective
+      (``create_selective_checkpoint_contexts``): the recomputation takes
+      the outputs of the ops in ``DOTS_KEPT`` from the forward and runs
+      every other op again.  Op by op:
+
+      - kept: ``aten.mm`` and ``aten.addmm``, the products with no batch
+        dimension: every projection ``h @ W`` (attention's q, k, v and
+        output; the RG-LRU block's two input branches and its output; the
+        SSM block's four input projections and its output; the MoE
+        router), which ``torch.matmul`` of ``[B, S, d]`` by ``[d, k]``
+        reaches as one ``mm``;
+      - kept: ``repro_torch::fused_block``, K7 (the MLP, whose three
+        products have no batch dimension, with its norm and residual), so
+        K7 launches once a layer;
+      - run again: ``repro_torch::flash_attention``, K6 (attention's
+        products have batch and head dimensions, as the JAX package's
+        einsums, which its policy recomputes); ``repro_torch::ssd_scan``
+        (K8) and ``repro_torch::rglru_scan`` (K9); ``aten.bmm``, the
+        batched products (the RG-LRU's block-diagonal gates, batched over
+        blocks; the MoE experts, over experts); and every norm, rotation,
+        convolution, cast, activation and elementwise op.
+
+      The kernels are operators of their own (``kernels/ops.py``) on the
+      card and on the CPU, where their bodies run the plain versions:
+      the policy sees the same ops on both devices and never the products
+      inside a plain version.  The backwards are unchanged
+      (``kernels/autograd.py``: K6-K8 recompute their training functions
+      from their saved inputs, K9 runs the reversed scan), so the
+      gradients equal ``"none"``'s and ``"full"``'s.  The selective
+      checkpoint is a dispatch mode: every op of the layer passes through
+      Python in the forward and again in the recomputation, which on a
+      step bound by the host costs more than the recomputation it saves
+      (``PERF.md`` §6).
+
+    With a cache (serving) ``remat`` is ignored."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
     aux = None
     new_cache = None if cache is None else []
     for i, layer in enumerate(layers):
-        if cache is None and remat == "full":
+        if cache is None and remat != "none":
             x, a = checkpoint(_layer_output, layer, x, cfg, ctx,
-                              use_reentrant=False)
+                              use_reentrant=False,
+                              context_fn=(_dots_contexts if remat == "dots"
+                                          else noop_context_fn))
         else:
             x, c, a = apply_layer(layer, x, cfg,
                                   cache=None if cache is None else cache[i],

@@ -18,7 +18,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _port_modules():
@@ -95,8 +96,12 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.kernels.autograd", "repro_torch.data.pipeline",
                  "repro_torch.optim.adamw", "repro_torch.optim.compression",
                  "repro_torch.launch.steps", "repro_torch.launch.train",
-                 "repro_torch.core.residency", "repro_torch.models.moe"):
+                 "repro_torch.core.residency", "repro_torch.models.moe",
+                 "repro_torch.utils", "repro_torch.utils.costmodel"):
         assert want in mods, want
+    twins = {p.name for p in (ROOT / "examples").glob("*_torch.py")}
+    assert twins == {"quickstart_torch.py", "serve_compile_torch.py",
+                     "serve_lm_torch.py", "train_lm_torch.py"}
     csrc = {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")}
     assert csrc == {"alloc_scan.cu", "search_pipeline.cu", "score_batch.cu",
                     "flash_attention.cu", "flash_attention_tc.cu",

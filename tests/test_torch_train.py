@@ -13,11 +13,14 @@ within 1e-4 (absolute; float32 sums in other orders than XLA's).  On the
 CPU each kernel's ``autograd.Function`` runs with the plain version in the
 kernel's place, so the backward code the card runs is the one tested here.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.checkpoint.checkpoint as jax_ckpt
 import repro.models.model as jax_model
@@ -109,24 +112,26 @@ def batch_of(cfg, seed, b=2, s=37):
 
 
 # ------------------------------------------------------------ loss, grads
+@pytest.mark.parametrize("remat", ["full", "dots"])
 @pytest.mark.parametrize("chunked", [False, True],
                          ids=["one_chunk", "ragged_chunks"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_gradients_match_jax(arch, chunked, monkeypatch):
+def test_loss_and_gradients_match_jax(arch, chunked, remat, monkeypatch):
     """``Model.loss`` and every parameter's gradient against
-    ``jax.value_and_grad(model.loss)`` (labels -1 masked).  ``ragged_chunks``
-    sets both packages' ``LOSS_CHUNK`` to 32: chunks of 16 tokens at batch
-    2, so 37 tokens make two chunks and a remainder of 5."""
+    ``jax.value_and_grad(model.loss)`` (labels -1 masked), both under the
+    same ``remat``.  ``ragged_chunks`` sets both packages' ``LOSS_CHUNK``
+    to 32: chunks of 16 tokens at batch 2, so 37 tokens make two chunks
+    and a remainder of 5."""
     cfg, jmodel, params = jax_side(arch)
     if chunked:
         monkeypatch.setattr(jax_model, "LOSS_CHUNK", 32)
         monkeypatch.setattr(port_model, "LOSS_CHUNK", 32)
     batch = batch_of(cfg, 3)
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
-        jmodel.loss, has_aux=True))(params, {k: jnp.asarray(v)
-                                             for k, v in batch.items()})
+        functools.partial(jmodel.loss, remat=remat), has_aux=True))(
+            params, {k: jnp.asarray(v) for k, v in batch.items()})
     model = port_side(arch, params)
-    loss, metrics, grads = loss_and_grads(model, batch)
+    loss, metrics, grads = loss_and_grads(model, batch, remat=remat)
     assert loss.item() == pytest.approx(float(jloss), rel=LOSS_RTOL)
     assert metrics["nll"].item() == pytest.approx(float(jmetrics["nll"]),
                                                   rel=LOSS_RTOL)
@@ -135,24 +140,78 @@ def test_loss_and_gradients_match_jax(arch, chunked, monkeypatch):
                        GRAD_TOL, f"{arch} gradient")
 
 
-def test_remat_full_equals_none():
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_full_equals_none(remat):
+    """Remat changes what the backward keeps, never a value: the loss and
+    every gradient under ``remat`` equal ``"none"``'s."""
     cfg, _, params = jax_side("recurrentgemma-2b")
     model = port_side("recurrentgemma-2b", params)
     batch = batch_of(cfg, 5)
-    full = loss_and_grads(model, batch, remat="full")
+    full = loss_and_grads(model, batch, remat=remat)
     none = loss_and_grads(model, batch, remat="none")
     assert torch.equal(full[0], none[0])
     for name in full[2]:
         assert torch.equal(full[2][name], none[2][name]), name
 
 
-def test_remat_dots_is_not_ported():
+def test_remat_rejects_an_unknown_policy():
     cfg, _, params = jax_side("smollm-360m")
     model = port_side("smollm-360m", params)
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.loss(batch_of(cfg, 1), remat="dots")
     with pytest.raises(ValueError, match="remat"):
         model.loss(batch_of(cfg, 1), remat="all")
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts every op the dispatcher runs inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[str(func)] = self.counts.get(str(func), 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def backward_ops(model, batch, remat) -> dict:
+    """The ops ``torch.autograd.grad`` runs for the loss under ``remat``
+    (the recomputation included), with the loss and the gradients."""
+    params = train_params(model)
+    loss, _ = model.loss(batch, remat=remat)
+    with OpCounter() as seen:
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return seen.counts, loss, grads
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_dots_recomputes_no_projection(arch):
+    """Under ``"dots"`` the backward runs as many products with no batch
+    dimension (``aten.mm`` / ``aten.addmm``) as under ``"none"``, which
+    recomputes nothing: every projection of the forward is kept, and K7
+    (``repro_torch::fused_block``) is not run again.  Under ``"full"`` the
+    recomputation runs the projections and K7 again.  The gradients of
+    all three are equal."""
+    cfg, _, params = jax_side(arch)
+    model = port_side(arch, params)
+    batch = batch_of(cfg, 11)
+    runs = {remat: backward_ops(model, batch, remat)
+            for remat in ("none", "dots", "full")}
+
+    def products(remat):
+        counts = runs[remat][0]
+        return (counts.get("aten.mm.default", 0)
+                + counts.get("aten.addmm.default", 0))
+
+    assert products("dots") == products("none") > 0
+    assert products("full") > products("none")
+    k7 = "repro_torch.fused_block.default"
+    assert k7 not in runs["dots"][0] and k7 not in runs["none"][0]
+    if arch != "mamba2-2.7b":                  # the ssm layers have no MLP
+        assert runs["full"][0][k7] == cfg.n_layers
+    for remat in ("dots", "full"):
+        assert torch.equal(runs[remat][1], runs["none"][1])
+        for a, b in zip(runs[remat][2], runs["none"][2]):
+            assert torch.equal(a, b), remat
 
 
 def test_train_batch_spec():
@@ -557,30 +616,37 @@ def test_train_command_line_on_the_cpu(tmp_path, capsys):
 
 
 # ------------------------------------------------ chip_smoke.py's phase 7
-@pytest.mark.parametrize("remat", ["full", "none"])
+@pytest.mark.parametrize("remat", ["full", "dots", "none"])
 def test_a_train_step_runs_each_kernel_as_chip_smoke_pins_it(remat,
                                                             monkeypatch):
     """A step's forwards and backward of smollm-360m (smoke width, 3
-    layers) run K6 and K7 once a layer, twice under remat="full" (the
-    recomputation): ``TRAIN_LAUNCHES_PER_STEP`` per layer."""
+    layers) run K6 and K7 as ``TRAIN_LAUNCHES_PER_STEP[remat]`` pins them
+    for 32 layers: K6 and K7 twice a layer under remat="full" (the
+    recomputation), K6 twice and K7 once under "dots" (K7's output kept),
+    each once without remat."""
     smoke = chip_smoke()
     calls = count_lm_calls(monkeypatch)
     cfg = port_smoke("smollm-360m").replace(n_layers=3)
     model = Model(cfg, device="cpu", param_dtype=torch.float32)
     model.init_weights(0)
     loss_and_grads(model, batch_of(cfg, 8), remat=remat)
-    per_layer = {k: v // 32 for k, v in smoke.TRAIN_LAUNCHES_PER_STEP.items()}
-    twice = 1 if remat == "full" else 2
-    assert calls == {k: 3 * per_layer.get(k, 0) // twice for k in LM_PLAIN}
+    per_layer = ({"flash_attention": 1, "fused_block": 1} if remat == "none"
+                 else {k: v // 32 for k, v in
+                       smoke.TRAIN_LAUNCHES_PER_STEP[remat].items()})
+    assert calls == {k: 3 * per_layer.get(k, 0) for k in LM_PLAIN}
+    assert smoke.TRAIN_LAUNCHES_PER_STEP["dots"] == {
+        "flash_attention": 2 * 32, "fused_block": 32}
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "recurrentgemma-2b",
-                                  "mamba2-2.7b", "smollm-360m remat=full"])
+                                  "mamba2-2.7b", "smollm-360m remat=full",
+                                  "smollm-360m remat=dots",
+                                  "recurrentgemma-2b remat=dots"])
 def test_gradient_checks_run_each_kernel_as_chip_smoke_pins_it(arch,
                                                               monkeypatch):
     """The gradient checks' launch counts (``GRAD_CHECKS`` under each
-    check's remat: "full" runs each layer again in the backward; K9 again
-    in the backward) on the smoke configs at the same depth; and the
+    check's remat: "full" runs each layer again in the backward, "dots"
+    each layer but its K7; K9 again in the backward) on the smoke configs at the same depth; and the
     variants they pin are those the fixed rules give float32 at the full
     configs' shapes (batch 2 x 512 on 132 SMs)."""
     from repro_torch.configs import get_config
