@@ -230,6 +230,33 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                line with its wall seconds and its last printed line; the
                service's cache and the trainer's checkpoints in fresh
                directories under ``build/``.
+9. mesh     -- after phase 8: ``launch/dryrun.py`` on both production
+               meshes (the 32 valid cells each, analytic; the fit judged
+               against this card's memory), one line a cell; its per-device
+               parameter and cache bytes of recurrentgemma-2b's and
+               whisper-base's phase-5 serves on a 1 x 1 mesh, each part
+               on its own: the bytes of the tensors placed equal to the
+               prediction (the cache's position, a host int, aside), and
+               the rise in ``torch.cuda.memory_allocated()`` equal to the
+               caching allocator's blocks of those tensors in its
+               snapshot and within the allocator's computed rounding
+               bound; the total within 1 %.  Then an NCCL process group
+               of one rank from a ``FileStore`` (``device_id`` cuda:0), in
+               which recurrentgemma-2b is served whole (batch 2, 512 + 8
+               tokens) on mesh (1, 1) -- its plan is FSDP, every weight
+               read through an all-gather -- and without a mesh: tokens
+               and logits bit-equal, the same launches (K6, K7 and K9
+               among them), then each once more under ``torch.profiler``
+               (a line of where the two serves' host and device time
+               go); and smollm-360m trained whole as phase 7 trains it,
+               3 steps under ``remat="full"``, on mesh (1, 1) with FSDP
+               forced on and without a mesh: every loss bit-equal, the
+               same launches (K6, K7); a checkpoint of the mesh run's
+               state then raises the device's peak by less than the
+               model's float32 parameters (one leaf gathered at a time).
+               The group is destroyed before the phase ends; the
+               ``kernels`` line gains each kernel's
+               ``launches_in_mesh_phase``.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -2684,6 +2711,316 @@ def examples_phase() -> dict:
     return rows
 
 
+# -------------------------------------------------------------------- mesh
+# phase 9: the dry-run's memory model against the card at phase 5's serve
+# shapes of these, within MESH_MEMORY_TOL of the rise in allocated bytes
+MESH_MEMORY_ARCHS = ("recurrentgemma-2b", "whisper-base")
+MESH_MEMORY_TOL = 0.01
+# a mesh of one rank (NCCL, world 1) against no mesh: recurrentgemma-2b
+# served whole (its plan on 1 x 1 is FSDP: every weight read through an
+# all-gather of one rank), and smollm-360m trained whole as phase 7 trains
+# it, with FSDP forced on (the gathers in the forward and the
+# recomputation, the reduce-scatters in the backward); each bit-equal to
+# the meshless run, with the same launches of these kernels
+MESH_SERVE = ("recurrentgemma-2b",
+              {"batch": 2, "prompt_len": 512, "gen_len": 8})
+MESH_SERVE_KERNELS = ("flash_attention", "fused_block", "rglru_scan")
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_KERNELS = ("flash_attention", "fused_block")
+
+
+def allocator_bound(sizes) -> int:
+    """The most that ``torch.cuda.memory_allocated()`` rises by when
+    tensors of ``sizes`` bytes are allocated: the caching allocator rounds
+    each request up to 512 B, and gives a request above 1 MiB the rest of
+    its block too when that rest is 1 MiB or less (it splits a large
+    block only for a larger rest)."""
+    mib = 1 << 20
+    return sum(-(-max(n, 1) // 512) * 512 + (mib if n > mib else 0)
+               for n in sizes)
+
+
+def allocator_blocks(storages: dict) -> tuple[int, int]:
+    """The sizes and requested sizes, summed, of the caching allocator's
+    blocks (``torch.cuda.memory_snapshot()``) that start at the
+    addresses of ``storages`` (``{data_ptr: nbytes}``)."""
+    import torch
+
+    size = requested = 0
+    found = set()
+    for seg in torch.cuda.memory_snapshot():
+        for block in seg["blocks"]:
+            if (block["state"] == "active_allocated"
+                    and block["address"] in storages):
+                found.add(block["address"])
+                size += block["size"]
+                requested += block["requested_size"]
+    require(found == set(storages),
+            f"{len(set(storages) - found)} of {len(storages)} storages have "
+            f"no block in the allocator's snapshot")
+    return size, requested
+
+
+def mesh_memory(arch: str) -> dict:
+    """The dry-run's per-device parameter and cache bytes of ``arch``'s
+    phase-5 serve on a 1 x 1 mesh against what placing them allocates,
+    each part on its own: the tensors' bytes equal the prediction, and
+    the rise in ``torch.cuda.memory_allocated()`` is the allocator's
+    blocks of them, within ``allocator_bound``; the total within
+    ``MESH_MEMORY_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.models.model import Model
+
+    shape = LM_SERVES[arch]["shape"]
+    batch, max_len = shape["batch"], shape["prompt_len"] + shape["gen_len"]
+    cfg = get_config(arch).replace(max_seq=max_len)
+    mesh = make_host_mesh()
+    want = dryrun.cell_bytes(cfg, ShapeCell("serve", max_len, batch,
+                                            "decode"), mesh,
+                             make_plan(cfg, mesh))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    rise_params = torch.cuda.memory_allocated() - before
+    cache = model.init_cache(batch, max_len)
+    torch.cuda.synchronize()
+    rise_cache = torch.cuda.memory_allocated() - before - rise_params
+
+    def tensors(node):
+        if isinstance(node, torch.Tensor):
+            yield node
+        elif isinstance(node, dict):
+            for v in node.values():
+                yield from tensors(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                yield from tensors(v)
+
+    parts = {}
+    # the cache's position: a host int here, the reference's int32 scalar
+    # in the prediction
+    for part, ts, rise, predicted in (
+            ("params", list(model.parameters()), rise_params,
+             want["params"]),
+            ("cache", list(tensors(cache)), rise_cache, want["cache"] - 4)):
+        placed = sum(t.numel() * t.element_size() for t in ts)
+        storages = {t.untyped_storage().data_ptr():
+                    t.untyped_storage().nbytes() for t in ts
+                    if t.untyped_storage().nbytes()}
+        blocks, requested = allocator_blocks(storages)
+        bound = allocator_bound(storages.values())
+        require(placed == predicted,
+                f"{arch}: the dry-run predicts {predicted} B of {part}, "
+                f"the port places {placed} B")
+        require(requested == sum(storages.values()) and rise == blocks
+                and placed <= rise <= bound,
+                f"{arch}: placing {placed} B of {part} raised the "
+                f"allocated bytes by {rise}; its blocks {blocks} B "
+                f"(requested {requested} B), the allocator's bound {bound}")
+        parts[part] = {"predicted_bytes": predicted, "placed_bytes": placed,
+                       "allocated_rise_bytes": rise,
+                       "allocator_blocks_bytes": blocks,
+                       "allocator_bound_bytes": bound,
+                       "rounding_bytes": rise - placed,
+                       "tensors": len(storages)}
+    del model, cache
+    predicted = want["params"] + want["cache"]
+    rise = rise_params + rise_cache
+    err = abs(rise - predicted) / predicted
+    require(err <= MESH_MEMORY_TOL,
+            f"{arch}: the dry-run predicts {predicted} B of parameters and "
+            f"cache, placing them allocated {rise} B (off by {err:.4f})")
+    return {"arch": arch, "batch": batch, "max_len": max_len, **{
+        f"{part}_{k}": v for part, row in parts.items()
+        for k, v in row.items()},
+            "predicted_bytes": predicted, "allocated_rise_bytes": rise,
+            "relative_error": err}
+
+
+def profile_summary(run, top: int = 8) -> dict:
+    """``run()`` once under ``torch.profiler`` (CPU and CUDA): its wall,
+    the device time in kernels and the ops with the most host and the
+    most device time (self), in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+
+    def dev(r):
+        return getattr(r, "self_device_time_total",
+                       getattr(r, "self_cuda_time_total", 0))
+
+    def pick(key):
+        return [{"op": r.key, "calls": r.count, "ms": key(r) / 1e3}
+                for r in sorted(rows, key=key, reverse=True)[:top]
+                if key(r) > 0]
+
+    nccl = [r for r in rows if "nccl" in r.key.lower()
+            or r.key.startswith("c10d::")]
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(dev(r) for r in rows) / 1e3,
+            "collective_calls": sum(r.count for r in nccl
+                                    if r.key.startswith("c10d::")),
+            "collective_host_ms": sum(r.self_cpu_time_total for r in nccl
+                                      if r.key.startswith("c10d::")) / 1e3,
+            "collective_device_ms": sum(dev(r) for r in nccl) / 1e3,
+            "top_host": pick(lambda r: r.self_cpu_time_total),
+            "top_device": pick(dev)}
+
+
+def mesh_compare(what: str, run, kernels) -> dict:
+    """``run(mesh)`` with no mesh and on a 1 x 1 mesh, each with its own
+    launch counts; the two launch the same kernels the same times."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+
+    outs, counts, walls = {}, {}, {}
+    for name, mesh in (("no_mesh", None), ("mesh", make_host_mesh())):
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = run(mesh)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = launch_counts()
+    require(counts["mesh"] == counts["no_mesh"]
+            and all(counts["mesh"][k] > 0 for k in kernels),
+            f"{what}: launches {counts['mesh']} on the mesh, "
+            f"{counts['no_mesh']} without")
+    return {"outs": outs, "launches": counts["mesh"], "wall_s": walls}
+
+
+def mesh_checkpoint_peak(cfg, out: dict) -> dict:
+    """A checkpoint's tree of a mesh train's result
+    (``train.py::checkpoint_tree``): the rise of the device's peak while
+    it is gathered, below the model's float32 parameters."""
+    import torch
+    from repro_torch.launch.train import checkpoint_tree
+
+    sizes = [p.numel() * 4 for p in out["model"].parameters()]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree = checkpoint_tree(cfg, out["model"], out["opt_state"], out["run"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    require(tree is not None and peak < sum(sizes),
+            f"a checkpoint of the mesh train raised the device's peak by "
+            f"{peak} B, the parameters are {sum(sizes)} B")
+    return {"mesh_checkpoint": cfg.name, "peak_rise_bytes": peak,
+            "param_bytes": sum(sizes), "largest_leaf_bytes": max(sizes),
+            "seconds": seconds}
+
+
+def mesh_phase() -> dict:
+    """Phase 9 (see the module docstring)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, valid_cells
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.launch.sharding import force_fsdp, make_plan
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t0 = time.perf_counter()
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    log(f"  mesh: the card's total_memory {total_memory} B, "
+        f"dryrun.H100_HBM_BYTES {dryrun.H100_HBM_BYTES} B")
+    cells = [dryrun.run_cell(arch, shape, multi_pod=mp, device="cuda")
+             for arch, shape in valid_cells() for mp in (False, True)]
+    for res in cells:
+        log(f"  dryrun {dryrun.cell_line(res)}")
+    require(len(cells) == 64, f"the dry-run planned {len(cells)} cells")
+    dry_s = time.perf_counter() - t0
+    memory = {arch: mesh_memory(arch) for arch in MESH_MEMORY_ARCHS}
+    for row in memory.values():
+        log(f"  {json.dumps(row)}")
+
+    store = fresh_dir("mesh_store")
+    store.mkdir(parents=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(store / "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        arch, shape = MESH_SERVE
+        cfg = get_config(arch)
+        sc = ServeConfig(**shape, seed=0)
+        plan = make_plan(cfg, make_host_mesh())
+        served = mesh_compare(
+            f"serve of {arch}",
+            lambda mesh: serve(cfg, sc, mesh=mesh), MESH_SERVE_KERNELS)
+        a, b = served["outs"]["no_mesh"], served["outs"]["mesh"]
+        require(np.array_equal(a["tokens"], b["tokens"])
+                and torch.equal(a["logits"], b["logits"]),
+                f"serve of {arch} on a 1 x 1 mesh: tokens or logits differ "
+                f"from the meshless serve's (max abs "
+                f"{float((a['logits'] - b['logits']).abs().max())})")
+        serve_row = {"mesh_serve": arch, **shape, "plan": plan.kind,
+                     "fsdp": plan.fsdp, "launches": served["launches"],
+                     "wall_s": served["wall_s"], "tokens_equal": True,
+                     "logits_bit_equal": True,
+                     "tokens_row0": a["tokens"][0].tolist()}
+        del served, a, b
+        log(json.dumps(serve_row))
+        for name, mesh in (("no_mesh", None), ("mesh", make_host_mesh())):
+            log(json.dumps({"mesh_serve_profile": name, **profile_summary(
+                lambda: serve(cfg, sc, mesh=mesh))}))
+
+        tcfg = train_config()
+        tplan = force_fsdp(make_plan(tcfg, make_host_mesh()))
+
+        def train_run(mesh):
+            tc = TrainConfig(steps=MESH_TRAIN_STEPS, log_every=1,
+                             ckpt_every=MESH_TRAIN_STEPS + 1,
+                             ckpt_dir=str(fresh_dir("mesh_train")), seed=0,
+                             opt=AdamWConfig(**TRAIN_RUN["opt"]))
+            return train(tcfg, tc, data_cfg=train_data(tcfg), mesh=mesh,
+                         plan=tplan if mesh is not None else None)
+
+        trained = mesh_compare(f"training of {TRAIN_ARCH}", train_run,
+                               MESH_TRAIN_KERNELS)
+        la = [x for _s, x in trained["outs"]["no_mesh"]["losses"]]
+        lb = [x for _s, x in trained["outs"]["mesh"]["losses"]]
+        require(len(la) == MESH_TRAIN_STEPS and la == lb,
+                f"training of {TRAIN_ARCH} on a 1 x 1 mesh with FSDP: "
+                f"losses {lb}, without a mesh {la}")
+        ckpt_row = mesh_checkpoint_peak(tcfg, trained["outs"]["mesh"])
+        log(json.dumps(ckpt_row))
+        train_row = {"mesh_train": TRAIN_ARCH, "batch": TRAIN_RUN["batch"],
+                     "seq": TRAIN_RUN["seq"], "steps": MESH_TRAIN_STEPS,
+                     "remat": "full", "plan": tplan.kind, "fsdp": tplan.fsdp,
+                     "losses": lb, "losses_bit_equal": True,
+                     "launches": trained["launches"],
+                     "wall_s": trained["wall_s"], "checkpoint": ckpt_row}
+        del trained
+        log(json.dumps(train_row))
+    finally:
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the process group outlived phase 9")
+    return {"seconds": time.perf_counter() - t0, "dryrun_s": dry_s,
+            "total_memory_bytes": total_memory, "memory": memory,
+            "serve": serve_row, "train": train_row}
+
+
 # ---------------------------------------------------------------- main path
 def plan_signature(plan) -> dict:
     c = plan.candidate
@@ -3567,6 +3904,11 @@ def main(argv=None) -> int:
     examples_phase()
     log(f"examples phase ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- phase 9: the dry-run's memory model on the card, and a mesh of
+    # one rank against no mesh
+    meshed = mesh_phase()
+    log(f"mesh phase ({meshed['seconds']:.1f} s)")
+
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
@@ -3696,6 +4038,10 @@ def main(argv=None) -> int:
                                "in bfloat16, the block's products alone")
             entry["at_wide_float32"] = lm["wide"]
         kernels.append(entry)
+    for entry in kernels:
+        entry["launches_in_mesh_phase"] = {
+            run: meshed[run]["launches"].get(entry["name"], 0)
+            for run in ("serve", "train")}
     serial_wall = yolov2_wall_and_busy()
     log(json.dumps(serial_wall))
     pool["serial_wall_ms_median"] = serial_wall["wall_ms_median"]

@@ -1,5 +1,5 @@
 """Serving driver: batched prefill + greedy decode against a standing KV
-cache, on one card.
+cache, on one card or on every rank of a mesh.
 
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch mamba2-2.7b --batch 4 \
@@ -9,7 +9,13 @@ cache, on one card.
     python -m repro_torch.launch.serve --arch whisper-base --batch 4 \
         --prompt 128 --gen 16
 
-The counterpart of the JAX package's ``launch/serve.py``, without its mesh:
+The counterpart of the JAX package's ``launch/serve.py``.  With ``mesh=``
+(a ``launch/mesh.py`` description whose ``model`` axis is 1, inside a
+process group that the caller has started; ``main`` does so from
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and ``--mesh``) each rank
+serves its rows of the batch with its rows' cache, the weights gathered
+layer by layer where the plan shards them (``launch/distributed.py``),
+and every rank returns the whole batch's tokens and logits.  Either way:
 the prompts (``numpy.random.default_rng(seed)``, as there), a prefill of
 ``prompt_len`` tokens (``launch/steps.py::make_prefill_step``), then
 ``gen_len - 1`` greedy decode steps (``make_decode_step``).  Every other
@@ -32,6 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.distributed import (MeshRun, close_ranks, init_ranks,
+                                            ranks_from_env)
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.sharding import ShardingPlan
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.layers import model_dtype
 from repro_torch.models.model import Model
@@ -46,29 +56,44 @@ class ServeConfig:
 
 
 def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
-          params: dict | None = None) -> dict:
+          params: dict | None = None, mesh: Mesh | None = None,
+          plan: ShardingPlan | None = None) -> dict:
     """Serve ``sc.batch`` random prompts.  ``params`` is a ``state_dict``
     of the model (``convert.py::lm_params_from_numpy``), whose tensors the
     model then holds as they are (moved to ``device`` or cast to the
     config's type only where they differ), so a second copy of the weights
     is never made; without it the weights are random, from
     ``torch.Generator(sc.seed)`` on ``device``.  Returns the generated
-    ``tokens`` [batch, gen_len] and the seconds of the prefill and of the
-    decode steps."""
+    ``tokens`` [batch, gen_len], the last step's ``logits`` [batch,
+    vocab] and the seconds of the prefill and of the decode steps.  With
+    ``mesh`` (and ``plan``, default ``make_plan`` of the config on it)
+    this rank serves its rows and returns the whole batch's."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: no CUDA device (torch.cuda.is_available() "
                            "is False); pass device='cpu' to serve on the "
                            "host")
+    run = None if mesh is None else MeshRun(cfg, mesh, plan, device)
     max_len = sc.prompt_len + sc.gen_len
     run_cfg = cfg.replace(max_seq=max_len)
-    if params is None:
+    rows = slice(0, sc.batch)
+    if run is not None:
+        # built on the meta device, placed leaf by leaf as this rank's
+        # shards
+        model = Model(run_cfg, device="meta")
+        if params is None:
+            run.place_init(model, sc.seed)
+        else:
+            run.place_loaded(model, params)
+        rows = run.rows(sc.batch)
+    elif params is None:
         model = Model(run_cfg, device=device).init_weights(sc.seed)
     else:
         model = Model(run_cfg, device="meta")
         dtype = model_dtype(cfg)
         model.load_state_dict({k: v.to(device=device, dtype=dtype)
                                for k, v in params.items()}, assign=True)
+    batch_rows = rows.stop - rows.start
 
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
@@ -80,13 +105,13 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
     rng = np.random.default_rng(sc.seed)
     prompts = rng.integers(0, cfg.vocab,
                            (sc.batch, sc.prompt_len)).astype(np.int32)
-    cache = model.init_cache(sc.batch, max_len)
+    cache = model.init_cache(batch_rows, max_len)
     sync()
     t0 = time.perf_counter()
     batch = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
-             for name, spec in model.batch_spec(sc.prompt_len, sc.batch,
+             for name, spec in model.batch_spec(sc.prompt_len, batch_rows,
                                                 "prefill").items()}
-    batch["tokens"] = torch.from_numpy(prompts).to(device)
+    batch["tokens"] = torch.from_numpy(prompts[rows]).to(device)
     logits, cache = prefill(batch, cache)
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     sync()
@@ -97,11 +122,16 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
     for _ in range(sc.gen_len - 1):
         next_tok, logits, cache = decode(cache, next_tok)
         generated.append(next_tok)
-    toks = torch.cat(generated, dim=1).cpu().numpy()
+    toks = torch.cat(generated, dim=1)
+    if run is not None:
+        toks = run.gather_rows(toks, sc.batch)
+        logits = run.gather_rows(logits, sc.batch)
+    toks = toks.cpu().numpy()
     sync()
     t_decode = time.perf_counter() - t0
     return {
         "tokens": toks,
+        "logits": logits,
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "tok_per_s": sc.batch * (sc.gen_len - 1) / max(t_decode, 1e-9),
@@ -119,10 +149,27 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="with RANK / WORLD_SIZE set: the mesh's dims, "
+                         "e.g. 4,1 (data, model) or 2,2,1 (pod, data, "
+                         "model); default WORLD_SIZE,1")
+    ap.add_argument("--store", default=None,
+                    help="the process group's init_method (file:///path "
+                         "or tcp://host:port; default env://)")
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    out = serve(cfg, ServeConfig(batch=args.batch, prompt_len=args.prompt,
-                                 gen_len=args.gen), device=args.device)
+    sc = ServeConfig(batch=args.batch, prompt_len=args.prompt,
+                     gen_len=args.gen)
+    if not ranks_from_env():
+        out = serve(cfg, sc, device=args.device)
+    else:
+        device = init_ranks(args.store, args.device)
+        try:
+            dims = (tuple(int(n) for n in args.mesh.split(",")) if args.mesh
+                    else (torch.distributed.get_world_size(), 1))
+            out = serve(cfg, sc, device=device, mesh=make_mesh(dims))
+        finally:
+            close_ranks()
     print(f"prefill {out['prefill_s']:.2f}s, decode {out['decode_s']:.2f}s "
           f"({out['tok_per_s']:.1f} tok/s), sample: {out['tokens'][0, :12]}")
 

@@ -19,15 +19,17 @@ from typing import Callable
 import torch
 
 from repro_torch.convert import lm_leaf_key
+from repro_torch.launch.distributed import parameters_by_name
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 def train_params(model) -> dict:
     """The model's parameters, ``{name: parameter}`` in the order of the
     JAX tree's leaves (so the global norm sums as it does there), with
-    their gradients turned on."""
+    their gradients turned on; a mesh run's sharded parameters by their
+    unsharded names."""
     model.requires_grad_(True)
-    named = dict(model.named_parameters())
+    named = parameters_by_name(model)
     return {n: named[n]
             for n in sorted(named, key=lambda n: lm_leaf_key(model.cfg, n))}
 
@@ -57,6 +59,39 @@ def make_train_step(model, opt_cfg: AdamWConfig, remat: str = "full",
         mark("optimizer")
         return {"loss": loss.detach(),
                 **{k: v.detach() for k, v in metrics.items()},
+                **opt_metrics}
+    return train_step
+
+
+def make_mesh_train_step(model, run, opt_cfg: AdamWConfig,
+                         remat: str = "full"):
+    """``make_train_step`` on one rank of a mesh run
+    (``launch/distributed.py::MeshRun``): ``train_step(opt_state,
+    global_batch)`` takes this rank's rows of the global batch, weights
+    its loss by its share of the counted labels, sums the gradients over
+    the ranks and steps AdamW on this rank's shards with the global
+    gradient norm.  The metrics are the global batch's, equal on every
+    rank.  A mesh run has no experts (``MeshRun`` refuses them), so its
+    aux loss is 0."""
+    params = train_params(model)
+    names = list(params)
+
+    def train_step(opt_state: dict, batch: dict) -> dict:
+        labels = torch.as_tensor(batch["labels"])
+        rows = run.rows(labels.shape[0])
+        counted = max(int((labels != -1).sum()), 1)
+        w_nll = int((labels[rows] != -1).sum()) / counted \
+            / run.replicas(labels.shape[0])
+        _, metrics = model.loss({k: v[rows] for k, v in batch.items()},
+                                remat=remat)
+        objective = metrics["nll"] * w_nll
+        grads = run.reduce_grads(names, list(torch.autograd.grad(
+            objective, list(params.values()))))
+        grad_norm = run.grad_norm(names, grads)
+        opt_metrics = adamw_update(opt_cfg, params, dict(zip(names, grads)),
+                                   opt_state, grad_norm=grad_norm)
+        loss = run.all_sum(objective.detach())
+        return {"loss": loss, "nll": loss, "aux": torch.zeros_like(loss),
                 **opt_metrics}
     return train_step
 

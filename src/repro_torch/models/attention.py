@@ -10,8 +10,8 @@ scores) for the decode step against a linear cache and for a forward
 without cache.  Both support GQA, causal and sliding-window masks, gemma-2
 soft-capping and offset query positions.
 
-``cp_attention`` (context parallel over a mesh axis) is left out: the port
-runs on one card.
+``cp_attention`` (context parallel over the mesh's ``model`` axis) is not
+ported yet: a mesh run's ``model`` axis is 1 (ROADMAP queue 1 item 3).
 """
 from __future__ import annotations
 

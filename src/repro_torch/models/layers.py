@@ -12,9 +12,12 @@ and the distribution is the same.  The layouts are the JAX package's
 packages without a transpose (``convert.py::lm_params_from_numpy``).
 
 Parameters are registered without gradients (serving needs none);
-training turns them on (``launch/steps.py::train_params``).  The
-sharding half of that module (``partition_specs``, ``abstract``) is left
-out: the port runs on one card.
+training turns them on (``launch/steps.py::train_params``).  Each
+``ParamDef`` carries one logical axis a dimension (``"embed"``, ``"ff"``,
+``"heads"``, ...), the JAX package's, from which
+:func:`partition_specs` derives a parameter's placement on a mesh under a
+plan's rules (``launch/sharding.py``).  ``abstract`` has no twin: a model
+on the ``meta`` device is the port's abstract one.
 """
 from __future__ import annotations
 
@@ -32,12 +35,43 @@ from repro_torch.kernels import ops
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis per dim
     init: str = "normal"                  # normal | zeros | ones
     scale: float = 0.0                    # 0 -> 1/sqrt(fan_in)
 
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in length")
 
-def D(shape, init="normal", scale=0.0) -> ParamDef:
-    return ParamDef(tuple(shape), init, scale)
+
+def D(shape, axes, init="normal", scale=0.0) -> ParamDef:
+    return ParamDef(tuple(shape), tuple(axes), init, scale)
+
+
+def partition_specs(defs: dict, rules: dict) -> dict:
+    """``{name: ParamDef}`` -> ``{name: spec}``: a spec is a tuple with
+    one entry a dimension, the mesh axis (a name, a tuple of names, or
+    None: replicated) that ``rules`` maps the dimension's logical axis to
+    (a logical axis missing from ``rules`` is replicated).  A mesh axis
+    that an earlier dimension of the same tensor took is not used again:
+    that dimension is replicated (the JAX package's rule against
+    double-mapping)."""
+    def one(d: ParamDef) -> tuple:
+        mesh_axes = []
+        used: set = set()
+        for ax in d.axes:
+            m = rules.get(ax)
+            if m is not None and m in used:
+                m = None                      # avoid double-mapping
+            if m is not None:
+                used.update(m if isinstance(m, tuple) else (m,))
+            if isinstance(m, tuple) and len(m) == 1:
+                m = m[0]                      # as PartitionSpec keeps it
+            mesh_axes.append(m)
+        return tuple(mesh_axes)
+
+    return {name: one(d) for name, d in defs.items()}
 
 
 class Params(nn.Module):
@@ -60,26 +94,29 @@ class Params(nn.Module):
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every :class:`Params` under ``module`` from ``generator`` (on
-    the parameters' device), leaf by leaf in registration order; normal
-    draws are float32, then rounded to the parameter's type."""
+    the parameters' device), leaf by leaf in registration order
+    (:func:`init_leaf`)."""
     for mod in module.modules():
         if not isinstance(mod, Params):
             continue
         for name, d in mod.defs.items():
-            p = getattr(mod, name)
-            if d.init == "zeros":
-                p.zero_()
-            elif d.init == "ones":
-                p.fill_(1.0)
-            else:
-                fan_in = d.shape[-2] if len(d.shape) >= 2 else max(
-                    1, d.shape[-1])
-                scale = d.scale or 1.0 / math.sqrt(fan_in)
-                draw = torch.empty(d.shape, dtype=torch.float32,
-                                   device=p.device)
-                nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                p.copy_(scale * draw)
+            init_leaf(getattr(mod, name), d, generator)
+
+
+@torch.no_grad()
+def init_leaf(p: torch.Tensor, d: ParamDef,
+              generator: torch.Generator) -> torch.Tensor:
+    """Fill one parameter ``p`` of ``d`` from ``generator`` and return it:
+    normal draws are float32, then rounded to the parameter's type."""
+    if d.init == "zeros":
+        return p.zero_()
+    if d.init == "ones":
+        return p.fill_(1.0)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else max(1, d.shape[-1])
+    scale = d.scale or 1.0 / math.sqrt(fan_in)
+    draw = torch.empty(d.shape, dtype=torch.float32, device=p.device)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return p.copy_(scale * draw)
 
 
 # -------------------------------------------------------------- grad fence
@@ -155,9 +192,10 @@ def model_dtype(cfg) -> torch.dtype:
 def embed_defs(cfg) -> dict:
     # std 1/sqrt(d): input scaling by sqrt(d) then yields unit-RMS inputs
     # and unit-scale tied-unembed logits.
-    d = {"tok": D((cfg.vocab, cfg.d_model), scale=cfg.d_model ** -0.5)}
+    d = {"tok": D((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                  scale=cfg.d_model ** -0.5)}
     if not cfg.tie_embeddings:
-        d["head"] = D((cfg.d_model, cfg.vocab))
+        d["head"] = D((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     return d
 
 
@@ -180,14 +218,14 @@ def unembed(embed: Params, x: torch.Tensor, cfg) -> torch.Tensor:
 def mlp_defs(cfg) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
     out = {
-        "pre_norm": D((d,), init="zeros"),
-        "w_up": D((d, ff)),
-        "w_down": D((ff, d)),
+        "pre_norm": D((d,), ("embed",), init="zeros"),
+        "w_up": D((d, ff), ("embed", "ff")),
+        "w_down": D((ff, d), ("ff", "embed")),
     }
     if cfg.mlp_gated:
-        out["w_gate"] = D((d, ff))
+        out["w_gate"] = D((d, ff), ("embed", "ff"))
     if cfg.sandwich_norm:
-        out["post_norm"] = D((d,), init="zeros")
+        out["post_norm"] = D((d,), ("embed",), init="zeros")
     return out
 
 

@@ -22,20 +22,20 @@ def ssm_defs(cfg) -> dict:
     d, di = cfg.d_model, cfg.d_inner
     g, n, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
     return {
-        "pre_norm": D((d,), init="zeros"),
-        "in_z": D((d, di)),
-        "in_x": D((d, di)),
-        "in_bc": D((d, 2 * g * n)),
-        "in_dt": D((d, nh)),
-        "conv_x_w": D((cfg.conv_width, di)),
-        "conv_x_b": D((di,), init="zeros"),
-        "conv_bc_w": D((cfg.conv_width, 2 * g * n)),
-        "conv_bc_b": D((2 * g * n,), init="zeros"),
-        "A_log": D((nh,), init="zeros"),
-        "D": D((nh,), init="ones"),
-        "dt_bias": D((nh,), init="zeros"),
-        "gate_norm": D((di,), init="zeros"),
-        "out_proj": D((di, d)),
+        "pre_norm": D((d,), ("embed",), init="zeros"),
+        "in_z": D((d, di), ("embed", "ff")),
+        "in_x": D((d, di), ("embed", "ff")),
+        "in_bc": D((d, 2 * g * n), ("embed", "ff")),
+        "in_dt": D((d, nh), ("embed", "ff")),
+        "conv_x_w": D((cfg.conv_width, di), (None, "ff")),
+        "conv_x_b": D((di,), ("ff",), init="zeros"),
+        "conv_bc_w": D((cfg.conv_width, 2 * g * n), (None, "ff")),
+        "conv_bc_b": D((2 * g * n,), ("ff",), init="zeros"),
+        "A_log": D((nh,), (None,), init="zeros"),
+        "D": D((nh,), (None,), init="ones"),
+        "dt_bias": D((nh,), (None,), init="zeros"),
+        "gate_norm": D((di,), ("ff",), init="zeros"),
+        "out_proj": D((di, d), ("ff", "embed")),
     }
 
 

@@ -38,8 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (D, Params, embed_defs, embed_lookup,
-                                       init_params, model_dtype, rms_norm,
-                                       unembed)
+                                       init_params, model_dtype,
+                                       partition_specs, rms_norm, unembed)
 from repro_torch.models.transformer import (apply_stack, build_stack,
                                             stack_cache)
 
@@ -66,9 +66,11 @@ class Model(Params):
 
     def __init__(self, cfg: ModelConfig, device="cuda", param_dtype=None):
         dtype = param_dtype or model_dtype(cfg)
-        defs = {"final_norm": D((cfg.d_model,), init="zeros")}
+        defs = {"final_norm": D((cfg.d_model,), ("embed",),
+                                init="zeros")}
         if cfg.family == "audio":
-            defs["enc_norm"] = D((cfg.d_model,), init="zeros")
+            defs["enc_norm"] = D((cfg.d_model,), ("embed",),
+                                 init="zeros")
         super().__init__(defs, dtype, device)
         self.cfg = cfg
         self.embed = Params(embed_defs(cfg), dtype, device)
@@ -78,7 +80,21 @@ class Model(Params):
 
     @property
     def device(self) -> torch.device:
-        return self.final_norm.device
+        # the stored tensor, not an attribute a mesh run may gather
+        # (``launch/distributed.py``)
+        return next(self.parameters()).device
+
+    def pspecs(self, rules: dict) -> dict:
+        """``{parameter name: spec}`` of every parameter under a plan's
+        ``rules`` (``layers.py::partition_specs``), by the names of
+        ``named_parameters`` without FSDP's wrapping
+        (``convert.py::lm_params_to_numpy`` maps them to the JAX tree)."""
+        out = {}
+        for prefix, mod in self.named_modules():
+            if isinstance(mod, Params):
+                for name, spec in partition_specs(mod.defs, rules).items():
+                    out[f"{prefix}.{name}" if prefix else name] = spec
+        return out
 
     def init_weights(self, seed: int) -> "Model":
         """Random weights from ``torch.Generator(seed)`` on the model's

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer in torch: top-k router and capacity-based
-dispatch on one card.
+dispatch on a device's rows.
 
 The counterpart of the JAX package's ``models/moe.py``, its ``_moe_local``
 path: each token's ``top_k`` experts are ranked within their expert by one
@@ -24,9 +24,10 @@ device without a host sync (no ``.item()``, no data-dependent shapes):
   ``index_add_`` would add in the order its atomics land.
 
 The JAX package's expert-parallel path (``_moe_shard_map``: experts
-sharded over a mesh axis, the buffers carried by all-to-all) is not
-ported: the port runs on one card, and it comes with multi-device
-planning.
+sharded over the mesh's ``model`` axis, the buffers carried by
+all-to-all) is not ported yet (ROADMAP queue 1 item 3), and until it is
+a mesh run refuses a config with experts
+(``launch/distributed.py::MeshRun``).
 """
 from __future__ import annotations
 
@@ -38,11 +39,11 @@ from repro_torch.models.layers import D, act_fn, rms_norm
 def moe_defs(cfg) -> dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "pre_norm": D((d,), init="zeros"),
-        "router": D((d, e)),
-        "w_gate": D((e, d, ff)),
-        "w_up": D((e, d, ff)),
-        "w_down": D((e, ff, d)),
+        "pre_norm": D((d,), ("embed",), init="zeros"),
+        "router": D((d, e), ("embed", "experts")),
+        "w_gate": D((e, d, ff), ("experts", "embed", "ff")),
+        "w_up": D((e, d, ff), ("experts", "embed", "ff")),
+        "w_down": D((e, ff, d), ("experts", "ff", "embed")),
     }
 
 

@@ -26,16 +26,16 @@ def rglru_defs(cfg) -> dict:
     w = cfg.lru_width or d
     bw = w // N_DIAG_BLOCKS
     return {
-        "pre_norm": D((d,), init="zeros"),
-        "w_x": D((d, w)),                     # input branch
-        "w_y": D((d, w)),                     # gate branch
-        "conv_w": D((cfg.conv_width, w)),
-        "conv_b": D((w,), init="zeros"),
+        "pre_norm": D((d,), ("embed",), init="zeros"),
+        "w_x": D((d, w), ("embed", "ff")),         # input branch
+        "w_y": D((d, w), ("embed", "ff")),         # gate branch
+        "conv_w": D((cfg.conv_width, w), (None, "ff")),
+        "conv_b": D((w,), ("ff",), init="zeros"),
         # block-diagonal RG-LRU gate projections
-        "gate_a": D((N_DIAG_BLOCKS, bw, bw)),
-        "gate_x": D((N_DIAG_BLOCKS, bw, bw)),
-        "lam": D((w,), init="ones"),
-        "w_out": D((w, d)),
+        "gate_a": D((N_DIAG_BLOCKS, bw, bw), (None, "ff", None)),
+        "gate_x": D((N_DIAG_BLOCKS, bw, bw), (None, "ff", None)),
+        "lam": D((w,), ("ff",), init="ones"),
+        "w_out": D((w, d), ("ff", "embed")),
     }
 
 

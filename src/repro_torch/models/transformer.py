@@ -20,9 +20,11 @@ encoder's output, then the MLP).  Every kind but ``ssm`` has an MLP: the
 fused block K7, or with ``n_experts > 0`` the mixture of experts
 (``models/moe.py``), whose aux loss ``apply_stack`` sums.  Attention runs
 K6 at a prefill and in a forward without a cache, self- and
-cross-attention alike; a decode step attends in torch.  The sharding
-context (``set_mesh_axes``, ``shard_hidden``) is dropped: the port runs on
-one card.
+cross-attention alike; a decode step attends in torch.  The JAX
+package's sharding context (``set_mesh_axes``, ``shard_hidden``) is global
+state and has no twin: a mesh run passes its ``launch/distributed.py::
+MeshRun`` explicitly, and each rank computes on its own rows, where
+``shard_hidden`` would be the identity.
 
 Training (no cache) rematerialises each layer under ``remat="full"`` or
 ``"dots"`` (``torch.utils.checkpoint``, non-reentrant), where the JAX
@@ -64,20 +66,20 @@ DOTS_KEPT = frozenset((torch.ops.aten.mm.default,
 def attn_defs(cfg, kind: str) -> dict:
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out = {
-        "pre_norm": D((d,), init="zeros"),
-        "wq": D((d, nh * hd)),
-        "wk": D((d, nkv * hd)),
-        "wv": D((d, nkv * hd)),
-        "wo": D((nh * hd, d)),
+        "pre_norm": D((d,), ("embed",), init="zeros"),
+        "wq": D((d, nh * hd), ("embed", "heads")),
+        "wk": D((d, nkv * hd), ("embed", "kv")),
+        "wv": D((d, nkv * hd), ("embed", "kv")),
+        "wo": D((nh * hd, d), ("heads", "embed")),
     }
     if cfg.sandwich_norm:
-        out["post_norm"] = D((d,), init="zeros")
+        out["post_norm"] = D((d,), ("embed",), init="zeros")
     if cfg.qk_norm:
-        out["q_norm"] = D((hd,), init="zeros")
-        out["k_norm"] = D((hd,), init="zeros")
+        out["q_norm"] = D((hd,), (None,), init="zeros")
+        out["k_norm"] = D((hd,), (None,), init="zeros")
     if kind == "cross" and cfg.family == "vlm":
-        out["gate_attn"] = D((), init="zeros")
-        out["gate_mlp"] = D((), init="zeros")
+        out["gate_attn"] = D((), (), init="zeros")
+        out["gate_mlp"] = D((), (), init="zeros")
     return out
 
 

@@ -65,17 +65,19 @@ def global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: dict, grads: dict,
-                 state: dict) -> dict:
+                 state: dict, grad_norm: torch.Tensor | None = None) -> dict:
     """One step: ``params``, ``state["m"]`` and ``state["v"]`` updated in
-    place, ``state["step"]`` advanced.  Returns the metrics ``grad_norm``
-    (a device scalar) and ``lr``."""
+    place, ``state["step"]`` advanced.  ``grad_norm`` is the global norm
+    of the gradients where they are shards of a mesh run's (default:
+    ``global_norm`` of ``grads``).  Returns the metrics ``grad_norm`` (a
+    device scalar) and ``lr``."""
     names = list(params)
     p = [params[n] for n in names]
     g = [grads[n].to(torch.float32) for n in names]
     m = [state["m"][n] for n in names]
     v = [state["v"][n] for n in names]
     step = state["step"] + 1
-    gn = global_norm(g)
+    gn = global_norm(g) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     f = np.float32

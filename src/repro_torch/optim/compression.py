@@ -9,7 +9,8 @@ feedback keeps SGD/Adam convergence -- Karimireddy et al. 2019).
 and scales are the JAX package's.
 
 :func:`compressed_psum` -- the all-reduce of the compressed gradients over
-a pod axis -- needs more than the one card the port runs on.
+a pod axis -- is not ported yet (a mesh run sums its gradients over the
+ranks uncompressed, ``launch/distributed.py``).
 """
 from __future__ import annotations
 
@@ -39,9 +40,8 @@ def decompress(q: dict, scales: dict) -> dict:
 
 
 def compressed_psum(grads, error, axis_name: str):
-    """The int8 all-reduce over the pod axis ``axis_name``: not on one
-    card."""
+    """The int8 all-reduce over the pod axis ``axis_name``: not ported
+    yet."""
     raise NotImplementedError(
-        f"compressed_psum over {axis_name!r} needs a pod axis across "
-        f"devices; the port runs on one card (multi-device planning is "
-        f"ROADMAP queue 1's multi-device item)")
+        f"compressed_psum over {axis_name!r}: the int8 all-reduce over a "
+        f"pod axis is not ported yet (ROADMAP queue 1 item 3)")

@@ -18,6 +18,9 @@ from repro_torch.convert import alloc_tables_from_numpy
 from torch_parity import (ALL_CNNS, as_tensor, assert_scan_equal, both,
                           mixed_tuples, random_masks, ref_tables_dict,
                           scan_tables)
+import torch_parity
+
+torch_parity.one_thread()
 
 
 @pytest.mark.parametrize("name", ALL_CNNS)

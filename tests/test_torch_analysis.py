@@ -27,6 +27,9 @@ import repro_torch.core.options as port_options
 from repro_torch.analysis.__main__ import main as port_cli
 
 from torch_parity import ALL_CNNS, REF_BATCH, both
+import torch_parity
+
+torch_parity.one_thread()
 
 SIZES = {"vgg16-conv": 224, "yolov2": 416, "yolov3": 416, "resnet50": 224,
          "resnet152": 224, "efficientnet-b1": 256, "retinanet": 512,

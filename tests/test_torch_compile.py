@@ -27,6 +27,9 @@ from conftest import random_cnn
 from hypothesis_compat import given, settings
 from torch_parity import (ALL_CNNS, METRICS, TEST_LIMIT, assert_plans_equal,
                           both, node_dicts, port_graph_of, ref_plan)
+import torch_parity
+
+torch_parity.one_thread()
 
 # port engine spelling -> the reference engine it is held against; the
 # "device" engine has a file of its own (tests/test_torch_compile_device.py)

@@ -11,6 +11,9 @@ import repro_torch.core.options as port_options
 
 from torch_parity import (ALL_CNNS, INT_METRICS, TEST_LIMIT,
                           assert_plans_equal, both, mixed_tuples, ref_plan)
+import torch_parity
+
+torch_parity.one_thread()
 
 
 @pytest.mark.parametrize("name", ALL_CNNS)

@@ -24,6 +24,9 @@ import repro_torch.core.timing as port_timing
 
 from torch_parity import (ALL_CNNS, INT_METRICS, R1_RTOL, both,
                           mixed_tuples, node_dicts)
+import torch_parity
+
+torch_parity.one_thread()
 
 
 @pytest.mark.parametrize("name", ALL_CNNS)

@@ -11,6 +11,9 @@ from repro.configs.base import ShapeCell as RefCell
 import repro_torch.utils.costmodel as port
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ShapeCell
+import torch_parity
+
+torch_parity.one_thread()
 
 ARCH_NAMES = sorted(ARCHS)
 MODES = ("train", "prefill", "decode")

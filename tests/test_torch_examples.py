@@ -13,6 +13,9 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_parity
+
+torch_parity.one_thread()
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
 TWINS = ("quickstart", "serve_compile", "serve_lm", "train_lm")

@@ -38,6 +38,9 @@ from repro_torch.launch.steps import train_params
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
 from torch_parity import chip_smoke, count_lm_calls
+import torch_parity
+
+torch_parity.one_thread()
 
 ARCHS = ["qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b",
          "llama-3.2-vision-11b", "whisper-base"]

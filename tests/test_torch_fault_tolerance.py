@@ -54,6 +54,9 @@ from repro_torch.runtime.fault_tolerance import (PreemptionGuard,
 
 from test_torch_search_pool import TEST_LIMIT, assert_results_identical
 from torch_parity import both
+import torch_parity
+
+torch_parity.one_thread()
 
 ROOT = Path(__file__).resolve().parent.parent
 HAS_FORK = "fork" in mp.get_all_start_methods()

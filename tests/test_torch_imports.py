@@ -9,6 +9,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_parity
+
+torch_parity.one_thread()
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -97,7 +100,10 @@ def test_port_has_the_modules_of_the_slice():
                  "repro_torch.optim.adamw", "repro_torch.optim.compression",
                  "repro_torch.launch.steps", "repro_torch.launch.train",
                  "repro_torch.core.residency", "repro_torch.models.moe",
-                 "repro_torch.utils", "repro_torch.utils.costmodel"):
+                 "repro_torch.utils", "repro_torch.utils.costmodel",
+                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.distributed"):
         assert want in mods, want
     twins = {p.name for p in (ROOT / "examples").glob("*_torch.py")}
     assert twins == {"quickstart_torch.py", "serve_compile_torch.py",
@@ -133,6 +139,28 @@ def test_every_port_module_imports_without_jax_gpu_or_compiler():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split()[0] == "ok"
+
+
+def test_multi_rank_runs_leave_this_process_without_a_process_group(
+        tmp_path):
+    """A world of two ranks (``torch_ranks.py``: each a subprocess, gloo
+    over a ``file://`` store) serves a smoke model; afterwards this
+    process has no process group, and importing the mesh, sharding,
+    dry-run and distributed modules started none."""
+    import torch
+    import torch_ranks
+
+    import repro_torch.launch.distributed  # noqa: F401
+    import repro_torch.launch.dryrun  # noqa: F401
+
+    case = dict(id="serve", kind="serve", arch="smollm-360m", fsdp=True,
+                seq=8, gen=2, batch=2)
+    procs = torch_ranks.start_world((2, 1), [case], tmp_path / "world")
+    results = torch_ranks.wait_world(procs, tmp_path / "world", 120)
+    assert (results[0]["serve"]["tokens"] ==
+            results[1]["serve"]["tokens"]).all()
+    assert results[0]["serve"]["tokens"].shape == (2, 2)
+    assert not torch.distributed.is_initialized()
 
 
 def test_default_options_never_run_on_the_cpu_silently():

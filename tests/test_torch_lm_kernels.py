@@ -39,6 +39,9 @@ from repro_torch.kernels.rglru_scan import rglru_scan_cuda, rglru_scan_torch
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
 from repro_torch.models.attention import blocked_attention
 from torch_parity import chip_smoke
+import torch_parity
+
+torch_parity.one_thread()
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

@@ -25,6 +25,9 @@ import repro_torch.models.mamba2 as mamba2
 import repro_torch.models.rglru as rglru
 import repro_torch.models.transformer as tf
 from repro_torch.configs import smoke_config as port_smoke
+import torch_parity
+
+torch_parity.one_thread()
 
 TOL = dict(rtol=2e-5, atol=2e-5)      # float32, a few ops deep
 BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)  # a whole sub-block with residual

@@ -32,6 +32,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
+import torch_parity
+
+torch_parity.one_thread()
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=4e-2, atol=4e-2)}

@@ -17,6 +17,9 @@ from repro.optim import compression as jax_compression
 
 from repro_torch.data import pipeline
 from repro_torch.optim import adamw, compression
+import torch_parity
+
+torch_parity.one_thread()
 
 RTOL = 1e-6
 

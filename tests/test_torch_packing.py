@@ -12,6 +12,9 @@ import pytest
 
 from hypothesis_compat import given, settings, st
 from repro_torch.service.packing import packb, unpackb
+import torch_parity
+
+torch_parity.one_thread()
 
 
 def ref_packb(obj) -> bytes:

@@ -23,6 +23,9 @@ from repro.core.hw import V5E as REF_V5E
 
 import repro_torch.core.residency as port
 from repro_torch.core.hw import V5E as PORT_V5E
+import torch_parity
+
+torch_parity.one_thread()
 
 MB = 1 << 20
 ROOT = Path(__file__).resolve().parent.parent

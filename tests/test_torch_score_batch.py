@@ -35,6 +35,9 @@ from repro_torch.kernels.alloc_scan import lane_major
 
 from torch_parity import (ALL_CNNS, INT_METRICS, assert_plans_equal, both,
                           mixed_tuples, random_masks)
+import torch_parity
+
+torch_parity.one_thread()
 
 RTOL, ATOL = 1e-5, 1e-2
 # nets whose cut space exceeds this limit take the descent path

@@ -37,6 +37,9 @@ from repro_torch.kernels.alloc_scan import alloc_scan
 
 from hypothesis_compat import given, settings, st
 from torch_parity import ALL_CNNS, METRICS, both
+import torch_parity
+
+torch_parity.one_thread()
 
 OBJECTIVES = ("latency", "sram", "dram")
 

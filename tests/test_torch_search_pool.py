@@ -41,6 +41,9 @@ from repro_torch.runtime import chaos
 
 from torch_parity import (ALL_CNNS, METRICS, TEST_LIMIT, assert_plans_equal,
                           both, ref_plan)
+import torch_parity
+
+torch_parity.one_thread()
 
 HAS_FORK = "fork" in mp.get_all_start_methods()
 needs_fork = pytest.mark.skipif(not HAS_FORK, reason="fork start method "

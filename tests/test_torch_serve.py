@@ -26,6 +26,9 @@ from repro_torch.configs import smoke_config as port_smoke
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.serve import ServeConfig, serve
 from repro_torch.models.model import Model
+import torch_parity
+
+torch_parity.one_thread()
 
 ARCHS = ["recurrentgemma-2b", "gemma2-2b", "smollm-360m", "mamba2-2.7b",
          "gemma2-27b", "granite-20b"]

@@ -49,6 +49,9 @@ from repro_torch.service import (CACHE_SCHEMA_VERSION, CompileService,
                                  hw_signature, request_key)
 from repro_torch.service.packing import packb
 from torch_parity import ALL_CNNS
+import torch_parity
+
+torch_parity.one_thread()
 
 ROOT = Path(__file__).resolve().parent.parent
 TEST_OPTS = CompileOptions(exhaustive_limit=50_000, device="cpu")

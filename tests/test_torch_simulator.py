@@ -55,6 +55,9 @@ from conftest import random_cnn
 from hypothesis_compat import given, settings, st
 from test_compiler_cnn import tiny_resnet
 from torch_parity import ALL_CNNS, REF_BATCH, port_graph_of
+import torch_parity
+
+torch_parity.one_thread()
 
 AUDIT_LIMIT = 50_000
 RTOL = ATOL = 1e-5

@@ -50,6 +50,9 @@ from repro_torch.models.layers import grad_fence
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from torch_parity import LM_PLAIN, chip_smoke, count_lm_calls
+import torch_parity
+
+torch_parity.one_thread()
 
 ARCHS = ["smollm-360m", "gemma2-2b", "recurrentgemma-2b", "mamba2-2.7b"]
 LOSS_RTOL = 1e-5

@@ -28,6 +28,7 @@ import repro_torch.core.grouping as port_grouping
 import repro_torch.kernels.alloc_scan as port_scan
 from repro_torch.convert import graph_from_nodes
 from repro_torch.core.hw import KCU1500 as PORT_HW
+from torch_ranks import one_thread  # noqa: F401  (every port test calls it)
 
 ALL_CNNS = ["vgg16-conv", "yolov2", "yolov3", "resnet50", "resnet152",
             "efficientnet-b1", "retinanet", "mobilenet-v3"]
@@ -44,6 +45,23 @@ INT_METRICS = [m for m in METRICS if m != "latency_cycles"]
 R1_RTOL = 1e-13
 
 _CACHE: dict = {}
+
+
+def reference_dryrun():
+    """The JAX package's ``launch/dryrun.py``, imported without the
+    ``XLA_FLAGS`` it writes at import (512 host devices) reaching this
+    process's environment: the flag is put back as it was at once, so a
+    later test in the same process starts jax as before."""
+    import os
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as ref_dryrun
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return ref_dryrun
 
 
 def node_dicts(graph) -> list[dict]:
