@@ -11,7 +11,8 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                them, and builds the CUDA kernels from ``src/repro_torch/
                kernels/csrc`` with ``nvcc`` (reported as set-up seconds).
 2. kernels  -- each of the nine kernels against its plain torch version on
-               the GPU, at the shapes its path gives it.  K1-K4: yolov2
+               the GPU, at the shapes its path gives it (K6 with a query
+               offset and K7's partial sum at phase 10's rank shapes too).  K1-K4: yolov2
                (26 groups), resnet152 (160), retinanet (119, the widest
                slot map of K1's on-chip state: 7 lanes live at once) and
                efficientnet-b1 (139, with SE side groups); cut-derived and
@@ -257,6 +258,44 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                The group is destroyed before the phase ends; the
                ``kernels`` line gains each kernel's
                ``launches_in_mesh_phase``.
+10. model axis -- after phase 9: tensor parallelism over a mesh's
+               ``model`` axis, mesh (1, 2) as two rank processes of this
+               script (``--model-axis-rank``) on the one card, joined over
+               gloo with a ``FileStore`` (NCCL refuses two ranks on one
+               device; each collective one gloo call on CUDA tensors, no
+               copy through the host).  Every case runs
+               first in this process without a mesh, then on the ranks:
+               recurrentgemma-2b served (``tp`` plan, 5 heads a rank, the
+               ring cache split by sequence; K6, K7's partial form, K9),
+               smollm-360m served with ``cp=True`` (``hybrid`` plan; K6
+               with a query offset, K7's partial form) and trained 3 steps
+               at 8 x 512, mamba2-2.7b served (40 heads a rank; K8) and
+               moonshot-v1-16b-a3b served at 24 of its 48 layers (32
+               experts a rank, the dispatch by all-to-all; K6).  Each in
+               float32 at cut depth (mamba2-2.7b at its full 64 layers,
+               and there also the run without a mesh against itself
+               through the plain versions): logits (or losses) within 1e-4 of
+               their scale of the run without a mesh, and a planted fault
+               (rank 1's MLP shard of the first layer zeroed; the cp
+               slices run from position 0) must fail that check; and in
+               bfloat16 at full width: walls, launches a rank by kernel,
+               variant and form (each kernel of the path above 0 on every
+               rank), the collectives' host seconds, peak allocated bytes and
+               token agreement with the run without a mesh (mamba2's also
+               beside that run's own spread, kernels against plain
+               versions, which rounding alone makes over 64 layers).
+               Every rank's placed parameters and cache equal
+               ``dryrun.shard_bytes``.
+               ``compressed_psum`` over the ``pod`` group of a (2, 1, 1)
+               mesh equals its plain formula on 2^20 random gradients a
+               rank, and gives the reference's values on R11's vectors.
+               Every collective of CUDA tensors the cases made (operation,
+               dtype, shape, group size, reduction) is run once more by
+               gloo on fresh data and must equal its plain result on
+               every rank (one line), so a gloo that refuses or garbles
+               one fails the phase.
+               The ``kernels`` line gains the two forms and each LM
+               kernel's ``launches_in_model_axis_phase``.
 6. report   -- wall and candidates per second of each compile, the execute
                times; the yolov2 compile again, 5 runs for the median wall
                and one run traced with ``torch.profiler`` for the card's busy
@@ -1180,10 +1219,12 @@ def require_same(name, got, want, what, errs, cases):
             f"err {err})")
 
 
-def attention_pairs(S: int, T: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps, for one batch row and head."""
+def attention_pairs(S: int, T: int, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps, for one batch row and head, the
+    queries at positions ``q_offset ..``."""
     n = 0
-    for i in range(S):
+    for i in range(q_offset, q_offset + S):
         hi = min(T, i + 1) if causal else T
         lo = max(0, i - window + 1) if window else 0
         n += max(0, hi - lo)
@@ -1194,21 +1235,23 @@ def lm_peak(itemsize: int) -> float:
     return PEAK_BF16_OPS_PER_S if itemsize == 2 else PEAK_F32_OPS_PER_S
 
 
-def flash_bound(B, S, T, NH, NKV, hd, causal, window, itemsize):
+def flash_bound(B, S, T, NH, NKV, hd, causal, window, itemsize,
+                q_offset=0):
     """K6: q, k, v read and o written once; 4 * hd operations (the two
     products) per (query, key) pair the mask keeps, at the tensor-core rate
     of the input type."""
-    pairs = B * NH * attention_pairs(S, T, causal, window)
+    pairs = B * NH * attention_pairs(S, T, causal, window, q_offset)
     n_bytes = itemsize * (2 * B * S * NH * hd + 2 * B * T * NKV * hd)
     return bound(n_bytes, 4 * hd * pairs, lm_peak(itemsize))
 
 
-def fused_block_bound(M, d, F, gated, itemsize):
-    """K7: x read and the output written once, the two or three weight
-    matrices and the float32 norm scales read once; 2 * M * d * F
-    operations per matrix product."""
+def fused_block_bound(M, d, F, gated, itemsize, partial=False):
+    """K7: x read and the output written once (the partial form's in
+    float32), the two or three weight matrices and the float32 norm scales
+    read once; 2 * M * d * F operations per matrix product."""
     mats = 3 if gated else 2
-    n_bytes = itemsize * (2 * M * d + mats * d * F) + 4 * 2 * d
+    n_bytes = (itemsize * (M * d + mats * d * F) + 4 * 2 * d
+               + (4 if partial else itemsize) * M * d)
     return bound(n_bytes, 2 * M * d * F * mats, lm_peak(itemsize))
 
 
@@ -1285,14 +1328,17 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         return (scale * torch.randn(shape, generator=gen, device="cuda")
                 ).to(dtype)
 
-    errs = {"flash_attention": 0.0, "fused_block": 0.0, "rglru_scan": 0.0}
+    errs = {"flash_attention": 0.0, "fused_block": 0.0, "rglru_scan": 0.0,
+            "flash_attention[q_offset]": 0.0, "fused_block[partial]": 0.0}
     cases = []
 
     def close(name, got, want, what, tol):
         require_close(name, got, want, what, tol, errs, cases)
 
-    def close_variant(wrapper, plain, args, kw, what, variant):
+    def close_variant(wrapper, plain, args, kw, what, variant, form=None):
         name = wrapper.__name__.removesuffix("_cuda")
+        if form:
+            name = f"{name}[{form}]"
         got, ran = ran_variant(wrapper, lambda: wrapper(*args, **kw))
         log(f"  {name} {what}: ran the {ran} kernel")
         require(ran == variant, f"{name} {what}: ran the {ran} kernel, not "
@@ -1346,6 +1392,35 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
                       args, kw, what, variant)
 
+    # ---- K6 with a query offset: the context-parallel slices of phase
+    # 10's prefill of MODEL_AXIS_CP_ARCH on two ranks (queries S / 2 from
+    # offset 0 and S / 2 against all S keys)
+    ccfg = get_config(MODEL_AXIS_CP_ARCH)
+    cb, cs = (MODEL_AXIS_SERVES[MODEL_AXIS_CP_ARCH]["shape"][k]
+              for k in ("batch", "prompt_len"))
+    half = cs // 2
+    cp_heads = (ccfg.n_heads, ccfg.n_kv_heads, ccfg.hd)
+    cp_attn = attn(cb, half, cs, *cp_heads, bf16)
+    offset_cases = [
+        (f"{MODEL_AXIS_CP_ARCH} cp slice of rank 1: {half} queries from "
+         f"{half} of {cs} keys, bf16", cp_attn,
+         dict(causal=True, q_offset=half), tc),
+        (f"{MODEL_AXIS_CP_ARCH} cp slice of rank 0, bf16", cp_attn,
+         dict(causal=True, q_offset=0), tc),
+        (f"{MODEL_AXIS_CP_ARCH} cp slice of rank 1, float32",
+         attn(cb, half, cs, *cp_heads, f32),
+         dict(causal=True, q_offset=half), simt),
+        ("ragged 333 queries from 367 of 700 keys, hd 96, window 100, bf16",
+         attn(1, 333, 700, 4, 2, 96, bf16),
+         dict(causal=True, window=100, q_offset=367), tc),
+        ("ragged 333 queries from 367 of 700 keys, hd 96, window 100, "
+         "float32", attn(1, 333, 700, 4, 2, 96, f32),
+         dict(causal=True, window=100, q_offset=367), simt),
+    ]
+    for what, args, kw, variant in offset_cases:
+        close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
+                      args, kw, what, variant, form="q_offset")
+
     # ---- K7
     def block(m, dd, f, dtype):
         return (randn((m, dd), dtype), randn((dd,), f32, 0.1),
@@ -1390,6 +1465,30 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     for what, args, kw, variant in block_cases:
         close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
                       what, variant)
+
+    # ---- K7's partial sum at LM_ARCH's rank shape on two ranks (F / 2)
+    part_x = block(B * S, d, ff // 2, bf16)
+    partial = dict(geglu, partial=True)
+    partial_cases = [
+        (f"partial, rank shape M {B * S} d {d} F {ff // 2}, bf16", part_x,
+         partial, tc),
+        (f"partial, rank shape M {B * S} d {d} F {ff // 2}, float32",
+         block(B * S, d, ff // 2, f32), partial, simt),
+        (f"partial, decode M {B} d {d} F {ff // 2}, bf16",
+         (randn((B, d), bf16),) + part_x[1:], partial, tc),
+        (f"partial, decode M {B} d {d} F {ff // 2}, float32",
+         block(B, d, ff // 2, f32), partial, split),
+        ("partial, wide M 64 d 4608 F 4608 (sandwich ignored), float32",
+         block(64, 4608, 4608, f32),
+         dict(act="gelu", gated=True, sandwich=True, partial=True),
+         "simt_wide"),
+        ("partial, ragged M 70 d 136 F 264 ungated, bf16",
+         block(70, 136, 264, bf16),
+         dict(act="silu", gated=False, partial=True), tc),
+    ]
+    for what, args, kw, variant in partial_cases:
+        close_variant(fb.fused_block_cuda, fb.fused_block_torch, args, kw,
+                      what, variant, form="partial")
     wide = [check_wide_block(arch, m, block, close_variant, cases, timed)
             for arch, m in K7_WIDE]
     families = check_family_shapes(randn, block, close_variant, cases,
@@ -1420,6 +1519,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
         (f"W {w + 1}", scan(B, 700, w + 1)),
         ("B 1, W 16", scan(1, 500, 16)),
         ("unaligned rows", tuple(unaligned(t) for t in short)),
+        (f"rank shape: W {w // 2} of {w}", scan(B, S, w // 2)),
     ]
     for what, (a, bb) in scan_cases:
         plan = rs.rglru_scan_plan(*a.shape, aligned=all(
@@ -1447,7 +1547,7 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     # no single PyTorch call computes the block, so this is `matmul_ms`
     def products_of(block_x):
         x_mm, _s, wg_mm, wu_mm, wd_mm, _p = block_x
-        h_mm = randn((x_mm.shape[0], ff), bf16)
+        h_mm = randn((x_mm.shape[0], wd_mm.shape[0]), bf16)
         return lambda: (x_mm @ wg_mm, x_mm @ wu_mm, h_mm @ wd_mm)
 
     products = products_of(prefill_x)
@@ -1473,6 +1573,22 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
             lambda: rs.rglru_scan_cuda(*full_scan),
             lambda: rs.rglru_scan_torch(*full_scan),
             rglru_bound(B, S, w), dict(B=B, S=S, W=w, dtype="float32")),
+        "flash_attention[q_offset]": (
+            lambda: fa.flash_attention_cuda(*cp_attn, q_offset=half),
+            lambda: fa.flash_attention_torch(*cp_attn, q_offset=half),
+            flash_bound(cb, half, cs, *cp_heads, True, 0, 2, q_offset=half),
+            dict(B=cb, S=half, T=cs, NH=cp_heads[0], NKV=cp_heads[1],
+                 hd=cp_heads[2], q_offset=half, dtype="bfloat16")),
+        "rglru_scan_rank": (
+            lambda: rs.rglru_scan_cuda(*scan_cases[-1][1]),
+            lambda: rs.rglru_scan_torch(*scan_cases[-1][1]),
+            rglru_bound(B, S, w // 2),
+            dict(B=B, S=S, W=w // 2, dtype="float32")),
+        "fused_block[partial]": (
+            lambda: fb.fused_block_cuda(*part_x, **partial),
+            lambda: fb.fused_block_torch(*part_x, **partial),
+            fused_block_bound(B * S, d, ff // 2, True, 2, partial=True),
+            dict(M=B * S, d=d, F=ff // 2, dtype="bfloat16")),
     }
     out["times"] = {}
     for name, (kernel, plain, bnd, shape) in timing.items():
@@ -1482,8 +1598,24 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
     lib = [time_ms(library, reps=reps, warmup=1) for _ in range(2)]
     out["times"]["flash_attention"].update(library_ms=min(lib),
                                            library_max_abs_err=lib_err)
+    # the cp slice in SDPA: rank 1's queries keep the keys up to their
+    # positions (a boolean mask), the kv heads spread over GQA
+    cq, ck, cv = (t.transpose(1, 2).contiguous() for t in cp_attn)
+    cmask = (torch.arange(half, cs, device="cuda")[:, None]
+             >= torch.arange(cs, device="cuda")[None, :])
+
+    def cp_library():
+        return F.scaled_dot_product_attention(cq, ck, cv, attn_mask=cmask,
+                                              enable_gqa=True)
+
+    cp_lib = [time_ms(cp_library, reps=reps, warmup=1) for _ in range(2)]
+    out["times"]["flash_attention[q_offset]"].update(
+        library_ms=min(cp_lib), library_max_abs_err=max_abs_err(
+            cp_library().transpose(1, 2),
+            fa.flash_attention_torch(*cp_attn, q_offset=half)))
     for name, fn in (("fused_block", products),
-                     ("fused_block_decode", decode_products)):
+                     ("fused_block_decode", decode_products),
+                     ("fused_block[partial]", products_of(part_x))):
         mm = [time_ms(fn, reps=reps, warmup=1) for _ in range(2)]
         out["times"][name]["matmul_ms"] = min(mm)
     variants = {"flash_attention": (fa.flash_attention_cuda, q, k, v),
@@ -1720,7 +1852,7 @@ def earlier_design_times(full_attn, win, prefill_x, decode_x, gelu,
     def attention():
         _build.check(lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, s,
-            nh, k.shape[2], hd, hd ** -0.5, 1, win, 0.0, 1, dev, stream),
+            nh, k.shape[2], hd, hd ** -0.5, 1, win, 0.0, 0, 1, dev, stream),
             "flash_attention (earlier design)")
         return o
 
@@ -1737,7 +1869,7 @@ def earlier_design_times(full_attn, win, prefill_x, decode_x, gelu,
         def run():
             _build.check(lib.fused_block_launch(
                 x.data_ptr(), scale.data_ptr(), wg.data_ptr(),
-                wu.data_ptr(), wd.data_ptr(), None, out.data_ptr(),
+                wu.data_ptr(), wd.data_ptr(), None, out.data_ptr(), None,
                 part.data_ptr(), m, d, f, bf, splits, 1, int(gelu), 0,
                 fb.EPS, 1, dev, stream), "fused_block (earlier design)")
             return out
@@ -1866,6 +1998,9 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
         # every dimension off the tensor-core kernel's tiles
         ("p 24, n 40, 6 heads in 3 groups, chunk 100, S 333, bf16",
          inputs(3, 333, 6, 3, 24, 40, bf16, "random"), 100, tc),
+        # a rank's heads on a model axis of 2 (phase 10)
+        (f"rank shape: {h // 2} of the {h} heads, bf16, zero state",
+         inputs(b, s, h // 2, g, p, n, bf16, "zero"), q, tc),
     ]
     float64 = {}
     for what, args, chunk, variant in ssd_cases:
@@ -1917,12 +2052,21 @@ def check_ssd_kernel(timed: bool, reps: int) -> dict:
 
     f32_times = in_turns(kernel_f32, plain_f32, reps)
     bnd32 = ssd_bound(b, s, h, g, p, n, q, 4)
+    rank_in = ssd_cases[-1][1]
+    rank_times = in_turns(lambda: ss.ssd_scan_cuda(*rank_in, chunk=q),
+                          lambda: ss.ssd_scan_torch(*rank_in, chunk=q), reps)
+    bnd_rank = ssd_bound(b, s, h // 2, g, p, n, q, 2)
     out["times"] = {"ssd_scan": {
         **bf16_times, "bound_ms": bnd[0],
         "bound_by": bnd[1], "library_ms": None,
         "earlier_design_ms": earlier_ms,
         "earlier_design_max_abs_err": earlier_err,
         "multiply_adds": ssd_multiply_adds(b, s, h, g, p, n, q),
+        "at_rank_shape": {
+            **rank_times, "bound_ms": bnd_rank[0], "bound_by": bnd_rank[1],
+            "library_ms": None,
+            "shape": dict(b=b, s=s, h=h // 2, p=p, g=g, n=n, chunk=q,
+                          dtype="bfloat16", h0="zero")},
         "shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=q,
                       dtype="bfloat16", h0="zero",
                       variant=ran_variant(ss.ssd_scan_cuda, kernel)[1]),
@@ -2259,10 +2403,11 @@ def recorded_routes(cfg):
         return
     route = moe._route
 
-    def recording(p, h2, c):
-        got = route(p, h2, c)
+    def recording(p, h2, c, router=None):
+        got = route(p, h2, c, router)
+        router = p.router if router is None else router
         probs = torch.softmax(h2.to(torch.float32)
-                              @ p.router.to(torch.float32), dim=-1)
+                              @ router.to(torch.float32), dim=-1)
         calls.append((got[1], torch.topk(probs, c.top_k + 1, dim=-1).values))
         return got
     moe._route = recording
@@ -3021,6 +3166,556 @@ def mesh_phase() -> dict:
             "serve": serve_row, "train": train_row}
 
 
+# phase 10: the model axis on one card: mesh (1, 2) as two rank processes
+# over gloo (NCCL refuses two ranks on one device).  Each serve at full
+# width in bfloat16 (its depth, where given, cut so both ranks fit), with
+# its float32 check at cut depth against the run without a mesh; the
+# kernels each must launch on every rank (a form in brackets).
+MODEL_AXIS_DIMS = (1, 2)
+MODEL_AXIS_TOL = 1e-4            # of the logits' / losses' scale, float32
+MODEL_AXIS_TIMEOUT_S = 600
+MODEL_AXIS_CP_ARCH = "smollm-360m"
+MODEL_AXIS_SERVES = {
+    # tp plan: heads 5 a rank, the one kv head whole, the local layers'
+    # 2,048-slot ring split by sequence, F 3,840 a rank
+    "recurrentgemma-2b": {
+        "shape": {"batch": 2, "prompt_len": 3072, "gen_len": 16},
+        "check": {"n_layers": 3, "batch": 2, "prompt_len": 512,
+                  "gen_len": 4},
+        "kernels": ("flash_attention", "fused_block[partial]",
+                    "rglru_scan"),
+        "fault": "ff_zero"},
+    # hybrid plan: 15 heads whole on each rank, attention context-parallel
+    # at the prefill, F and the vocabulary split
+    "smollm-360m": {
+        "shape": {"batch": 2, "prompt_len": 1024, "gen_len": 8},
+        "cp": True,
+        "check": {"n_layers": 2, "batch": 2, "prompt_len": 512,
+                  "gen_len": 4},
+        "kernels": ("flash_attention[q_offset]", "fused_block[partial]"),
+        "fault": "cp_offset0"},
+    # 40 of the 80 heads a rank; the float32 check at all 64 layers;
+    # "spread": its runs without a mesh (float32 and bf16) also through
+    # the plain versions, the logits' spread between K8 and its plain
+    # version over the 64 layers, beside the mesh's
+    "mamba2-2.7b": {
+        "shape": {"batch": 4, "prompt_len": 2048, "gen_len": 16},
+        "check": {"n_layers": 64, "batch": 2, "prompt_len": 512,
+                  "gen_len": 4},
+        "kernels": ("ssd_scan",), "spread": True},
+    # 32 of the 64 experts a rank, the dispatch by all-to-all; 24 of the
+    # 48 layers
+    "moonshot-v1-16b-a3b": {
+        "shape": {"batch": 2, "prompt_len": 2048, "gen_len": 16},
+        "n_layers": 24,
+        "check": {"n_layers": 2, "batch": 1, "prompt_len": 512,
+                  "gen_len": 4},
+        "kernels": ("flash_attention",)},
+}
+MODEL_AXIS_TRAIN = {"arch": "smollm-360m", "batch": 8, "seq": 512,
+                    "steps": 3, "check": {"n_layers": 2, "batch": 2,
+                                          "seq": 256},
+                    "kernels": ("flash_attention", "fused_block[partial]")}
+MODEL_AXIS_PSUM = {"dims": (2, 1, 1), "numel": 1 << 20,
+                   "r11": [[1.0, -0.5, 0.25], [10.0, 3.0, -7.0]]}
+
+
+def model_axis_cfg(case: dict, seq: int):
+    """``arch`` as phase 10 runs it: float32 at the check's depth, or
+    bfloat16 at its full width (and the serve's cut depth, if any).  The
+    float32 check of a config with experts takes a capacity of every
+    token (``capacity_factor`` E / K): the mesh routes each rank's half of
+    the rows with the capacity of that half, the run without a mesh all
+    rows with theirs (the reference's two paths), and with no token
+    dropped the two keep the same tokens."""
+    from repro_torch.configs import get_config
+
+    spec = (MODEL_AXIS_SERVES[case["arch"]] if case["kind"] == "serve"
+            else MODEL_AXIS_TRAIN)
+    cfg = get_config(case["arch"]).replace(max_seq=seq)
+    if case["check"]:
+        cfg = cfg.replace(n_layers=spec["check"]["n_layers"],
+                          dtype="float32")
+        if cfg.n_experts:
+            cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        return cfg
+    return cfg.replace(n_layers=spec["n_layers"]) if spec.get(
+        "n_layers") else cfg
+
+
+def model_axis_jobs() -> list:
+    """The cases both the ranks and the run without a mesh drive, in
+    order: per serve its float32 check, its planted fault (ranks only) and
+    its bfloat16 run; the training run likewise; the compressed psum."""
+    cases = []
+    for arch, spec in MODEL_AXIS_SERVES.items():
+        for check in (True, False):
+            shape = spec["check"] if check else spec["shape"]
+            base = dict(kind="serve", arch=arch, check=check,
+                        cp=spec.get("cp", False),
+                        shape={k: shape[k] for k in ("batch", "prompt_len",
+                                                     "gen_len")})
+            cases.append(dict(base, id=f"{arch}-{'f32' if check else 'bf16'}"))
+            if check and spec.get("fault"):
+                cases.append(dict(base, id=f"{arch}-fault",
+                                  fault=spec["fault"]))
+    t = MODEL_AXIS_TRAIN
+    for check in (True, False):
+        shape = t["check"] if check else t
+        cases.append(dict(kind="train", arch=t["arch"], check=check,
+                          id=f"train-{'f32' if check else 'bf16'}",
+                          batch=shape["batch"], seq=shape["seq"],
+                          steps=t["steps"]))
+    cases.append(dict(kind="psum", id="psum"))
+    return cases
+
+
+def model_axis_run(case: dict, mesh=None) -> dict:
+    """One case of phase 10 on this process's card: without a mesh, or on
+    ``mesh`` as one of its ranks (the process group started).  Returns
+    what the comparison reads: logits or losses, tokens, walls, launches
+    (all, by variant and by form), the collectives' host seconds, the peak
+    of allocated bytes, and on a mesh the placed and predicted bytes."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import (launch_counts, launch_counts_by_form,
+                                     launch_counts_by_variant,
+                                     reset_launch_counts)
+    from repro_torch.launch import tensor_parallel as tpc
+    from repro_torch.launch.dryrun import (abstract_cache, abstract_params,
+                                           shard_bytes)
+    from repro_torch.launch.serve import ServeConfig, serve
+    from repro_torch.launch.sharding import (cache_pspecs, make_plan,
+                                             param_pspecs)
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models.layers import model_dtype
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    tpc.reset_transport()
+    t0 = time.perf_counter()
+    if case["kind"] == "serve":
+        shape = case["shape"]
+        seq = shape["prompt_len"] + shape["gen_len"]
+        cfg = model_axis_cfg(case, seq)
+        out = serve(cfg, ServeConfig(**shape, seed=0), mesh=mesh,
+                    cp=case["cp"] and mesh is not None)
+        res = {"tokens": out["tokens"].tolist(),
+               "logits": out["logits"].float().cpu(),
+               "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
+    else:
+        cfg = model_axis_cfg(case, case["seq"])
+        out = train(cfg, TrainConfig(
+            steps=case["steps"], log_every=1, ckpt_every=case["steps"] + 1,
+            ckpt_dir=str(fresh_dir(f"model_axis_ckpt_{os.getpid()}")),
+            seed=0, opt=AdamWConfig(**TRAIN_RUN["opt"])),
+            data_cfg=DataConfig(seq_len=case["seq"],
+                                global_batch=case["batch"], vocab=cfg.vocab,
+                                seed=0), mesh=mesh)
+        res = {"losses": [x for _s, x in out["losses"]],
+               "step_s": out["step_s"]}
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t0,
+               launches=launch_counts(),
+               launches_by_variant=launch_counts_by_variant(),
+               launches_by_form=launch_counts_by_form(),
+               transport=dict(tpc.TRANSPORT),
+               peak_bytes=torch.cuda.max_memory_allocated() - before)
+    if mesh is not None:
+        plan = make_plan(cfg, mesh)
+        meta = Model(cfg, device="meta")
+        if case["kind"] == "serve":
+            pdtype = model_dtype(cfg)
+            res.update(param_bytes=out["param_bytes"],
+                       cache_bytes=out["cache_bytes"])
+            cache = abstract_cache(cfg, shape["batch"], seq)
+            res["shard_cache_bytes"] = shard_bytes(
+                cache, cache_pspecs(cache, mesh, shape["batch"], plan),
+                mesh) - 4
+        else:
+            pdtype = torch.float32
+            res["param_bytes"] = sum(p.numel() * p.element_size()
+                                     for p in out["model"].parameters())
+        res["shard_param_bytes"] = shard_bytes(
+            abstract_params(meta, pdtype), param_pspecs(meta, mesh, plan),
+            mesh)
+    del out
+    return res
+
+
+def model_axis_psum() -> dict:
+    """``compressed_psum`` over the ``pod`` group of a (2, 1, 1) mesh on
+    this rank: random gradients of its own against the plain formula on
+    the gathered inputs (each rank's int8 codes at its own scale, summed,
+    times the largest scale, over 2), and the reference's two vectors
+    (ROADMAP R11)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import tensor_parallel as tpc
+    from repro_torch.launch.distributed import MeshRun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import compress, compressed_psum
+
+    p = MODEL_AXIS_PSUM
+    run = MeshRun(get_config(MODEL_AXIS_CP_ARCH), make_mesh(p["dims"]),
+                  None, "cuda")
+    group, n = run.groups["pod"], p["dims"][0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(100 + dist.get_rank())
+    g = torch.randn(p["numel"], generator=gen, device="cuda") * (
+        1 + dist.get_rank())
+    zero = torch.zeros_like(g)
+    t0 = time.perf_counter()
+    mean, err = compressed_psum({"w": g}, {"w": zero}, group)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    everyone = tpc.all_gather_list(g, group, n)
+    codes = [compress({"w": x}, {"w": zero}) for x in everyone]
+    total = sum(c[0]["w"].to(torch.int32) for c in codes)
+    top = max(float(c[1]["w"]) for c in codes)
+    plain = total.to(torch.float32) * torch.tensor(top, device="cuda") / n
+    r11 = torch.tensor(p["r11"][dist.get_rank()], device="cuda")
+    r11_mean, _ = compressed_psum({"w": r11}, {"w": torch.zeros_like(r11)},
+                                  group)
+    return {"max_abs_err": float((mean["w"] - plain).abs().max()),
+            "error_max": float(err["w"].abs().max()), "seconds": seconds,
+            "numel": p["numel"], "r11_mean": r11_mean["w"].tolist()}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """A fault in this rank's run, to show phase 10's check sees it:
+    ``"ff_zero"`` zeroes rank 1's shard of the first layer's MLP down
+    projection when it is placed; ``"cp_offset0"`` runs every rank's
+    context-parallel slice from position 0."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import distributed
+    from repro_torch.launch.distributed import param_name
+    from repro_torch.models import transformer
+
+    real_place, real_cp = distributed.MeshRun.place, transformer.cp_attention
+
+    def place(self, model, leaf):
+        real_place(self, model, leaf)
+        if dist.get_rank() == 1:            # the stored shard, not a gather
+            for name, p in model.named_parameters():
+                if param_name(name) == "layers.0.ffn.w_down":
+                    p.data.zero_()
+
+    def cp_from_zero(q, k, v, tp, *, causal=True, window=0, softcap=0.0):
+        chunk = q.shape[1] // tp.n
+        mine = q[:, tp.rank * chunk:(tp.rank + 1) * chunk].contiguous()
+        return tp.gather(ops.flash_attention(
+            mine, k, v, causal=causal, window=window, softcap=softcap), 1)
+
+    if fault == "ff_zero":
+        distributed.MeshRun.place = place
+    elif fault == "cp_offset0":
+        transformer.cp_attention = cp_from_zero
+    try:
+        yield
+    finally:
+        distributed.MeshRun.place = real_place
+        transformer.cp_attention = real_cp
+
+
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single")
+
+
+@contextlib.contextmanager
+def recorded_collectives(seen: set):
+    """Inside the block, every ``torch.distributed`` collective of a CUDA
+    tensor this process makes adds its (operation, dtype, input shape,
+    group size, reduction) to ``seen``."""
+    import torch.distributed as dist
+
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def recording(name):
+        def call(*args, **kw):
+            t = args[0] if name in ("all_reduce", "broadcast") else args[1]
+            if t.is_cuda:
+                op = kw.get("op", dist.ReduceOp.SUM)
+                seen.add((name, str(t.dtype).removeprefix("torch."),
+                          tuple(t.shape), dist.get_world_size(kw.get("group")),
+                          ("max" if op == dist.ReduceOp.MAX else "sum")
+                          if name == "all_reduce" else ""))
+            return real[name](*args, **kw)
+        return call
+
+    for name in COLLECTIVES:
+        setattr(dist, name, recording(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def gloo_cuda_probe(seen: set) -> dict:
+    """Every collective in ``seen`` (the union over the ranks) run once
+    more by gloo on CUDA tensors of fresh data, over the world group or a
+    group of this rank alone, and held to its plain result computed here
+    from every member's data: ``{"signatures": k, "by_op": {"op dtype":
+    k}, "ok": k_ok, "failed": [...]}``; a failure is ``"wrong"`` or the
+    error's first line."""
+    import torch
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    everyone = [None] * n
+    dist.all_gather_object(everyone, sorted(seen))
+    sigs = sorted({tuple(x) for mine in everyone for x in mine},
+                  key=repr)
+    solo = [dist.new_group([i]) for i in range(n)][r]
+    groups = {n: (None, list(range(n))), 1: (solo, [r])}
+
+    def data(i, member, shape, dtype):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 * i + member)
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return torch.randint(-1000, 1000, shape, generator=gen,
+                             device="cuda").to(dtype)
+
+    by_op, ok, failed = {}, 0, []
+    for i, (name, dt, shape, size, red) in enumerate(sigs):
+        key = f"{name} {dt}"
+        by_op[key] = by_op.get(key, 0) + 1
+        if size not in groups:
+            failed.append([name, dt, shape, size, red, "no such group"])
+            continue
+        group, members = groups[size]
+        me = members.index(r)
+        dtype = getattr(torch, dt)
+        xs = [data(i, m, shape, dtype) for m in members]
+        x = xs[me].clone()
+        total = xs[0].clone()
+        for y in xs[1:]:
+            total = torch.maximum(total, y) if red == "max" else total + y
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x, op=dist.ReduceOp.MAX if red == "max"
+                                else dist.ReduceOp.SUM, group=group)
+                got, want = x, total
+            elif name == "broadcast":
+                dist.broadcast(x, members[0], group=group)
+                got, want = x, xs[0]
+            elif name == "all_gather_into_tensor":
+                got = torch.empty((size * shape[0], *shape[1:]),
+                                  dtype=dtype, device="cuda")
+                dist.all_gather_into_tensor(got, x, group=group)
+                want = torch.cat(xs)
+            elif name == "reduce_scatter_tensor":
+                got = torch.empty((shape[0] // size, *shape[1:]),
+                                  dtype=dtype, device="cuda")
+                dist.reduce_scatter_tensor(got, x, group=group)
+                want = total.chunk(size)[me]
+            else:
+                got = torch.empty_like(x)
+                dist.all_to_all_single(got, x, group=group)
+                want = torch.cat([y.chunk(size)[me] for y in xs])
+            result = "ok" if torch.equal(got, want) else "wrong"
+        except Exception as e:  # record what gloo says, choose nothing
+            result = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+        if result == "ok":
+            ok += 1
+        else:
+            failed.append([name, dt, shape, size, red, result])
+        dist.barrier()
+    return {"signatures": len(sigs), "by_op": by_op, "ok": ok,
+            "failed": failed[:10]}
+
+
+def model_axis_rank(job_path: str) -> int:
+    """One rank of phase 10 (``--model-axis-rank JOB``): joins the gloo
+    group of the job's store on cuda:0, runs every case of the job on mesh
+    (1, 2) (the psum on its pod mesh), and writes its results beside the
+    job."""
+    import torch
+    from repro_torch.launch.distributed import close_ranks, init_ranks
+    from repro_torch.launch.mesh import make_mesh
+
+    job = json.loads(Path(job_path).read_text())
+    init_ranks(job["store"], "cuda", backend="gloo")
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    results, seen = {}, set()
+    try:
+        with recorded_collectives(seen):
+            for case in job["cases"]:
+                if case["kind"] == "psum":
+                    results[case["id"]] = model_axis_psum()
+                    continue
+                with planted(case.get("fault")):
+                    results[case["id"]] = model_axis_run(
+                        case, make_mesh(MODEL_AXIS_DIMS))
+        t0 = time.perf_counter()
+        results["gloo_cuda"] = gloo_cuda_probe(seen)
+        results["gloo_cuda"]["seconds"] = time.perf_counter() - t0
+    finally:
+        close_ranks()
+    torch.save(results, Path(job_path).parent / f"rank{rank}.pt")
+    return 0
+
+
+def model_axis_phase() -> dict:
+    """Phase 10 (see the module docstring): every case without a mesh in
+    this process, then the two ranks on mesh (1, 2), each a subprocess of
+    this script on the same card; the comparisons."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    from repro_torch.kernels import ops
+
+    cases = model_axis_jobs()
+    alone = {c["id"]: model_axis_run(c) for c in cases
+             if c["kind"] != "psum" and not c.get("fault")}
+    spread = {}
+    for c in cases:
+        if (c["kind"] == "serve" and not c.get("fault")
+                and MODEL_AXIS_SERVES[c["arch"]].get("spread")):
+            with ops.plain_versions():
+                plain = model_axis_run(c)
+            want = alone[c["id"]]
+            spread[c["id"]] = {
+                "rel_err": float((plain["logits"] - want["logits"]).abs()
+                                 .max() / want["logits"].abs().max()),
+                "token_agreement": float(np.mean(
+                    np.asarray(plain["tokens"])
+                    == np.asarray(want["tokens"])))}
+    torch.cuda.empty_cache()
+    work = fresh_dir("model_axis")
+    work.mkdir(parents=True)
+    job = work / "job.json"
+    job.write_text(json.dumps({"store": f"file://{work / 'store'}",
+                               "cases": cases}))
+    procs = []
+    t_ranks = time.perf_counter()
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2",
+               "LOCAL_RANK": "0"}
+        with open(work / f"rank{rank}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--model-axis-rank", str(job)], env=env, cwd=ROOT,
+                stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MODEL_AXIS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t_ranks
+    for rank, p in enumerate(procs):
+        require(p.returncode == 0,
+                f"phase 10 rank {rank} exited {p.returncode}: "
+                f"{(work / f'rank{rank}.log').read_text()[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    for rank, r in enumerate(ranks):
+        probe = r["gloo_cuda"]
+        require(probe["signatures"] > 0 and not probe["failed"]
+                and probe["ok"] == probe["signatures"],
+                f"phase 10 rank {rank}: gloo's collectives on CUDA tensors "
+                f"at the cases' shapes: {json.dumps(probe)[:1500]}")
+    log(f"  model axis: gloo on CUDA tensors, every collective of the cases "
+        f"again on fresh data: {json.dumps(ranks[0]['gloo_cuda'])}")
+    rows = {}
+    for case in cases:
+        cid = case["id"]
+        got = [r[cid] for r in ranks]
+        if case["kind"] == "psum":
+            for rank, g in enumerate(got):
+                require(g["max_abs_err"] == 0.0,
+                        f"compressed_psum on rank {rank}: off its plain "
+                        f"formula by {g['max_abs_err']}")
+            rows[cid] = got
+            log(json.dumps({"model_axis": cid, "ranks": got}))
+            continue
+        want = alone[case["id"].replace("-fault", "-f32")]
+        row = {"model_axis": cid, "kind": case["kind"], "arch": case["arch"],
+               "check": case["check"], "fault": case.get("fault"),
+               "cp": case.get("cp", False)}
+        for rank, g in enumerate(got):
+            require(g["param_bytes"] == g["shard_param_bytes"]
+                    and g.get("cache_bytes") == g.get("shard_cache_bytes"),
+                    f"{cid} rank {rank}: placed {g['param_bytes']} B of "
+                    f"parameters and {g.get('cache_bytes')} B of cache, the "
+                    f"dry-run's shards {g['shard_param_bytes']} B and "
+                    f"{g.get('shard_cache_bytes')} B")
+        if case["kind"] == "serve":
+            scale = float(want["logits"].abs().max())
+            errs = [float((g["logits"] - want["logits"]).abs().max())
+                    / scale for g in got]
+            agree = [float(np.mean(np.asarray(g["tokens"])
+                                   == np.asarray(want["tokens"])))
+                     for g in got]
+            row.update(rel_err=errs, token_agreement=agree)
+            if case["check"]:
+                row["tol"] = MODEL_AXIS_TOL
+            if cid in spread:
+                row["alone_kernels_vs_plain"] = spread[cid]
+        else:
+            errs = [max(abs(a - b) / abs(b)
+                        for a, b in zip(g["losses"], want["losses"]))
+                    for g in got]
+            row.update(rel_err=errs, losses=[g["losses"] for g in got],
+                       losses_alone=want["losses"])
+        if case["check"] and case.get("fault"):
+            require(max(errs) > MODEL_AXIS_TOL,
+                    f"{cid}: the planted fault {case['fault']} passed the "
+                    f"float32 check ({max(errs)} <= {MODEL_AXIS_TOL})")
+        elif case["check"]:
+            require(max(errs) <= MODEL_AXIS_TOL,
+                    f"{cid}: mesh (1, 2) off the run without a mesh by "
+                    f"{max(errs)} of the scale (> {MODEL_AXIS_TOL})")
+        else:
+            spec = (MODEL_AXIS_SERVES[case["arch"]] if case["kind"] == "serve"
+                    else MODEL_AXIS_TRAIN)
+            # every kernel on every rank; a form on some rank (rank 0's
+            # context-parallel slice starts at position 0)
+            for kernel in spec["kernels"]:
+                base, _, form = kernel.partition("[")
+                for rank, g in enumerate(got):
+                    require(g["launches"][base] > 0,
+                            f"{cid}: rank {rank} launched {base} no time")
+                require(not form or sum(
+                    g["launches_by_form"][base][form[:-1]] for g in got) > 0,
+                    f"{cid}: no rank launched {kernel}")
+        row.update({k: [g[k] for g in got] for k in (
+            "wall_s", "launches", "launches_by_variant", "launches_by_form",
+            "transport", "peak_bytes", "param_bytes")})
+        row.update(wall_s_alone=want["wall_s"],
+                   peak_bytes_alone=want["peak_bytes"],
+                   launches_alone=want["launches"])
+        if case["kind"] == "serve":
+            row.update({k: [g[k] for g in got] for k in (
+                "prefill_s", "decode_s", "cache_bytes")})
+            row.update(prefill_s_alone=want["prefill_s"],
+                       decode_s_alone=want["decode_s"])
+        else:
+            row.update(step_s=[g["step_s"] for g in got],
+                       step_s_alone=want["step_s"])
+        rows[cid] = row
+        log(json.dumps(row))
+    return {"seconds": time.perf_counter() - t0, "ranks_s": ranks_s,
+            "gloo_cuda": ranks[0]["gloo_cuda"], "rows": rows}
+
+
 # ---------------------------------------------------------------- main path
 def plan_signature(plan) -> dict:
     c = plan.candidate
@@ -3748,6 +4443,9 @@ def main(argv=None) -> int:
                     help="build the kernels, print what ptxas says, check "
                          "them against their plain versions at small "
                          "sizes, and stop")
+    ap.add_argument("--model-axis-rank", metavar="JOB", default=None,
+                    help="run as one rank of phase 10 on JOB (phase 10 "
+                         "starts two of these)")
     args = ap.parse_args(argv)
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3761,6 +4459,8 @@ def main(argv=None) -> int:
               "False); this script measures on the GPU only",
               file=sys.stderr)
         return 2
+    if args.model_axis_rank:
+        return model_axis_rank(args.model_axis_rank)
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
@@ -3909,6 +4609,11 @@ def main(argv=None) -> int:
     meshed = mesh_phase()
     log(f"mesh phase ({meshed['seconds']:.1f} s)")
 
+    # ---- phase 10: the model axis, mesh (1, 2) as two ranks on the card
+    model_axis = model_axis_phase()
+    log(f"model axis phase ({model_axis['seconds']:.1f} s, of which the "
+        f"ranks {model_axis['ranks_s']:.1f} s)")
+
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():
         log(json.dumps({
@@ -4029,6 +4734,9 @@ def main(argv=None) -> int:
             for a, c in trained["grad_checks"].items()}
         if name == "ssd_scan":
             entry["at_float32"] = t["float32"]
+            entry["at_rank_shape"] = t["at_rank_shape"]
+        if name == "rglru_scan":
+            entry["at_rank_shape"] = lm_times["rglru_scan_rank"]
         if name in lm["families"]:
             entry["at_other_shapes"] = lm["families"][name]
         if name == "fused_block":
@@ -4038,10 +4746,44 @@ def main(argv=None) -> int:
                                "in bfloat16, the block's products alone")
             entry["at_wide_float32"] = lm["wide"]
         kernels.append(entry)
+    axis_rows = {cid: row for cid, row in model_axis["rows"].items()
+                 if cid != "psum" and not row["check"]}
+    for name, base, form, main_case in (
+            ("flash_attention[q_offset]", "flash_attention", "q_offset",
+             f"{MODEL_AXIS_CP_ARCH}-bf16"),
+            ("fused_block[partial]", "fused_block", "partial",
+             "recurrentgemma-2b-bf16")):
+        info, t = KERNEL_INFO[base], lm_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": info["source"],
+            "replaces": info["replaces"],
+            # both ranks' launches (rank 0's cp slice starts at 0: K6
+            # runs there without the offset)
+            "launches": sum(r[base][form] for r in
+                            axis_rows[main_case]["launches_by_form"]),
+            "launches_by_rank": {
+                cid: [r[base][form] for r in row["launches_by_form"]]
+                for cid, row in axis_rows.items()},
+            "max_abs_err": lm["errs"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "shape": t["shape"],
+            "variants": info["variants"]})
+        if form == "q_offset":
+            kernels[-1]["library"] = (
+                "torch.nn.functional.scaled_dot_product_attention, boolean "
+                "mask of the slice's positions, enable_gqa=True")
+            kernels[-1]["library_max_abs_err"] = t["library_max_abs_err"]
+        else:
+            kernels[-1]["matmul_ms"] = t["matmul_ms"]
     for entry in kernels:
         entry["launches_in_mesh_phase"] = {
             run: meshed[run]["launches"].get(entry["name"], 0)
             for run in ("serve", "train")}
+        if entry["name"] in LM_KERNELS:
+            entry["launches_in_model_axis_phase"] = {
+                cid: [r.get(entry["name"], 0) for r in row["launches"]]
+                for cid, row in axis_rows.items()}
     serial_wall = yolov2_wall_and_busy()
     log(json.dumps(serial_wall))
     pool["serial_wall_ms_median"] = serial_wall["wall_ms_median"]

@@ -74,6 +74,15 @@ def launch_counts_by_variant() -> dict:
             if hasattr(fn, "launches_by_variant")}
 
 
+def launch_counts_by_form() -> dict:
+    """name -> {form: launches} since the last :func:`reset_launch_counts`,
+    for the wrappers with forms beside their default (K6 with a query
+    offset, K7's partial sum)."""
+    return {name: dict(fn.launches_by_form)
+            for name, fn in kernel_wrappers().items()
+            if hasattr(fn, "launches_by_form")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
@@ -81,3 +90,5 @@ def reset_launch_counts() -> None:
             fn.fused_launches = 0
         for variant in getattr(fn, "launches_by_variant", ()):
             fn.launches_by_variant[variant] = 0
+        for form in getattr(fn, "launches_by_form", ()):
+            fn.launches_by_form[form] = 0

@@ -181,29 +181,33 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = [
         p, p, p, p,                 # q, k, v, o
         i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
-        f, i, i, f,                 # scale, causal, window, softcap
+        f, i, i, f, i,              # scale, causal, window, softcap,
+        #                             q_offset
         i, i, p]                    # is_bf16, device, stream
     lib.flash_attention_tc_launch.argtypes = [
         p, p, p, p,                 # q, k, v, o
         i, i, i, i, i, i,           # B, S, T, NH, NKV, hd
-        f, i, i, f,                 # scale, causal, window, softcap
+        f, i, i, f, i,              # scale, causal, window, softcap,
+        #                             q_offset
         i, p]                       # device, stream
     lib.fused_block_launch.argtypes = [
-        p, p, p, p, p, p, p, p,     # x, scale, wg, wu, wd, post, out, part
+        p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
+        p, p,                       # yout (partial), part
         i, i, i, i, i,              # M, d, F, bf, splits
         i, i, i, f,                 # gated, gelu, sandwich, eps
         i, i, p]                    # is_bf16, device, stream
     lib.fused_block_wide_launch.argtypes = [
         p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
+        p,                          # yout (partial)
         p, p, p,                    # scratch n, h, part
         i, i, i, i,                 # M, d, F, splits
         i, i, i, f,                 # gated, gelu, sandwich, eps
         i, i, p]                    # is_bf16, device, stream
     lib.fused_block_tc_launch.argtypes = [
         p, p, p, p, p, p, p,        # x, scale, wg, wu, wd, post, out
-        p, p, p,                    # scratch n, h, y
+        p, p, p,                    # scratch n, h, y (partial: out)
         i, i, i,                    # M, d, F
-        i, i, i, f,                 # gated, gelu, sandwich, eps
+        i, i, i, i, f,              # gated, gelu, sandwich, partial, eps
         i, p]                       # device, stream
     lib.ssd_scan_launch.argtypes = [
         p, p, p, p, p, p, p,        # x, dt, A, Bm, Cm, D, h0

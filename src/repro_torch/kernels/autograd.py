@@ -66,13 +66,14 @@ class FlashAttention(torch.autograd.Function):
         with torch.enable_grad():
             out = plain_attention(*(grad_fence(t) for t in ins),
                                   causal=kw["causal"], window=kw["window"],
-                                  softcap_val=kw["softcap"])
+                                  softcap_val=kw["softcap"],
+                                  q_offset=kw.get("q_offset", 0))
         return (None, None, *_grads(out, ins, g, ctx.needs_input_grad[2:]))
 
 
 class FusedBlock(torch.autograd.Function):
     """K7: ``forward(x, scale, w_gate, w_up, w_down, post_scale, act=,
-    gated=, sandwich=)`` on ``x [M, d]``."""
+    gated=, sandwich=, partial=)`` on ``x [M, d]``."""
 
     @staticmethod
     def forward(ctx, forward, kw, x, scale, w_gate, w_up, w_down,

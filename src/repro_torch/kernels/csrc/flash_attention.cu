@@ -86,7 +86,8 @@ template <typename T, int CJ>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(
         const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, T* __restrict__ o, int S, int T_, int NH,
-        int NKV, int hd, float scale, int causal, int window, float cap) {
+        int NKV, int hd, float scale, int causal, int window, float cap,
+        int qoff) {
     extern __shared__ __align__(16) float smem[];
     float* qT = smem;                          // [hd][QLD]
     float* ks = qT + (size_t)hd * QLD;         // [BK][hd + 1]
@@ -98,6 +99,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
     const int kvh = h / (NH / NKV);
     const int q0 = blockIdx.x * BQ;
     const int r0 = warp * RW;                  // this warp's first query
+    const int p0 = qoff + q0;                  // the block's first position
 
     for (int i = tid; i < BQ * hd; i += NT) {
         const int r = i / hd, c = i % hd, s = q0 + r;
@@ -119,8 +121,8 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
         const int k0 = jt * BK;
         // the TPU kernel's tile-level skip: max q vs min k (causal), min q
         // vs max k (window)
-        if (causal && q0 + BQ - 1 - k0 < 0) continue;
-        if (window && q0 - (k0 + BK - 1) >= window) continue;
+        if (causal && p0 + BQ - 1 - k0 < 0) continue;
+        if (window && p0 - (k0 + BK - 1) >= window) continue;
         __syncthreads();                       // the last tile is consumed
         for (int i = tid; i < BK * hd; i += NT) {
             const int t = i / hd, c = i % hd, kp = k0 + t;
@@ -159,7 +161,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
         for (int r = 0; r < RW; ++r) {
             float val = s[r] * scale;
             if (cap != 0.f) val = cap * tanhf(val / cap);
-            const int delta = q0 + r0 + r - kp;
+            const int delta = p0 + r0 + r - kp;
             bool ok = kp < T_;
             if (causal) ok = ok && delta >= 0;
             if (window) ok = ok && delta < window;
@@ -212,7 +214,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(
 template <typename T, int CJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int T_, int NH, int NKV, int hd, float scale, int causal,
-           int window, float cap, cudaStream_t stream) {
+           int window, float cap, int qoff, cudaStream_t stream) {
     const size_t smem = smem_bytes(hd);
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, CJ>,
@@ -221,26 +223,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * NH));
     flash_attention_kernel<T, CJ><<<grid, NT, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, S, T_, NH, NKV, hd,
-        scale, causal, window, cap);
+        scale, causal, window, cap, qoff);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_cj(const void* q, const void* k, const void* v, void* o, int B,
               int S, int T_, int NH, int NKV, int hd, float scale,
-              int causal, int window, float cap, cudaStream_t s) {
+              int causal, int window, float cap, int qoff, cudaStream_t s) {
     const int cj = (hd + 31) / 32;
     if (cj <= 1)
         return launch<T, 1>(q, k, v, o, B, S, T_, NH, NKV, hd, scale, causal,
-                            window, cap, s);
+                            window, cap, qoff, s);
     if (cj <= 2)
         return launch<T, 2>(q, k, v, o, B, S, T_, NH, NKV, hd, scale, causal,
-                            window, cap, s);
+                            window, cap, qoff, s);
     if (cj <= 4)
         return launch<T, 4>(q, k, v, o, B, S, T_, NH, NKV, hd, scale, causal,
-                            window, cap, s);
+                            window, cap, qoff, s);
     return launch<T, 8>(q, k, v, o, B, S, T_, NH, NKV, hd, scale, causal,
-                        window, cap, s);
+                        window, cap, qoff, s);
 }
 
 }  // namespace
@@ -248,21 +250,23 @@ int launch_cj(const void* q, const void* k, const void* v, void* o, int B,
 // q, o: [B, S, NH, hd]; k, v: [B, T, NKV, hd]; all contiguous, bfloat16
 // (is_bf16) or float32.  hd <= 256, NH a multiple of NKV.  scale is
 // 1 / sqrt(hd); cap 0 disables the soft cap; window 0 disables the window.
+// Query i is at position qoff + i (keys from 0): a context-parallel slice.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int T, int NH, int NKV, int hd,
                                       float scale, int causal, int window,
-                                      float cap, int is_bf16, int device,
-                                      void* stream) {
+                                      float cap, int qoff, int is_bf16,
+                                      int device, void* stream) {
     if (B <= 0 || S <= 0) return 0;
-    if (T <= 0 || hd <= 0 || hd > 256 || NKV <= 0 || NH % NKV != 0)
+    if (T <= 0 || hd <= 0 || hd > 256 || NKV <= 0 || NH % NKV != 0
+        || qoff < 0)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
     if (is_bf16)
         return launch_cj<__nv_bfloat16>(q, k, v, o, B, S, T, NH, NKV, hd,
-                                        scale, causal, window, cap, s);
+                                        scale, causal, window, cap, qoff, s);
     return launch_cj<float>(q, k, v, o, B, S, T, NH, NKV, hd, scale, causal,
-                            window, cap, s);
+                            window, cap, qoff, s);
 }

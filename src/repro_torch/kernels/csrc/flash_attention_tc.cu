@@ -92,7 +92,7 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
         const bf16* __restrict__ q, const bf16* __restrict__ k,
         const bf16* __restrict__ v, bf16* __restrict__ o, int S, int T,
         int NH, int NKV, int hd, float scale, int causal, int window,
-        float cap) {
+        float cap, int qoff) {
     using SH = Shape<HD>;
     constexpr int BKV = SH::BKV, LD = SH::LD;
     constexpr int NS = BKV / 8;            // n8 tiles of scores a warp
@@ -107,6 +107,7 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
     const int kvh = h / (NH / NKV);
     const int q0 = blockIdx.x * BQ;
     const int wq = q0 + warp * 16;         // this warp's first query
+    const int p0 = qoff + q0, wp = qoff + wq;  // their positions
     const long long q_ld = (long long)NH * hd, kv_ld = (long long)NKV * hd;
     const bf16* kb = k + ((long long)b * T * NKV + kvh) * hd;
     const bf16* vb = v + ((long long)b * T * NKV + kvh) * hd;
@@ -115,9 +116,9 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
     // max q against min k (causal), min q against max k (window)
     const int n_k = (T + BKV - 1) / BKV;
     int lo = 0, hi = n_k;
-    if (causal) hi = min(n_k, (q0 + BQ - 1) / BKV + 1);
+    if (causal) hi = min(n_k, (p0 + BQ - 1) / BKV + 1);
     if (window)
-        while (lo < hi && q0 - (lo * BKV + BKV - 1) >= window) ++lo;
+        while (lo < hi && p0 - (lo * BKV + BKV - 1) >= window) ++lo;
 
     load_rows<HD>(qs, q + ((long long)b * S + q0) * q_ld + (long long)h * hd,
                   q_ld, BQ, S - q0, hd);
@@ -152,8 +153,8 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
         const bf16* ks = kvs + stage * 2 * SH::KV_TILE;
         const bf16* vs = ks + SH::KV_TILE;
         const int k0 = jt * BKV;
-        const bool skip = (causal && wq + 15 < k0)
-                          || (window && wq - (k0 + BKV - 1) >= window);
+        const bool skip = (causal && wp + 15 < k0)
+                          || (window && wp - (k0 + BKV - 1) >= window);
         if (!skip) {
             // ---- S = Q K^T for the warp's 16 queries
             float s[NS][4];
@@ -179,11 +180,11 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
             // ---- scale, soft cap, mask; online softmax by rows g, g + 8.
             // Only a tile that the mask cuts for the warp's rows is masked
             // element by element.
-            const bool cut = k0 + BKV > T || (causal && wq < k0 + BKV - 1)
-                             || (window && wq + 15 - k0 >= window);
+            const bool cut = k0 + BKV > T || (causal && wp < k0 + BKV - 1)
+                             || (window && wp + 15 - k0 >= window);
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-                const int qi = wq + g + 8 * half;
+                const int qi = wp + g + 8 * half;     // a position
                 float mx = NEG_INF;
 #pragma unroll
                 for (int j = 0; j < NS; ++j)
@@ -266,7 +267,7 @@ __global__ void __launch_bounds__(NT) flash_attention_tc_kernel(
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int S, int T, int NH, int NKV, int hd, float scale, int causal,
-           int window, float cap, cudaStream_t stream) {
+           int window, float cap, int qoff, cudaStream_t stream) {
     const size_t smem = Shape<HD>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_tc_kernel<HD>,
@@ -275,7 +276,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((unsigned)((S + BQ - 1) / BQ), (unsigned)(B * NH));
     flash_attention_tc_kernel<HD><<<grid, NT, smem, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, T, NH,
-        NKV, hd, scale, causal, window, cap);
+        NKV, hd, scale, causal, window, cap, qoff);
     return (int)cudaGetLastError();
 }
 
@@ -288,14 +289,16 @@ bool aligned16(const void* p) {
 // q, o: [B, S, NH, hd]; k, v: [B, T, NKV, hd]; bfloat16, contiguous,
 // 16-byte aligned.  hd a multiple of 8, at most 256; NH a multiple of NKV.
 // scale is 1 / sqrt(hd); cap 0 disables the soft cap; window 0 the window.
+// Query i is at position qoff + i (keys from 0): a context-parallel slice.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, int B,
                                          int S, int T, int NH, int NKV,
                                          int hd, float scale, int causal,
-                                         int window, float cap, int device,
-                                         void* stream) {
+                                         int window, float cap, int qoff,
+                                         int device, void* stream) {
     if (B <= 0 || S <= 0) return 0;
-    if (T <= 0 || hd <= 0 || hd > 256 || hd % 8 || NKV <= 0 || NH % NKV
+    if (T <= 0 || hd <= 0 || hd > 256 || hd % 8 || NKV <= 0 || qoff < 0
+        || NH % NKV
         || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
@@ -303,10 +306,10 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
     cudaStream_t s = (cudaStream_t)stream;
     if (hd <= 64)
         return launch<64>(q, k, v, o, B, S, T, NH, NKV, hd, scale, causal,
-                          window, cap, s);
+                          window, cap, qoff, s);
     if (hd <= 128)
         return launch<128>(q, k, v, o, B, S, T, NH, NKV, hd, scale, causal,
-                           window, cap, s);
+                           window, cap, qoff, s);
     return launch<256>(q, k, v, o, B, S, T, NH, NKV, hd, scale, causal,
-                       window, cap, s);
+                       window, cap, qoff, s);
 }

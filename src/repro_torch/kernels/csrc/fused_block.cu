@@ -10,6 +10,8 @@
 //     out = x + [rmsnorm(y) * (1 + post)]            (sandwich)
 //
 // with the rounding points of the TPU kernel (fused_block.py:48 and :58).
+// The partial form (yout; tensor parallelism over F) writes y in float32
+// as the output instead of the epilogue: no residual, no post-norm.
 // What bounds it on the card: at prefill (M = 6,144, d = 2,560, F = 7,680)
 // the products, 2*M*d*F*3 operations against 118 MB of bf16 weights; at
 // decode (M = 2) the weights' bytes.  This kernel is a first, right version:
@@ -149,9 +151,22 @@ __device__ __forceinline__ void block_row_sums(float v[BM], float* red) {
 template <typename T, int J>
 __device__ void epilogue(float (&acc)[BM][J], const T* __restrict__ x,
                          const float* __restrict__ post, T* __restrict__ out,
-                         int m0, int M, int d, int sandwich, float eps,
-                         float* red) {
+                         float* __restrict__ yout, int m0, int M, int d,
+                         int sandwich, float eps, float* red) {
     const int t = threadIdx.x;
+    if (yout != nullptr) {               // the partial form: y alone
+#pragma unroll
+        for (int r = 0; r < BM; ++r) {
+            const int row = m0 + r;
+            if (row >= M) continue;
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+                const int c = t + NT * j;
+                if (c < d) yout[(long long)row * d + c] = acc[r][j];
+            }
+        }
+        return;
+    }
     if (sandwich) {
         float sq[BM];
 #pragma unroll
@@ -200,9 +215,9 @@ __global__ void __launch_bounds__(NT) fused_block_kernel(
         const T* __restrict__ x, const float* __restrict__ scale,
         const T* __restrict__ wg, const T* __restrict__ wu,
         const T* __restrict__ wd, const float* __restrict__ post,
-        T* __restrict__ out, float* __restrict__ part,
-        int M, int d, int F, int bf, int slabs_per_split,
-        int gated, int gelu, int sandwich, float eps) {
+        T* __restrict__ out, float* __restrict__ yout,
+        float* __restrict__ part, int M, int d, int F, int bf,
+        int slabs_per_split, int gated, int gelu, int sandwich, float eps) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* nT = reinterpret_cast<T*>(smem_raw);                   // [d][BM]
     T* hT = nT + (size_t)d * BM;                              // [bf][BM]
@@ -319,7 +334,8 @@ __global__ void __launch_bounds__(NT) fused_block_kernel(
     }
 
     if (part == nullptr) {
-        epilogue<T, J>(acc, x, post, out, m0, M, d, sandwich, eps, rowred);
+        epilogue<T, J>(acc, x, post, out, yout, m0, M, d, sandwich, eps,
+                       rowred);
         return;
     }
 #pragma unroll
@@ -341,7 +357,8 @@ template <typename T, int J>
 __global__ void __launch_bounds__(NT) fused_block_reduce_kernel(
         const T* __restrict__ x, const float* __restrict__ post,
         const float* __restrict__ part, T* __restrict__ out,
-        int M, int d, int splits, int sandwich, float eps) {
+        float* __restrict__ yout, int M, int d, int splits, int sandwich,
+        float eps) {
     __shared__ float rowred[NWARP * BM];
     const int t = threadIdx.x;
     const int m0 = blockIdx.x * BM;
@@ -357,14 +374,15 @@ __global__ void __launch_bounds__(NT) fused_block_reduce_kernel(
                     s += part[((long long)q * M + m0 + r) * d + c];
             acc[r][j] = s;
         }
-    epilogue<T, J>(acc, x, post, out, m0, M, d, sandwich, eps, rowred);
+    epilogue<T, J>(acc, x, post, out, yout, m0, M, d, sandwich, eps,
+                   rowred);
 }
 
 template <typename T, int J>
 int launch(const void* x, const void* scale, const void* wg, const void* wu,
-           const void* wd, const void* post, void* out, void* part, int M,
-           int d, int F, int bf, int splits, int gated, int gelu,
-           int sandwich, float eps, cudaStream_t stream) {
+           const void* wd, const void* post, void* out, void* yout,
+           void* part, int M, int d, int F, int bf, int splits, int gated,
+           int gelu, int sandwich, float eps, cudaStream_t stream) {
     const size_t smem = smem_bytes<T>(d, bf);
     cudaError_t err = cudaFuncSetAttribute(
         fused_block_kernel<T, J>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -377,25 +395,26 @@ int launch(const void* x, const void* scale, const void* wg, const void* wu,
     float* scratch = used > 1 ? (float*)part : nullptr;
     fused_block_kernel<T, J><<<dim3(m_tiles, used), NT, smem, stream>>>(
         (const T*)x, (const float*)scale, (const T*)wg, (const T*)wu,
-        (const T*)wd, (const float*)post, (T*)out, scratch, M, d, F, bf, per,
-        gated, gelu, sandwich, eps);
+        (const T*)wd, (const float*)post, (T*)out, (float*)yout, scratch, M,
+        d, F, bf, per, gated, gelu, sandwich, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess || used == 1) return (int)err;
     fused_block_reduce_kernel<T, J><<<m_tiles, NT, 0, stream>>>(
-        (const T*)x, (const float*)post, scratch, (T*)out, M, d, used,
-        sandwich, eps);
+        (const T*)x, (const float*)post, scratch, (T*)out, (float*)yout, M,
+        d, used, sandwich, eps);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_j(int j, const void* x, const void* scale, const void* wg,
              const void* wu, const void* wd, const void* post, void* out,
-             void* part, int M, int d, int F, int bf, int splits, int gated,
-             int gelu, int sandwich, float eps, cudaStream_t s) {
+             void* yout, void* part, int M, int d, int F, int bf, int splits,
+             int gated, int gelu, int sandwich, float eps, cudaStream_t s) {
 #define FB_CASE(JJ)                                                         \
     if (j <= JJ)                                                            \
-        return launch<T, JJ>(x, scale, wg, wu, wd, post, out, part, M, d, F, \
-                             bf, splits, gated, gelu, sandwich, eps, s);
+        return launch<T, JJ>(x, scale, wg, wu, wd, post, out, yout, part, M, \
+                             d, F, bf, splits, gated, gelu, sandwich, eps,  \
+                             s);
     FB_CASE(1) FB_CASE(2) FB_CASE(4) FB_CASE(8) FB_CASE(10)
 #undef FB_CASE
     return (int)cudaErrorInvalidValue;
@@ -555,13 +574,22 @@ __global__ void __launch_bounds__(NT) fused_block_wide_down_kernel(
 template <typename T>
 __global__ void __launch_bounds__(NT) fused_block_wide_post_kernel(
         const T* __restrict__ x, const float* __restrict__ part,
-        const float* __restrict__ post, T* __restrict__ out, int M, int d,
-        int splits, int sandwich, float eps) {
+        const float* __restrict__ post, T* __restrict__ out,
+        float* __restrict__ yout, int M, int d, int splits, int sandwich,
+        float eps) {
     const int lane = threadIdx.x % 32;
     const int row = blockIdx.x * WROWS + threadIdx.x / 32;
     if (row >= M) return;
     const long long plane = (long long)M * d;
     const float* yr = part + (long long)row * d;
+    if (yout != nullptr) {               // the partial form: y alone
+        for (int c = lane; c < d; c += 32) {
+            double ys = 0.0;
+            for (int q = 0; q < splits; ++q) ys += yr[q * plane + c];
+            yout[(long long)row * d + c] = (float)ys;
+        }
+        return;
+    }
     float inv = 0.f;
     if (sandwich) {
         float sq = 0.f;
@@ -586,8 +614,8 @@ __global__ void __launch_bounds__(NT) fused_block_wide_post_kernel(
 template <typename T>
 int launch_wide(const void* x, const void* scale, const void* wg,
                 const void* wu, const void* wd, const void* post, void* out,
-                void* n, void* h, void* part, int M, int d, int F, int splits,
-                int gated, int gelu, int sandwich, float eps,
+                void* yout, void* n, void* h, void* part, int M, int d, int F,
+                int splits, int gated, int gelu, int sandwich, float eps,
                 cudaStream_t s) {
     const unsigned row_blocks = (unsigned)((M + WROWS - 1) / WROWS);
     const unsigned m_tiles = (unsigned)((M + WT - 1) / WT);
@@ -608,8 +636,8 @@ int launch_wide(const void* x, const void* scale, const void* wg,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     fused_block_wide_post_kernel<T><<<row_blocks, NT, 0, s>>>(
-        (const T*)x, (const float*)part, (const float*)post, (T*)out, M, d,
-        splits, sandwich, eps);
+        (const T*)x, (const float*)part, (const float*)post, (T*)out,
+        (float*)yout, M, d, splits, sandwich, eps);
     return (int)cudaGetLastError();
 }
 
@@ -621,11 +649,13 @@ int launch_wide(const void* x, const void* scale, const void* wg,
 // the slab width (64, 128 or 256); splits the number of blocks F is split
 // across; part a float32 scratch of [splits, M, d] (unused, may be null,
 // when splits is 1).  d may be at most 2,560 (10 columns per thread).
+// yout, when not null, is the partial form's float32 output [M, d]: the
+// product h @ Wd of this F slice alone (out, post and sandwich unused).
 extern "C" int fused_block_launch(const void* x, const void* scale,
                                   const void* wg, const void* wu,
                                   const void* wd, const void* post, void* out,
-                                  void* part, int M, int d, int F, int bf,
-                                  int splits, int gated, int gelu,
+                                  void* yout, void* part, int M, int d, int F,
+                                  int bf, int splits, int gated, int gelu,
                                   int sandwich, float eps, int is_bf16,
                                   int device, void* stream) {
     if (M <= 0) return 0;
@@ -638,24 +668,26 @@ extern "C" int fused_block_launch(const void* x, const void* scale,
     cudaStream_t s = (cudaStream_t)stream;
     if (is_bf16)
         return launch_j<__nv_bfloat16>(j, x, scale, wg, wu, wd, post, out,
-                                       part, M, d, F, bf, splits, gated, gelu,
-                                       sandwich, eps, s);
-    return launch_j<float>(j, x, scale, wg, wu, wd, post, out, part, M, d, F,
-                           bf, splits, gated, gelu, sandwich, eps, s);
+                                       yout, part, M, d, F, bf, splits, gated,
+                                       gelu, sandwich, eps, s);
+    return launch_j<float>(j, x, scale, wg, wu, wd, post, out, yout, part, M,
+                           d, F, bf, splits, gated, gelu, sandwich, eps, s);
 }
 
 // The wide path, any d (the wrapper takes it for d > 2,560): x, out, scale,
 // post, wg, wu, wd as for fused_block_launch.  Scratch, allocated by the
 // caller: n [M, d] and h [M, F] of x's type, part [splits, M, d] float32.
 // F is split across `splits` blocks in the down product (1 <= splits).
+// yout as for fused_block_launch.
 extern "C" int fused_block_wide_launch(const void* x, const void* scale,
                                        const void* wg, const void* wu,
                                        const void* wd, const void* post,
-                                       void* out, void* n, void* h,
-                                       void* part, int M, int d, int F,
-                                       int splits, int gated, int gelu,
-                                       int sandwich, float eps, int is_bf16,
-                                       int device, void* stream) {
+                                       void* out, void* yout, void* n,
+                                       void* h, void* part, int M, int d,
+                                       int F, int splits, int gated,
+                                       int gelu, int sandwich, float eps,
+                                       int is_bf16, int device,
+                                       void* stream) {
     if (M <= 0) return 0;
     if (d <= 0 || F <= 0 || splits < 1 || (M + WT - 1) / WT > 65535
         || splits > 65535)
@@ -664,9 +696,10 @@ extern "C" int fused_block_wide_launch(const void* x, const void* scale,
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
     if (is_bf16)
-        return launch_wide<__nv_bfloat16>(x, scale, wg, wu, wd, post, out, n,
-                                          h, part, M, d, F, splits, gated,
-                                          gelu, sandwich, eps, s);
-    return launch_wide<float>(x, scale, wg, wu, wd, post, out, n, h, part, M,
-                              d, F, splits, gated, gelu, sandwich, eps, s);
+        return launch_wide<__nv_bfloat16>(x, scale, wg, wu, wd, post, out,
+                                          yout, n, h, part, M, d, F, splits,
+                                          gated, gelu, sandwich, eps, s);
+    return launch_wide<float>(x, scale, wg, wu, wd, post, out, yout, n, h,
+                              part, M, d, F, splits, gated, gelu, sandwich,
+                              eps, s);
 }

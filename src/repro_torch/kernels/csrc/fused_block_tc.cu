@@ -34,6 +34,10 @@
 //               whole y.
 //   4. post  -- (sandwich only) a warp a row: x + rmsnorm(y) * (1 + post).
 //
+// The partial form (tensor parallelism over F, models/layers.py::
+// mlp_apply) stops after pass 3 with y in float32 as the output: the
+// ranks' partial sums are added before the norm and the residual.
+//
 // The two products are one main loop: 8 warps, each 32 rows x 64 output
 // columns (2 x 8 m16n8k16 tiles, 64 float32 accumulators); K in steps of
 // 64 through a 3-stage ring of cp.async copies into shared memory (rows
@@ -391,20 +395,24 @@ int launch_up(const bf16* n, const bf16* w0, const bf16* w1, bf16* h, int M,
 // sandwich is 0); wg (null when gated is 0), wu: [d, F]; wd: [F, d],
 // bfloat16, row-major and contiguous.  Scratch, allocated by the caller:
 // n [M, d] and h [M, F] bfloat16, y [M, d] float32 (null unless sandwich).
+// partial: y is the output, the float32 product h @ Wd of this F slice,
+// and the block stops there (no residual, no post-norm; out unused).
 // d and F must be multiples of 8 and every pointer 16-byte aligned.
 extern "C" int fused_block_tc_launch(const void* x, const void* scale,
                                      const void* wg, const void* wu,
                                      const void* wd, const void* post,
                                      void* out, void* n, void* h, void* y,
                                      int M, int d, int F, int gated,
-                                     int gelu, int sandwich, float eps,
-                                     int device, void* stream) {
+                                     int gelu, int sandwich, int partial,
+                                     float eps, int device, void* stream) {
     if (M <= 0) return 0;
     const void* ptrs[] = {x, wg, wu, wd, out, n, h, y};   // 16-byte access
     for (const void* p : ptrs)
         if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+    if (partial) sandwich = 0;
     if (d <= 0 || F <= 0 || d % 8 || F % 8 || (gated && wg == nullptr)
-        || (sandwich && (post == nullptr || y == nullptr)))
+        || (sandwich && (post == nullptr || y == nullptr))
+        || (partial && y == nullptr) || (!partial && out == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -429,7 +437,7 @@ extern "C" int fused_block_tc_launch(const void* x, const void* scale,
                                             * ((d + BN - 1) / BN));
     fused_block_down_kernel<<<down_blocks, NT, Tile<1>::SMEM, s>>>(
         (const bf16*)h, (const bf16*)wd, (const bf16*)x, (bf16*)out,
-        sandwich ? (float*)y : nullptr, M, d, F);
+        sandwich || partial ? (float*)y : nullptr, M, d, F);
     err = cudaGetLastError();
     if (err != cudaSuccess || !sandwich) return (int)err;
     fused_block_post_kernel<<<row_blocks, NT, 0, s>>>(

@@ -1,8 +1,9 @@
 """Flash attention (prefill from position 0) in PyTorch and CUDA.
 
 ``q [B, S, NH, hd]``, ``k, v [B, T, NKV, hd]`` -> ``[B, S, NH, hd]``, the
-JAX package's layout: softmax attention with query and key positions both
-counted from 0, optional causal mask, sliding window (``window > 0``: only
+JAX package's layout: softmax attention with key positions counted from 0
+and query positions from ``q_offset`` (0 but in a context-parallel
+prefill, ``models/attention.py::cp_attention``), optional causal mask, sliding window (``window > 0``: only
 keys with ``0 <= i - j < window``), gemma-2 logit soft-capping and GQA / MQA
 (query head ``h`` reads kv head ``h // (NH // NKV)``).  It is what every
 prefill of an attention layer computes (``models/transformer.py::
@@ -47,8 +48,10 @@ def _check(q, k, v):
 
 # ------------------------------------------------------------ plain version
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
-    """The plain version: ``kernels/ref.py::flash_attention_ref`` in torch."""
+                          softcap: float = 0.0,
+                          q_offset: int = 0) -> torch.Tensor:
+    """The plain version: ``kernels/ref.py::flash_attention_ref`` in torch,
+    query ``i`` at position ``q_offset + i``."""
     _check(q, k, v)
     f32 = torch.float32
     b, s, nh, hd = q.shape
@@ -58,7 +61,7 @@ def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
     sc = torch.einsum("bsngh,btnh->bngst", qr.to(f32), k.to(f32)) * hd ** -0.5
     if softcap:
         sc = softcap * torch.tanh(sc / softcap)
-    delta = (torch.arange(s, device=q.device)[:, None]
+    delta = (q_offset + torch.arange(s, device=q.device)[:, None]
              - torch.arange(t, device=q.device)[None, :])
     mask = torch.ones_like(delta, dtype=torch.bool)
     if causal:
@@ -86,11 +89,13 @@ def flash_attention_variant(dtype: torch.dtype, hd: int,
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0,
+                         q_offset: int = 0) -> torch.Tensor:
     """The CUDA kernel :func:`flash_attention_variant` names.  q, k, v are
     CUDA tensors of one type, float32 or bfloat16, ``hd <= 256``; they are
-    made contiguous (the projections' reshapes already are).  Launches the
-    kernel or raises."""
+    made contiguous (the projections' reshapes already are).  Query ``i``
+    is at position ``q_offset + i`` (a context-parallel slice), for the
+    masks and the tile skipping alike.  Launches the kernel or raises."""
     from repro_torch.kernels import _build
 
     _check(q, k, v)
@@ -115,7 +120,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         aligned=all(x.data_ptr() % 16 == 0 for x in (q, k, v, out)))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, t, nh, nkv, hd, float(hd ** -0.5), int(causal),
-            int(window), float(softcap))
+            int(window), float(softcap), int(q_offset))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load()
     if variant == "tensor_core":
@@ -126,8 +131,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     _build.check(err, f"flash_attention ({variant})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_variant[variant] += 1
+    if q_offset:
+        flash_attention_cuda.launches_by_form["q_offset"] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_cuda.launches_by_form = {"q_offset": 0}

@@ -31,6 +31,14 @@ Two implementations of the same function:
   the rounding points of the TPU kernel; the designs, and what bounds
   them, are in the sources.
 
+With ``partial=True`` both return the float32 accumulator ``y = h @ Wd``
+of the F slice they are given, with no post-norm and no residual: under
+tensor parallelism each rank holds ``F / n`` columns of ``Wg`` / ``Wu``
+and rows of ``Wd``, and the ranks' partial sums are added (in float32)
+before the sandwich norm, which is not linear, and the residual
+(``models/layers.py::mlp_apply``).  Subtracting ``x`` from the block's
+output instead would lose the partial's low bits in bfloat16.
+
 On bfloat16 inputs the two agree to bfloat16 tolerance (2e-2), in float32 to
 2e-5; ``mlp_apply`` in the JAX package rounds at other points, so the kernel
 matches it only to those tolerances.
@@ -80,9 +88,12 @@ def _check(x, scale, w_gate, w_up, w_down, post_scale, gated, sandwich):
 # ------------------------------------------------------------ plain version
 def fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                       act: str = "silu", gated: bool = True,
-                      sandwich: bool = False,
+                      sandwich: bool = False, partial: bool = False,
                       eps: float = EPS) -> torch.Tensor:
-    """The plain version: ``kernels/ref.py::fused_block_ref`` in torch."""
+    """The plain version: ``kernels/ref.py::fused_block_ref`` in torch;
+    ``partial``: the float32 product ``h @ Wd`` alone (see the module
+    docstring)."""
+    sandwich = sandwich and not partial
     _check(x, scale, w_gate, w_up, w_down, post_scale, gated, sandwich)
     f32, f64 = torch.float32, torch.float64
 
@@ -97,6 +108,8 @@ def fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale=None, *,
     else:
         h = _act(act, u)
     y = product(h.to(x.dtype), w_down)
+    if partial:
+        return y
     if sandwich:
         y = _norm(y, post_scale, eps)
     return (x.to(f32) + y).to(x.dtype)
@@ -153,14 +166,16 @@ def simt_wide_splits(m: int, d: int, f: int, sms: int) -> int:
 
 def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                      act: str = "silu", gated: bool = True,
-                     sandwich: bool = False,
+                     sandwich: bool = False, partial: bool = False,
                      eps: float = EPS) -> torch.Tensor:
     """The CUDA block, the kernel :func:`fused_block_variant` names.  ``x``
     and the weights are contiguous CUDA tensors of one type, float32 or
-    bfloat16; the scales may be of any float type.  Launches the kernel or
-    raises."""
+    bfloat16; the scales may be of any float type.  ``partial``: the
+    float32 ``[M, d]`` product ``h @ Wd`` alone (``sandwich`` is then
+    ignored).  Launches the kernel or raises."""
     from repro_torch.kernels import _build
 
+    sandwich = sandwich and not partial
     _check(x, scale, w_gate, w_up, w_down, post_scale, gated, sandwich)
     mats = [x, w_up, w_down] + ([w_gate] if gated else [])
     if not all(t.is_cuda for t in mats):
@@ -176,9 +191,11 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
     m, d = x.shape
     f = w_up.shape[1]
     dev = x.device
-    out = torch.empty_like(x)
+    out = torch.empty((m, d), dtype=torch.float32 if partial else x.dtype,
+                      device=dev)
     if m == 0:
         return out
+    yout = out.data_ptr() if partial else None
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     variant = fused_block_variant(
         x.dtype, m, d, f, sms,
@@ -198,10 +215,11 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
              if sandwich else None)
         err = lib.fused_block_tc_launch(
             x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
-            w_down.data_ptr(), post_ptr, out.data_ptr(), n.data_ptr(),
-            h.data_ptr(), y.data_ptr() if sandwich else None, m, d, f,
-            int(gated), int(act == "gelu"), int(sandwich), float(eps),
-            dev.index or 0, stream)
+            w_down.data_ptr(), post_ptr, None if partial else out.data_ptr(),
+            n.data_ptr(), h.data_ptr(),
+            yout if partial else (y.data_ptr() if sandwich else None), m, d,
+            f, int(gated), int(act == "gelu"), int(sandwich), int(partial),
+            float(eps), dev.index or 0, stream)
     elif variant == "simt_wide":
         # scratch: the normalised rows and h in x's type, the down
         # product's partial y in float32, a plane a split of F
@@ -211,8 +229,9 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
         part = torch.empty((splits, m, d), dtype=torch.float32, device=dev)
         err = lib.fused_block_wide_launch(
             x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
-            w_down.data_ptr(), post_ptr, out.data_ptr(), n.data_ptr(),
-            h.data_ptr(), part.data_ptr(), m, d, f, splits, int(gated),
+            w_down.data_ptr(), post_ptr, None if partial else out.data_ptr(),
+            yout, n.data_ptr(), h.data_ptr(), part.data_ptr(), m, d, f,
+            splits, int(gated),
             int(act == "gelu"), int(sandwich), float(eps),
             int(x.dtype == torch.bfloat16), dev.index or 0, stream)
     else:
@@ -221,16 +240,19 @@ def fused_block_cuda(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                 if splits > 1 else None)
         err = lib.fused_block_launch(
             x.data_ptr(), scale32.data_ptr(), wg_ptr, w_up.data_ptr(),
-            w_down.data_ptr(), post_ptr, out.data_ptr(),
-            part.data_ptr() if part is not None else None, m, d, f, bf,
+            w_down.data_ptr(), post_ptr, None if partial else out.data_ptr(),
+            yout, part.data_ptr() if part is not None else None, m, d, f, bf,
             splits, int(gated), int(act == "gelu"), int(sandwich),
             float(eps), int(x.dtype == torch.bfloat16), dev.index or 0,
             stream)
     _build.check(err, f"fused_block ({variant})")
     fused_block_cuda.launches += 1
     fused_block_cuda.launches_by_variant[variant] += 1
+    if partial:
+        fused_block_cuda.launches_by_form["partial"] += 1
     return out
 
 
 fused_block_cuda.launches = 0
 fused_block_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+fused_block_cuda.launches_by_form = {"partial": 0}

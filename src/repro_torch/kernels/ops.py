@@ -60,24 +60,25 @@ def plain_versions():
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("fused_block(Tensor x, Tensor scale, Tensor? w_gate, "
             "Tensor w_up, Tensor w_down, Tensor? post_scale, *, str act, "
-            "bool gated, bool sandwich) -> Tensor")
+            "bool gated, bool sandwich, bool partial=False) -> Tensor")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, *, bool causal, "
-            "int window, float softcap) -> Tensor")
+            "int window, float softcap, int q_offset=0) -> Tensor")
 _LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
             "Tensor D, Tensor? h0, *, int chunk) -> (Tensor, Tensor)")
 _LIB.define("rglru_scan(Tensor a, Tensor b) -> Tensor")
 
 
 def _fused_block(x, scale, w_gate, w_up, w_down, post_scale, *, act, gated,
-                 sandwich):
+                 sandwich, partial=False):
     fn = fused_block_cuda if x.is_cuda else fused_block_torch
     return fn(x, scale, w_gate, w_up, w_down, post_scale, act=act,
-              gated=gated, sandwich=sandwich)
+              gated=gated, sandwich=sandwich, partial=partial)
 
 
-def _flash_attention(q, k, v, *, causal, window, softcap):
+def _flash_attention(q, k, v, *, causal, window, softcap, q_offset=0):
     fn = flash_attention_cuda if q.is_cuda else flash_attention_torch
-    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
 
 
 def _ssd_scan(x, dt, A, Bm, Cm, D, h0, *, chunk):
@@ -102,9 +103,12 @@ rglru_scan_op = torch.ops.repro_torch.rglru_scan.default
 
 # ------------------------------------------------------- the entry points
 def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, *,
-                act="silu", gated=True, sandwich=False):
-    """K7: ``x + [post_norm](act(n @ Wg) * (n @ Wu)) @ Wd`` on ``x [M, d]``."""
-    kw = dict(act=act, gated=gated, sandwich=sandwich)
+                act="silu", gated=True, sandwich=False, partial=False):
+    """K7: ``x + [post_norm](act(n @ Wg) * (n @ Wu)) @ Wd`` on ``x [M, d]``;
+    ``partial``: the float32 ``(act(n @ Wg) * (n @ Wu)) @ Wd`` of the F
+    slice given, alone (tensor parallelism over ``ff``)."""
+    kw = dict(act=act, gated=gated, sandwich=sandwich and not partial,
+              partial=partial)
     if _PLAIN:
         return fused_block_torch(x, scale, w_gate, w_up, w_down, post_scale,
                                  **kw)
@@ -112,10 +116,13 @@ def fused_block(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                             w_down, post_scale)
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    q_offset=0):
     """K6: attention of a sequence from position 0 (a prefill, or a
-    training forward)."""
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    training forward), or of its queries from ``q_offset`` on against keys
+    from 0 (a context-parallel slice)."""
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
     if _PLAIN:
         return flash_attention_torch(q, k, v, **kw)
     return FlashAttention.apply(flash_attention_op, kw, q, k, v)

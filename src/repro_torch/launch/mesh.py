@@ -9,10 +9,10 @@ axis is pure data parallelism across pods.
 A :class:`Mesh` is a shape and its axis names, nothing more: the plans
 (``launch/sharding.py``) and the dry-run (``launch/dryrun.py``) take it
 with no process group and no device, at production sizes.  A mesh run
-(``serve(..., mesh=)`` / ``train(..., mesh=)``) builds the
-``torch.distributed`` ``DeviceMesh`` of its description with
-:func:`device_mesh`, inside a process group that it is given.  Importing
-this module touches no device and no process group.
+(``serve(..., mesh=)`` / ``train(..., mesh=)``) makes the process groups
+of its description (``launch/distributed.py::MeshRun``), inside a process
+group that it is given.  Importing this module touches no device and no
+process group.
 """
 from __future__ import annotations
 
@@ -80,19 +80,3 @@ def data_shards(mesh: Mesh) -> int:
         n *= mesh.shape[a]
     return n
 
-
-def device_mesh(mesh: Mesh, device_type: str):
-    """The ``torch.distributed`` ``DeviceMesh`` of ``mesh`` over the ranks
-    of the initialised default process group (``"cuda"`` with NCCL on the
-    card, ``"cpu"`` with gloo on the host), rank ``r`` at ``mesh``'s
-    row-major coordinate ``r``."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    if not dist.is_initialized():
-        raise RuntimeError("device_mesh: no process group is initialised")
-    if dist.get_world_size() != mesh.size:
-        raise ValueError(f"mesh {mesh.dims} needs {mesh.size} ranks, the "
-                         f"process group has {dist.get_world_size()}")
-    return init_device_mesh(device_type, mesh.dims,
-                            mesh_dim_names=mesh.axis_names)

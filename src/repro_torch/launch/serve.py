@@ -10,12 +10,15 @@ cache, on one card or on every rank of a mesh.
         --prompt 128 --gen 16
 
 The counterpart of the JAX package's ``launch/serve.py``.  With ``mesh=``
-(a ``launch/mesh.py`` description whose ``model`` axis is 1, inside a
-process group that the caller has started; ``main`` does so from
-``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and ``--mesh``) each rank
-serves its rows of the batch with its rows' cache, the weights gathered
-layer by layer where the plan shards them (``launch/distributed.py``),
-and every rank returns the whole batch's tokens and logits.  Either way:
+(a ``launch/mesh.py`` description, inside a process group that the caller
+has started; ``main`` does so from ``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` and ``--mesh``) each rank serves its rows of the batch
+with its shard of the weights and of its rows' cache: FSDP's weights
+gathered layer by layer, the ``model`` axis's heads, ``ff`` slices,
+widths, experts and vocabulary run split, a cache that keeps its kv
+heads whole split by sequence (``launch/distributed.py``), and with
+``cp=True`` the prefill's attention context-parallel where the heads are
+not split; every rank returns the whole batch's tokens and logits.  Either way:
 the prompts (``numpy.random.default_rng(seed)``, as there), a prefill of
 ``prompt_len`` tokens (``launch/steps.py::make_prefill_step``), then
 ``gen_len - 1`` greedy decode steps (``make_decode_step``).  Every other
@@ -57,7 +60,7 @@ class ServeConfig:
 
 def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
           params: dict | None = None, mesh: Mesh | None = None,
-          plan: ShardingPlan | None = None) -> dict:
+          plan: ShardingPlan | None = None, cp: bool = False) -> dict:
     """Serve ``sc.batch`` random prompts.  ``params`` is a ``state_dict``
     of the model (``convert.py::lm_params_from_numpy``), whose tensors the
     model then holds as they are (moved to ``device`` or cast to the
@@ -67,13 +70,15 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
     ``tokens`` [batch, gen_len], the last step's ``logits`` [batch,
     vocab] and the seconds of the prefill and of the decode steps.  With
     ``mesh`` (and ``plan``, default ``make_plan`` of the config on it)
-    this rank serves its rows and returns the whole batch's."""
+    this rank serves its rows and returns the whole batch's, and the bytes
+    of the parameters and of the cache it placed (``param_bytes``,
+    ``cache_bytes``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: no CUDA device (torch.cuda.is_available() "
                            "is False); pass device='cpu' to serve on the "
                            "host")
-    run = None if mesh is None else MeshRun(cfg, mesh, plan, device)
+    run = None if mesh is None else MeshRun(cfg, mesh, plan, device, cp=cp)
     max_len = sc.prompt_len + sc.gen_len
     run_cfg = cfg.replace(max_seq=max_len)
     rows = slice(0, sc.batch)
@@ -105,7 +110,10 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
     rng = np.random.default_rng(sc.seed)
     prompts = rng.integers(0, cfg.vocab,
                            (sc.batch, sc.prompt_len)).astype(np.int32)
-    cache = model.init_cache(batch_rows, max_len)
+    cache = (model.init_cache(batch_rows, max_len) if run is None
+             else run.init_cache(model, sc.batch, max_len))
+    placed = {"param_bytes": _nbytes(model.parameters()),
+              "cache_bytes": _nbytes(_tensors(cache))}
     sync()
     t0 = time.perf_counter()
     batch = {name: torch.zeros(spec.shape, dtype=spec.dtype, device=device)
@@ -135,7 +143,23 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
         "prefill_s": t_prefill,
         "decode_s": t_decode,
         "tok_per_s": sc.batch * (sc.gen_len - 1) / max(t_decode, 1e-9),
+        **placed,
     }
+
+
+def _tensors(node):
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensors(v)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main(argv=None) -> None:
@@ -156,6 +180,9 @@ def main(argv=None) -> None:
     ap.add_argument("--store", default=None,
                     help="the process group's init_method (file:///path "
                          "or tcp://host:port; default env://)")
+    ap.add_argument("--cp", action="store_true",
+                    help="context-parallel prefill attention over the "
+                         "mesh's model axis")
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     sc = ServeConfig(batch=args.batch, prompt_len=args.prompt,
@@ -167,7 +194,8 @@ def main(argv=None) -> None:
         try:
             dims = (tuple(int(n) for n in args.mesh.split(",")) if args.mesh
                     else (torch.distributed.get_world_size(), 1))
-            out = serve(cfg, sc, device=device, mesh=make_mesh(dims))
+            out = serve(cfg, sc, device=device, mesh=make_mesh(dims),
+                        cp=args.cp)
         finally:
             close_ranks()
     print(f"prefill {out['prefill_s']:.2f}s, decode {out['decode_s']:.2f}s "

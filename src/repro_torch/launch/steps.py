@@ -63,36 +63,45 @@ def make_train_step(model, opt_cfg: AdamWConfig, remat: str = "full",
     return train_step
 
 
+def mesh_grads(model, run, params: dict, batch: dict, remat: str = "full"):
+    """This rank's rows of the global ``batch`` through the loss, weighted
+    by their share of the counted labels (and the aux loss by their share
+    of the row shards: the reference's ``pmean`` over the batch axes);
+    returns the gradients of ``params`` summed over the ranks of other
+    rows (``MeshRun.reduce_grads``: each a shard where the parameter is
+    one) and this rank's weighted ``(nll, aux)``."""
+    labels = torch.as_tensor(batch["labels"])
+    rows = run.rows(labels.shape[0])
+    copies = run.replicas(labels.shape[0])
+    counted = max(int((labels != -1).sum()), 1)
+    w_nll = int((labels[rows] != -1).sum()) / counted / copies
+    w_aux = 1.0 / (run.row_shards(labels.shape[0]) * copies)
+    _, metrics = model.loss({k: v[rows] for k, v in batch.items()},
+                            remat=remat)
+    nll, aux = metrics["nll"] * w_nll, metrics["aux"] * w_aux
+    grads = run.reduce_grads(list(params), list(torch.autograd.grad(
+        nll + aux, list(params.values()))))
+    return grads, nll.detach(), aux.detach()
+
+
 def make_mesh_train_step(model, run, opt_cfg: AdamWConfig,
                          remat: str = "full"):
     """``make_train_step`` on one rank of a mesh run
     (``launch/distributed.py::MeshRun``): ``train_step(opt_state,
-    global_batch)`` takes this rank's rows of the global batch, weights
-    its loss by its share of the counted labels, sums the gradients over
-    the ranks and steps AdamW on this rank's shards with the global
-    gradient norm.  The metrics are the global batch's, equal on every
-    rank.  A mesh run has no experts (``MeshRun`` refuses them), so its
-    aux loss is 0."""
+    global_batch)`` takes this rank's rows of the global batch
+    (:func:`mesh_grads`) and steps AdamW on this rank's shards with the
+    global gradient norm.  The metrics are the global batch's, equal on
+    every rank."""
     params = train_params(model)
     names = list(params)
 
     def train_step(opt_state: dict, batch: dict) -> dict:
-        labels = torch.as_tensor(batch["labels"])
-        rows = run.rows(labels.shape[0])
-        counted = max(int((labels != -1).sum()), 1)
-        w_nll = int((labels[rows] != -1).sum()) / counted \
-            / run.replicas(labels.shape[0])
-        _, metrics = model.loss({k: v[rows] for k, v in batch.items()},
-                                remat=remat)
-        objective = metrics["nll"] * w_nll
-        grads = run.reduce_grads(names, list(torch.autograd.grad(
-            objective, list(params.values()))))
+        grads, nll, aux = mesh_grads(model, run, params, batch, remat)
         grad_norm = run.grad_norm(names, grads)
         opt_metrics = adamw_update(opt_cfg, params, dict(zip(names, grads)),
                                    opt_state, grad_norm=grad_norm)
-        loss = run.all_sum(objective.detach())
-        return {"loss": loss, "nll": loss, "aux": torch.zeros_like(loss),
-                **opt_metrics}
+        nll, aux = run.dp_sum(torch.stack([nll, aux])).unbind()
+        return {"loss": nll + aux, "nll": nll, "aux": aux, **opt_metrics}
     return train_step
 
 

@@ -10,11 +10,11 @@ monitoring, on one device or on every rank of a mesh.
 
 The counterpart of the JAX package's ``launch/train.py``.  Without a mesh
 it runs on one device with no process group.  With ``mesh=`` (a
-``launch/mesh.py`` description whose ``model`` axis is 1) every rank runs
-this function inside a process group that the caller has started
-(``main`` does so from ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``): data
-parallelism over the batch axes and FSDP where the plan says so
-(``launch/distributed.py``); rank 0 writes the gathered state, in the
+``launch/mesh.py`` description) every rank runs this function inside a
+process group that the caller has started (``main`` does so from
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``): data parallelism over the
+batch axes, FSDP where the plan says so and tensor parallelism over the
+``model`` axis (``launch/distributed.py``); rank 0 writes the gathered state, in the
 same format, so a one-process run restores a mesh run's checkpoint and
 the reverse.  The rest is as on one device: float32 master weights
 (``Model(..., param_dtype=torch.float32)``, from ``torch.Generator(seed)``),

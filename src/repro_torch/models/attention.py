@@ -10,8 +10,13 @@ scores) for the decode step against a linear cache and for a forward
 without cache.  Both support GQA, causal and sliding-window masks, gemma-2
 soft-capping and offset query positions.
 
-``cp_attention`` (context parallel over the mesh's ``model`` axis) is not
-ported yet: a mesh run's ``model`` axis is 1 (ROADMAP queue 1 item 3).
+Over a mesh's ``model`` axis (``launch/tensor_parallel.py::ModelAxis``,
+``tp``): :func:`cp_attention`, the context-parallel prefill (each rank
+K6 on its slice of the queries from its offset, the outputs gathered);
+and the decode cache split by sequence over the ranks, which is never
+gathered: :func:`cache_update` writes each new entry into the rank that
+owns its slot, and :func:`sharded_decode_attention` merges the ranks'
+partial softmaxes over their own slots by log-sum-exp.
 """
 from __future__ import annotations
 
@@ -127,26 +132,100 @@ def init_kv_cache(batch: int, max_len: int, n_kv: int, hd: int,
 
 
 def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
-                 pos: int, ring: bool = False) -> dict:
+                 pos: int, ring: bool = False, shard=None) -> dict:
     """Insert S_new entries at position ``pos`` (ring buffer when the cache
     holds only a sliding window).  If more new entries arrive than the ring
     holds, only the trailing window is written (earlier ones would be
     overwritten anyway).  Unlike the JAX package, which returns new arrays,
     the cache's tensors are written in place (a cache is as large as the
-    model's weights at long contexts); the same dict is returned."""
-    max_len = cache["k"].shape[1]
+    model's weights at long contexts); the same dict is returned.
+
+    ``shard=(r, n)``: the cache holds slots ``r * L .. (r + 1) * L - 1`` of
+    ``n * L`` (split by sequence); only the entries of those slots are
+    written, the ring's wrapped ones included.  Which entries those are
+    follows from ``pos`` and the lengths, host numbers, so nothing waits on
+    the device."""
+    r, n = shard or (0, 1)
+    local = cache["k"].shape[1]
+    max_len = local * n
     s_new = k_new.shape[1]
     if s_new > max_len:
         k_new = k_new[:, -max_len:]
         v_new = v_new[:, -max_len:]
         pos = pos + (s_new - max_len)
         s_new = max_len
-    idx = pos + torch.arange(s_new, device=cache["k"].device)
+    idx = pos + torch.arange(s_new)
     if ring:
         idx = idx % max_len
+    if n > 1:
+        own = (idx >= r * local) & (idx < (r + 1) * local)
+        src = torch.arange(s_new)[own].to(k_new.device)
+        idx = idx[own] - r * local
+        k_new, v_new = k_new[:, src], v_new[:, src]
+    idx = idx.to(cache["k"].device)
     cache["k"][:, idx] = k_new.to(cache["k"].dtype)
     cache["v"][:, idx] = v_new.to(cache["v"].dtype)
     return cache
+
+
+def cp_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tp, *,
+                 causal: bool = True, window: int = 0,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """Context-parallel attention of a prefill from position 0 (the JAX
+    package's ``cp_attention``): q, k, v are whole on every rank of
+    ``tp``; rank ``i`` runs K6 on its ``S / n`` queries from position
+    ``i * S / n`` against all the keys, and the outputs are gathered.  The
+    causal mask leaves the later ranks more keys: rank ``i`` attends to
+    about ``(i + 1/2) S / n`` of them (the reference's schedule)."""
+    from repro_torch.kernels import ops
+
+    chunk = q.shape[1] // tp.n
+    mine = q[:, tp.rank * chunk:(tp.rank + 1) * chunk].contiguous()
+    out = ops.flash_attention(mine, k, v, causal=causal, window=window,
+                              softcap=softcap, q_offset=tp.rank * chunk)
+    return tp.gather(out, 1)
+
+
+def sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, tp, *, q_pos: int,
+                             k_pos: torch.Tensor, valid: torch.Tensor,
+                             causal: bool = True, window: int = 0,
+                             softcap_val: float = 0.0) -> torch.Tensor:
+    """A decode step against a cache split by sequence over ``tp``'s
+    ranks: q [B, S, NH, hd] (every head the cache's kv heads serve);
+    k, v [B, L, NKV, hd] this rank's slots, at absolute positions
+    ``k_pos`` [L], ``valid`` [L] (slots written so far).  Each rank computes
+    the softmax's running max, sum and weighted values over its slots for
+    every head; one all-gather brings every rank's, which are merged in
+    rank order by log-sum-exp.  The cache is never gathered."""
+    f32 = torch.float32
+    B, S, NH, hd = q.shape
+    NKV = k.shape[2]
+    G = NH // NKV
+    dev = q.device
+    qr = q.reshape(B, S, NKV, G, hd)
+    s = torch.einsum("bsngh,btnh->bngst", qr.to(f32), k.to(f32)) \
+        * (hd ** -0.5)
+    if softcap_val:
+        s = softcap_val * torch.tanh(s / softcap_val)
+    mask = _mask(q_pos + torch.arange(S, device=dev), k_pos, causal,
+                 window) & valid[None, :]
+    s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=f32, device=dev))
+    m = s.amax(dim=-1)                                     # B,NKV,G,S
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    acc = torch.einsum("bngst,btnh->bngsh", p.to(v.dtype).to(f32),
+                       v.to(f32))
+    part = torch.cat([acc, p.sum(dim=-1)[..., None], m[..., None]], dim=-1)
+    parts = tp.gather_list(part)
+    top = torch.stack([x[..., -1] for x in parts]).amax(dim=0)
+    num = torch.zeros_like(acc)
+    den = torch.zeros_like(m)
+    for x in parts:
+        w = torch.exp(x[..., -1] - top)
+        num = num + w[..., None] * x[..., :hd]
+        den = den + w * x[..., hd]
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, NH, hd).to(q.dtype)
 
 
 def ring_positions(pos: int, max_len: int, device="cpu") -> torch.Tensor:

@@ -199,19 +199,57 @@ def embed_defs(cfg) -> dict:
     return d
 
 
-def embed_lookup(embed: Params, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_lookup(embed: Params, tokens: torch.Tensor, cfg,
+                 tp=None) -> torch.Tensor:
     """The rows of ``tokens`` times sqrt(d) (in float32, as the JAX
-    package's numpy scalar makes it), in the model's type."""
-    x = embed.tok[tokens]
-    return (x.to(torch.float32) * math.sqrt(cfg.d_model)).to(model_dtype(cfg))
+    package's numpy scalar makes it), in the model's type.  With the
+    vocabulary split over ``tp``'s ranks: each rank looks up the tokens
+    of its rows of the table (zeros for the others) and the ranks' rows
+    are summed, in float32, exactly."""
+    if tp is None or not tp.vocab:
+        x = embed.tok[tokens].to(torch.float32)
+    else:
+        rows = embed.tok.shape[0]
+        local = tokens.long() - tp.rank * rows
+        own = (local >= 0) & (local < rows)
+        x = embed.tok[local.clamp(0, rows - 1)].to(torch.float32)
+        x = tp.reduce(torch.where(own[..., None], x, torch.zeros_like(x)))
+    return (x * math.sqrt(cfg.d_model)).to(model_dtype(cfg))
 
 
-def unembed(embed: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def unembed(embed: Params, x: torch.Tensor, cfg, tp=None,
+            gather: bool = True) -> torch.Tensor:
+    """The float32 logits of ``x``.  With the vocabulary split over
+    ``tp``'s ranks the product is column-parallel: each rank computes the
+    logits of its slice of the vocabulary, gathered whole (in vocabulary
+    order, so ``argmax`` keeps its first-occurrence rule) unless
+    ``gather=False`` (the loss, :func:`vocab_parallel_nll`)."""
+    split = tp is not None and tp.vocab
+    if split:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = x @ embed.tok.to(x.dtype).t()
     else:
         logits = x @ embed.head.to(x.dtype)
-    return softcap(logits.to(torch.float32), cfg.final_softcap)
+    logits = softcap(logits.to(torch.float32), cfg.final_softcap)
+    return tp.gather(logits, -1) if split and gather else logits
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, tp):
+    """``(logsumexp - gold logit)`` of each row of ``logits`` (this rank's
+    slice of the vocabulary, float32): the maximum is all-reduced with
+    MAX, the sum of exponentials with SUM, and the gold logit comes from
+    the rank whose slice holds the label (the others add 0).  The
+    gradient, through the conjugate operators, is the softmax minus the
+    one-hot on each rank's slice."""
+    v = logits.shape[-1]
+    m = tp.max(logits.amax(dim=-1))
+    se = tp.reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = labels.long() - tp.rank * v
+    own = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = tp.reduce(torch.where(own, gold, torch.zeros_like(gold)))
+    return m + torch.log(se) - gold
 
 
 # --------------------------------------------------------------------- MLP
@@ -229,30 +267,46 @@ def mlp_defs(cfg) -> dict:
     return out
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """(Gated-)linear-unit MLP with residual, as one fused block (K7,
     ``kernels/ops.py::fused_block``) over the rows of ``x [..., d]``; the
     weights are cast to ``x``'s type first, as the JAX package casts them
-    for each product (float32 masters, bfloat16 activations)."""
+    for each product (float32 masters, bfloat16 activations).
+
+    With ``ff`` split over ``tp``'s ranks (each holding ``F / n`` columns
+    of ``w_gate`` / ``w_up`` and rows of ``w_down``), K7 runs in its
+    partial form on the rank's slice; the float32 partial sums are
+    all-reduced, then the sandwich norm (not linear) and the residual are
+    applied in float32, as K7 applies them."""
     shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
 
     def w(name):
         t = p.get(name)
         return None if t is None else t.to(x.dtype)
 
-    y = ops.fused_block(
-        x.reshape(-1, shape[-1]).contiguous(), p.pre_norm, w("w_gate"),
-        w("w_up"), w("w_down"), p.get("post_norm"), act=cfg.act,
-        gated=cfg.mlp_gated, sandwich=cfg.sandwich_norm)
-    return y.reshape(shape)
+    if tp is None or not tp.ff:
+        y = ops.fused_block(
+            x2, p.pre_norm, w("w_gate"), w("w_up"), w("w_down"),
+            p.get("post_norm"), act=cfg.act, gated=cfg.mlp_gated,
+            sandwich=cfg.sandwich_norm)
+        return y.reshape(shape)
+    y = tp.reduce(ops.fused_block(
+        tp.copy(x2), tp.copy(p.pre_norm), w("w_gate"), w("w_up"),
+        w("w_down"), None, act=cfg.act, gated=cfg.mlp_gated, partial=True))
+    if cfg.sandwich_norm:
+        y = rms_norm(y, p.post_norm)
+    return (x2.to(torch.float32) + y).to(x.dtype).reshape(shape)
 
 
 def mlp_unfused(x, scale, w_gate, w_up, w_down, post_scale=None, *,
                 act: str = "silu", gated: bool = True,
-                sandwich: bool = False) -> torch.Tensor:
+                sandwich: bool = False,
+                partial: bool = False) -> torch.Tensor:
     """The JAX package's ``mlp_apply`` step by step, each product in
     ``x``'s type: the function K7's backward differentiates
-    (``kernels/autograd.py``)."""
+    (``kernels/autograd.py``); ``partial``: the down product alone, in
+    float32 (K7's partial form)."""
     h = rms_norm(x, scale)
     u = h @ w_up.to(h.dtype)
     if gated:
@@ -260,6 +314,8 @@ def mlp_unfused(x, scale, w_gate, w_up, w_down, post_scale=None, *,
     else:
         u = act_fn(act)(u)
     y = u @ w_down.to(h.dtype)
+    if partial:
+        return y.to(torch.float32)
     if sandwich:
         y = rms_norm(y, post_scale)
     return x + y

@@ -6,6 +6,15 @@ or without a state to continue from) runs the chunked SSD scan as K8
 ``ssd_chunked`` in torch); decode (S == 1) is the O(1) recurrent update in
 torch, as in the JAX package, which has no kernel for it.  The depthwise
 causal convolution is shared with the RG-LRU block.
+
+With the heads split over a mesh's ``model`` axis (``tp``, the ``ff``
+rule): ``in_z``, ``in_x`` and ``in_dt`` are column-parallel (a rank's
+slice of ``d_inner`` is its heads), ``out_proj`` row-parallel, and the
+state the rank's heads'.  ``in_bc``'s columns are split too, so B and C
+(which every head reads) are gathered after the convolution of the
+rank's channels; ``A_log``, ``D`` and ``dt_bias`` are whole and sliced
+to the rank's heads; the gate norm's sum of squares over the whole
+``d_inner`` is all-reduced.  K8 then scans the rank's heads.
 """
 from __future__ import annotations
 
@@ -56,42 +65,56 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), new_state
 
 
-def ssm_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
+def ssm_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
+              tp=None):
     """Full Mamba-2 block with residual.  state:
-      {"convx": [B,K-1,di], "convbc": [B,K-1,2gn], "ssd": [B,h,p,n]}.
-    Returns (y, new_state)."""
+      {"convx": [B,K-1,di], "convbc": [B,K-1,2gn], "ssd": [B,h,p,n]}
+    (di, 2gn and h the rank's under ``tp``).  Returns (y, new_state)."""
     f32 = torch.float32
     dtype = model_dtype(cfg)
     B_, S, _ = x.shape
-    di, g, n = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
-    nh, hp = cfg.ssm_nheads, cfg.ssm_headdim
+    split = tp is not None and tp.ff
+    k = tp.n if split else 1
+    di, g, n = cfg.d_inner // k, cfg.ssm_ngroups, cfg.ssm_state
+    nh, hp = cfg.ssm_nheads // k, cfg.ssm_headdim
 
     h = rms_norm(x, p.pre_norm)
-    z = h @ p.in_z.to(h.dtype)
-    xin = h @ p.in_x.to(h.dtype)
-    bc = h @ p.in_bc.to(h.dtype)
-    dt = h @ p.in_dt.to(h.dtype)
+    hh = tp.copy(h) if split else h
+    z = hh @ p.in_z.to(h.dtype)
+    xin = hh @ p.in_x.to(h.dtype)
+    bc = hh @ p.in_bc.to(h.dtype)
+    dt = hh @ p.in_dt.to(h.dtype)
     cx = None if state is None else state["convx"]
     cbc = None if state is None else state["convbc"]
     xin, new_convx = causal_conv(xin, p.conv_x_w.to(dtype),
                                  p.conv_x_b.to(dtype), cx)
     bc, new_convbc = causal_conv(bc, p.conv_bc_w.to(dtype),
                                  p.conv_bc_b.to(dtype), cbc)
+    A_log, D_, dt_bias = p.A_log, p.D, p.dt_bias
+    if split:
+        bc = tp.gather_shards(bc, -1)
+        A_log, D_, dt_bias = (tp.slice(tp.copy(t), 0)
+                              for t in (A_log, D_, dt_bias))
     Bm, Cm = torch.split(bc, [g * n, g * n], dim=-1)
     xh = xin.reshape(B_, S, nh, hp)
     Bm = Bm.reshape(B_, S, g, n)
     Cm = Cm.reshape(B_, S, g, n)
-    dtv = F.softplus(dt.to(f32) + p.dt_bias)                  # [B,S,nh]
-    A = -torch.exp(p.A_log.to(f32))                           # [nh]
+    if split and g > 1:
+        # the groups of the rank's heads
+        per = cfg.ssm_nheads // g
+        lo, hi = tp.rank * nh // per, ((tp.rank + 1) * nh - 1) // per + 1
+        Bm, Cm, g = Bm[:, :, lo:hi], Cm[:, :, lo:hi], hi - lo
+    dtv = F.softplus(dt.to(f32) + dt_bias)                    # [B,S,nh]
+    A = -torch.exp(A_log.to(f32))                             # [nh]
 
     if state is None or S > 1:
         # prefill, from the cached state when there is one
         h0 = None if state is None else state["ssd"]
-        y, ssd_state = ops.ssd_scan(xh, dtv, A, Bm, Cm, p.D.to(f32), h0,
+        y, ssd_state = ops.ssd_scan(xh, dtv, A, Bm, Cm, D_.to(f32), h0,
                                     chunk=cfg.ssm_chunk)
     else:
-        # recurrent decode: S == 1
-        hg = nh // g
+        # recurrent decode: S == 1 (a rank's heads are whole groups)
+        hg = max(nh // g, 1)
         dA = torch.exp(dtv[:, 0, :] * A)                      # [B,nh]
         Bh = Bm[:, 0].repeat_interleave(hg, dim=1)            # [B,nh,n]
         xdt = (xh[:, 0] * dtv[:, 0, :, None]).to(f32)
@@ -99,15 +122,31 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
                  + torch.einsum("bhn,bhp->bhpn", Bh.to(f32), xdt))
         Ch = Cm[:, 0].repeat_interleave(hg, dim=1)            # [B,nh,n]
         y = torch.einsum("bhpn,bhn->bhp", new_h, Ch.to(f32))
-        y = y + xh[:, 0].to(f32) * p.D.to(f32)[None, :, None]
+        y = y + xh[:, 0].to(f32) * D_.to(f32)[None, :, None]
         y = y[:, None].to(x.dtype)
         ssd_state = new_h
 
     y = y.reshape(B_, S, di)
-    y = rms_norm(y * F.silu(z.to(f32)).to(y.dtype), p.gate_norm)
+    y = y * F.silu(z.to(f32)).to(y.dtype)
+    y = (rms_norm(y, p.gate_norm) if not split
+         else _split_rms_norm(y, p.gate_norm, tp, cfg.d_inner))
     out = y @ p.out_proj.to(y.dtype)
+    if split:
+        out = tp.reduce(out.to(f32)).to(x.dtype)
     new_state = {"convx": new_convx, "convbc": new_convbc, "ssd": ssd_state}
     return x + out, new_state
+
+
+def _split_rms_norm(x: torch.Tensor, scale: torch.Tensor, tp, width: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``layers.py::rms_norm`` over a width split over ``tp``'s ranks: the
+    sum of squares all-reduced (and copied back into the split work, so
+    its gradient is summed too)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    ss = tp.copy(tp.reduce(torch.sum(x * x, dim=-1, keepdim=True)))
+    y = x * torch.rsqrt(ss / width + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(dt)
 
 
 def init_ssm_state(cfg, batch: int, device="cpu") -> dict:

@@ -26,7 +26,11 @@ layer, the context's keys and values per cross layer, and a fixed-size
 state per recurrent or ssm layer (``max_len`` sizes only the first).
 Training keeps float32 masters (``param_dtype=torch.float32``, the JAX
 package's ``init(key, "float32")``) and computes in the config's type; the
-loss adds the MoE layers' aux loss.
+loss adds the MoE layers' aux loss.  A model placed on a mesh whose
+``model`` axis is above 1 holds the axis as ``tp``
+(``launch/distributed.py::MeshRun.place``) and passes it to every block;
+its logits come back whole, and its loss is the vocabulary-parallel cross
+entropy.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (D, Params, embed_defs, embed_lookup,
                                        init_params, model_dtype,
-                                       partition_specs, rms_norm, unembed)
+                                       partition_specs, rms_norm, unembed,
+                                       vocab_parallel_nll)
 from repro_torch.models.transformer import (apply_stack, build_stack,
                                             stack_cache)
 
@@ -73,6 +78,7 @@ class Model(Params):
                                  init="zeros")
         super().__init__(defs, dtype, device)
         self.cfg = cfg
+        self.tp = None
         self.embed = Params(embed_defs(cfg), dtype, device)
         if cfg.family == "audio":
             self.enc_layers = build_stack(cfg, dtype, device, decoder=False)
@@ -115,7 +121,8 @@ class Model(Params):
                                      device=self.device).to(dtype)
             pe = torch.from_numpy(_sinusoidal(frames.shape[1], cfg.d_model))
             x = frames + pe.to(device=self.device, dtype=dtype)
-            x, _, _ = apply_stack(self.enc_layers, x, cfg, remat="none")
+            x, _, _ = apply_stack(self.enc_layers, x, cfg, remat="none",
+                                  tp=self.tp)
             return rms_norm(x, self.enc_norm)
         if cfg.family == "vlm":
             return torch.as_tensor(batch["patches"],
@@ -131,8 +138,9 @@ class Model(Params):
         cfg = self.cfg
         ctx = self._context(batch)
         tokens = self._tokens(batch["tokens"])
-        x = embed_lookup(self.embed, tokens, cfg)
-        x, _, aux = apply_stack(self.layers, x, cfg, ctx=ctx, remat=remat)
+        x = embed_lookup(self.embed, tokens, cfg, self.tp)
+        x, _, aux = apply_stack(self.layers, x, cfg, ctx=ctx, remat=remat,
+                                tp=self.tp)
         x = rms_norm(x, self.final_norm)
         nll = self._chunked_xent(x, self._tokens(batch["labels"]))
         if aux is None:
@@ -157,8 +165,13 @@ class Model(Params):
 
     def _chunk_nll(self, xc: torch.Tensor, lc: torch.Tensor):
         """(sum of the negative log-likelihoods, count) of one chunk."""
-        logits = unembed(self.embed, xc, self.cfg)
+        tp = self.tp
         mask = lc != -1
+        if tp is not None and tp.vocab:
+            logits = unembed(self.embed, xc, self.cfg, tp, gather=False)
+            nll = vocab_parallel_nll(logits, lc.clamp(min=0), tp)
+            return (nll * mask).sum(), mask.sum()
+        logits = unembed(self.embed, xc, self.cfg)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             lc.clamp(min=0).long()[..., None])[..., 0]
@@ -186,10 +199,10 @@ class Model(Params):
             cache = self.init_cache(B, max(cfg.max_seq, S))
         pos = cache["pos"]
         ctx = self._context(batch)
-        x = embed_lookup(self.embed, tokens, cfg)
+        x = embed_lookup(self.embed, tokens, cfg, self.tp)
         x, layers, _ = apply_stack(self.layers, x, cfg,
                                    cache=cache["layers"], pos=pos, ctx=ctx,
-                                   fill_cross=True)
+                                   fill_cross=True, tp=self.tp)
         x = rms_norm(x, self.final_norm)
         return self._last_logits(x), {"layers": layers, "pos": pos + S}
 
@@ -199,15 +212,15 @@ class Model(Params):
         cfg = self.cfg
         tokens = self._tokens(tokens)
         pos = cache["pos"]
-        x = embed_lookup(self.embed, tokens, cfg)
+        x = embed_lookup(self.embed, tokens, cfg, self.tp)
         x, layers, _ = apply_stack(self.layers, x, cfg,
-                                   cache=cache["layers"], pos=pos)
+                                   cache=cache["layers"], pos=pos, tp=self.tp)
         x = rms_norm(x, self.final_norm)
         return (self._last_logits(x),
                 {"layers": layers, "pos": pos + tokens.shape[1]})
 
     def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
-        return unembed(self.embed, x[:, -1], self.cfg)
+        return unembed(self.embed, x[:, -1], self.cfg, self.tp)
 
     # --------------------------------------------------------- batch specs
     def batch_spec(self, seq_len: int, batch: int, mode: str) -> dict:

@@ -23,11 +23,18 @@ device without a host sync (no ``.item()``, no data-dependent shapes):
   scatter-add computes, and deterministic on the card, where
   ``index_add_`` would add in the order its atomics land.
 
-The JAX package's expert-parallel path (``_moe_shard_map``: experts
-sharded over the mesh's ``model`` axis, the buffers carried by
-all-to-all) is not ported yet (ROADMAP queue 1 item 3), and until it is
-a mesh run refuses a config with experts
-(``launch/distributed.py::MeshRun``).
+The expert-parallel path, the JAX package's ``_moe_shard_map``, runs
+with the experts split over a mesh's ``model`` axis (``tp``): each rank
+keeps ``E / n`` experts ``[E/n, d, F]``, and the dispatch buffer
+``[E, C, d]`` goes to the experts' owners by all-to-all and comes back
+the same way.  When ``T % n == 0`` and ``T >= 8 n`` each rank routes its
+``T / n`` slice of the rows with the capacity of that slice, and the
+outputs are gathered (sequence-parallel dispatch); otherwise every rank
+routes all of its rows (decode).  The aux loss is the mean over the
+``model`` ranks of theirs (``launch/steps.py`` averages it over the
+batch axes, as the reference's ``pmean``).  On a mesh whose ``model``
+axis is 1 each rank routes its own rows with the capacity of its own
+tokens: the reference's path with n = 1.
 """
 from __future__ import annotations
 
@@ -71,11 +78,12 @@ def _rank_and_slot(flat_e: torch.Tensor, E: int, C: int):
     return keep, slot
 
 
-def _route(p, h2: torch.Tensor, cfg):
+def _route(p, h2: torch.Tensor, cfg, router=None):
     """h2 [T, d] -> (gate_vals [T, K], expert_idx [T, K], me [E], ce [E]):
     the renormalised top-k probabilities, their experts, and the aux
     loss's mean probability and assignment share per expert."""
-    logits = h2.to(torch.float32) @ p.router.to(torch.float32)
+    router = p.router if router is None else router
+    logits = h2.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -100,13 +108,15 @@ def _expert_ffn(buf: torch.Tensor, p, cfg) -> torch.Tensor:
     return torch.bmm(a * u, p.w_down.to(dt))
 
 
-def _dispatch_combine(p, h2: torch.Tensor, cfg):
+def _dispatch_combine(p, h2: torch.Tensor, cfg, tp=None, router=None):
     """Dispatch -> expert FFN -> combine on a [T, d] token block.  Returns
-    (y [T, d] in h2's type, aux loss)."""
+    (y [T, d] in h2's type, aux loss).  With ``tp`` the experts are the
+    rank's ``E / n`` and the buffer travels to them by all-to-all;
+    ``router`` is then the whole router."""
     T, d = h2.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
-    gate_vals, expert_idx, me, ce = _route(p, h2, cfg)
+    gate_vals, expert_idx, me, ce = _route(p, h2, cfg, router)
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
 
     flat_e = expert_idx.reshape(-1)                       # [T*K]
@@ -116,8 +126,17 @@ def _dispatch_combine(p, h2: torch.Tensor, cfg):
     dest = torch.where(keep, slot, torch.full_like(slot, E * C))
     buf = torch.zeros((E * C + 1, d), dtype=h2.dtype,
                       device=h2.device).index_copy(0, dest, h2[tok])
-    out = _expert_ffn(buf[:E * C].reshape(E, C, d), p, cfg).reshape(
-        E * C, d)
+    buf = buf[:E * C].reshape(E, C, d)
+    if tp is None:
+        out = _expert_ffn(buf, p, cfg).reshape(E * C, d)
+    else:
+        # [E, C, d] -> the owners' [E/n, n*C, d] (slot blocks by source
+        # rank), and back
+        n, el = tp.n, E // tp.n
+        got = tp.all_to_all(buf.reshape(n, el, C, d))
+        y = _expert_ffn(got.transpose(0, 1).reshape(el, n * C, d), p, cfg)
+        out = tp.all_to_all(y.reshape(el, n, C, d).transpose(0, 1)
+                            ).reshape(E * C, d)
 
     # keep the combine in the activation type, as the JAX package does
     w = torch.where(keep, gate_vals.reshape(-1),
@@ -129,9 +148,32 @@ def _dispatch_combine(p, h2: torch.Tensor, cfg):
     return y, aux
 
 
-def moe_apply(p, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p, x: torch.Tensor, cfg, tp=None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y with residual, aux loss, a float32 scalar)."""
     B, S, d = x.shape
-    h = rms_norm(x, p.pre_norm)
-    y, aux = _dispatch_combine(p, h.reshape(B * S, d), cfg)
+    h = rms_norm(x, p.pre_norm).reshape(B * S, d)
+    if tp is not None and tp.ff and not tp.experts:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts on {tp.n} model ranks: "
+            f"the plan splits the experts' ff instead, which has no path")
+    if tp is None or not tp.experts:
+        y, aux = _dispatch_combine(p, h, cfg)
+        return x + y.reshape(B, S, d).to(x.dtype), aux
+    T, n = B * S, tp.n
+    router = tp.gather_shards(p.router, 1)
+    if T % n == 0 and T >= 8 * n:
+        # sequence-parallel dispatch: this rank's slice of the rows
+        y, aux = _dispatch_combine(p, tp.slice(tp.copy(h), 0), cfg, tp,
+                                   router)
+        y = tp.gather(y, 0)
+        aux = tp.reduce(aux) / n
+    else:
+        if torch.is_grad_enabled() and h.requires_grad:
+            raise NotImplementedError(
+                f"{cfg.name}: {T} rows on {n} model ranks route whole on "
+                f"every rank, so each expert would take every rank's "
+                f"gradient of the same tokens; train with at least "
+                f"{8 * n} rows a multiple of {n}")
+        y, aux = _dispatch_combine(p, h, cfg, tp, router)
     return x + y.reshape(B, S, d).to(x.dtype), aux

@@ -7,6 +7,14 @@ gates r, i come from block-diagonal projections of the conv'd input.
 The counterpart of the JAX package's ``models/rglru.py``.  A prefill runs
 the recurrence as K9 (``kernels/ops.py::rglru_scan``); decode (S == 1) is
 the O(1) update in torch, as in the JAX package.
+
+With the width split over a mesh's ``model`` axis (``tp``, the ``ff``
+rule): ``w_x``, ``w_y``, the convolution and ``lam`` are a rank's
+contiguous slice of the width, ``w_out`` is row-parallel, and the state
+is the slice's.  The block-diagonal gates are split on their rows inside
+each block, which do not line up with a rank's slice of the width: they
+are gathered when the layer runs (``2 x N x bw x bw``, small) and the
+rank's blocks taken; K9 then scans the rank's width.
 """
 from __future__ import annotations
 
@@ -47,10 +55,30 @@ def _block_diag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], nb * bw)
 
 
-def _gates(p: Params, xc: torch.Tensor):
+def _gates(p: Params, xc: torch.Tensor, tp=None):
+    gate_a, gate_x = p.gate_a, p.gate_x
+    if tp is not None and tp.ff:
+        # the rank's blocks of the gathered gates (its width is whole
+        # blocks), or its channels of the whole width's gates
+        gate_a, gate_x = (tp.gather_shards(gate_a, 1),
+                          tp.gather_shards(gate_x, 1))
+        bw = gate_a.shape[1]
+        w = xc.shape[-1]
+        if w % bw == 0:
+            mine = slice(tp.rank * w // bw, (tp.rank + 1) * w // bw)
+            gate_a, gate_x = gate_a[mine], gate_x[mine]
+        else:
+            xs = tp.gather_shards(xc, -1)
+            return _finish(tp.slice(_block_diag(xs, gate_a), -1),
+                           tp.slice(_block_diag(xs, gate_x), -1), p, xc)
+    return _finish(_block_diag(xc, gate_a), _block_diag(xc, gate_x), p, xc)
+
+
+def _finish(ya: torch.Tensor, yx: torch.Tensor, p: Params,
+            xc: torch.Tensor):
     f32 = torch.float32
-    r = torch.sigmoid(_block_diag(xc, p.gate_a).to(f32))
-    i = torch.sigmoid(_block_diag(xc, p.gate_x).to(f32))
+    r = torch.sigmoid(ya.to(f32))
+    i = torch.sigmoid(yx.to(f32))
     log_a = -C_FACTOR * torch.nn.functional.softplus(p.lam.to(f32)) * r
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -67,17 +95,21 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     return ops.rglru_scan(a, b)
 
 
-def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
+def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
+                tp=None):
     """Griffin recurrent block with residual.  state (decode):
-      {"conv": [B,K-1,W], "h": [B,W] float32}."""
+      {"conv": [B,K-1,W], "h": [B,W] float32} (W the rank's width under
+    ``tp``)."""
     S = x.shape[1]
+    split = tp is not None and tp.ff
     hidden = rms_norm(x, p.pre_norm)
-    gate = act_fn(cfg.act)(hidden @ p.w_y.to(hidden.dtype))
-    xb = hidden @ p.w_x.to(hidden.dtype)
+    hh = tp.copy(hidden) if split else hidden
+    gate = act_fn(cfg.act)(hh @ p.w_y.to(hidden.dtype))
+    xb = hh @ p.w_x.to(hidden.dtype)
     conv_state = None if state is None else state["conv"]
     xc, new_conv = causal_conv(xb, p.conv_w.to(x.dtype),
                                p.conv_b.to(x.dtype), conv_state)
-    a, b = _gates(p, xc)
+    a, b = _gates(p, xc, tp)
     if state is None or S > 1:
         h0 = None if state is None else state["h"]
         h = rglru_scan(a, b, h0=h0)
@@ -86,6 +118,8 @@ def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None):
         h = (a[:, 0] * state["h"] + b[:, 0])[:, None]
         h_last = h[:, 0]
     y = (h.to(x.dtype) * gate) @ p.w_out.to(x.dtype)
+    if split:
+        y = tp.reduce(y.to(torch.float32)).to(x.dtype)
     return x + y, {"conv": new_conv, "h": h_last}
 
 

@@ -22,9 +22,11 @@ fused block K7, or with ``n_experts > 0`` the mixture of experts
 K6 at a prefill and in a forward without a cache, self- and
 cross-attention alike; a decode step attends in torch.  The JAX
 package's sharding context (``set_mesh_axes``, ``shard_hidden``) is global
-state and has no twin: a mesh run passes its ``launch/distributed.py::
-MeshRun`` explicitly, and each rank computes on its own rows, where
-``shard_hidden`` would be the identity.
+state and has no twin: each rank computes on its own rows, where
+``shard_hidden`` would be the identity, and a mesh whose ``model`` axis is
+above 1 passes its ``launch/tensor_parallel.py::ModelAxis`` down the stack
+as ``tp`` (the model holds it, ``launch/distributed.py::MeshRun.place``):
+each block runs its share of the heads, ``ff`` slice, width or experts.
 
 Training (no cache) rematerialises each layer under ``remat="full"`` or
 ``"dots"`` (``torch.utils.checkpoint``, non-reentrant), where the JAX
@@ -45,8 +47,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (blocked_attention, cache_update,
-                                          init_kv_cache, plain_attention,
-                                          ring_positions)
+                                          cp_attention, init_kv_cache,
+                                          plain_attention, ring_positions,
+                                          sharded_decode_attention)
 from repro_torch.models.layers import (D, Params, apply_rope, grad_fence,
                                        mlp_apply, mlp_defs, rms_norm,
                                        rope_angles)
@@ -116,7 +119,7 @@ class Layer(nn.Module):
 def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
                cache: dict | None = None, pos: int = 0,
                ctx: torch.Tensor | None = None, causal: bool = True,
-               fill_cross: bool = False):
+               fill_cross: bool = False, tp=None):
     """One attention sub-block with residual.  Returns (y, cache).
 
     Self-attention: a prefill (S > 1 with a cache) and a forward without a
@@ -131,16 +134,32 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     (``fill_cross``, which stores them in the cache as ``ck`` / ``cv``) or
     without a cache, attended by K6 without a mask; a decode step reads
     them from the cache and attends in torch (blocked attention, not
-    causal, as the JAX package)."""
+    causal, as the JAX package).
+
+    With the heads split over ``tp``'s ranks, a rank projects its q heads
+    (and its kv heads where the axis divides them; else all kv heads,
+    of which its q heads read theirs under GQA's ``h // G``), attends
+    with them, and ``wo`` is row-parallel: the partial outputs are summed
+    in float32 before the sandwich norm and the vlm gate.  A decode
+    cache that keeps every kv head is split by sequence
+    (:func:`_seq_split`)."""
     B, S, _ = x.shape
-    nh, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
+    heads = tp is not None and tp.heads
+    nh = cfg.n_heads // tp.n if heads else cfg.n_heads
     h = rms_norm(x, p.pre_norm)
-    q = (h @ p.wq.to(h.dtype)).reshape(B, S, nh, hd)
+    q = ((tp.copy(h) if heads else h) @ p.wq.to(h.dtype)).reshape(
+        B, S, nh, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp.copy(p.q_norm) if heads else p.q_norm)
     if kind == "cross":
-        out, cache = _cross_attention(p, q, cfg, cache, ctx, fill_cross)
+        out, cache = _cross_attention(p, q, cfg, cache, ctx, fill_cross, tp)
     else:
-        out, cache = _self_attention(p, h, q, cfg, kind, cache, pos, causal)
+        out, cache = _self_attention(p, h, q, cfg, kind, cache, pos, causal,
+                                     tp)
     y = out.reshape(B, S, nh * hd) @ p.wo.to(x.dtype)
+    if heads:
+        y = tp.reduce(y.to(torch.float32)).to(x.dtype)
     if cfg.sandwich_norm:
         y = rms_norm(y, p.post_norm)
     gate = p.get("gate_attn") if kind == "cross" else None
@@ -149,22 +168,59 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     return x + y, cache
 
 
-def _self_attention(p, h, q, cfg, kind, cache, pos, causal):
+def _kv_split(tp) -> bool:
+    return tp is not None and tp.heads and tp.kv
+
+
+def _local_kv(t: torch.Tensor, cfg, tp) -> torch.Tensor:
+    """``t`` [B, T, NKV, hd] with every kv head -> the kv heads this rank's
+    q heads read (GQA: q head ``h`` reads ``h // G``): a slice where the
+    rank's heads keep GQA's grouping, else one kv head a q head."""
+    if tp is None or not tp.heads or tp.kv:
+        return t
+    nh = cfg.n_heads // tp.n
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = [(tp.rank * nh + i) // g for i in range(nh)]
+    lo, hi = idx[0], idx[-1] + 1
+    if nh % (hi - lo) == 0 and idx == [lo + i // (nh // (hi - lo))
+                                       for i in range(nh)]:
+        return t[:, :, lo:hi]
+    return t[:, :, idx]
+
+
+def _seq_split(tp, length: int, full: int) -> bool:
+    """Whether a cache leaf of ``length`` slots, of a cache whose whole
+    length is ``full``, is split by sequence over ``tp``'s ranks
+    (``launch/sharding.py::cache_pspecs``: kv heads kept whole, ``model``
+    not a batch axis, a length the axis divides)."""
+    return (tp is not None and tp.seq_cache and full % tp.n == 0
+            and length * tp.n == full)
+
+
+def _self_attention(p, h, q, cfg, kind, cache, pos, causal, tp):
     B, S, _ = h.shape
-    nkv, hd = cfg.n_kv_heads, cfg.hd
-    k = (h @ p.wk.to(h.dtype)).reshape(B, S, nkv, hd)
-    v = (h @ p.wv.to(h.dtype)).reshape(B, S, nkv, hd)
+    hd = cfg.hd
+    split = _kv_split(tp)
+    nkv = cfg.n_kv_heads // tp.n if split else cfg.n_kv_heads
+    hk = tp.copy(h) if split else h
+    k = (hk @ p.wk.to(h.dtype)).reshape(B, S, nkv, hd)
+    v = (hk @ p.wv.to(h.dtype)).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
-        k = rms_norm(k, p.k_norm)
+        k = rms_norm(k, tp.copy(p.k_norm) if split else p.k_norm)
     sin, cos = rope_angles(pos + torch.arange(S, device=h.device), hd,
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     window = cfg.window if kind == "local" else 0
+    seq = False
     if cache is not None:
-        ring = cache["k"].shape[1] < cfg.max_seq
-        cache = cache_update(cache, k, v, pos, ring=ring)
+        full = (min(cfg.max_seq, cfg.window) if kind == "local"
+                else cfg.max_seq)
+        seq = _seq_split(tp, cache["k"].shape[1], full)
+        length = cache["k"].shape[1] * (tp.n if seq else 1)
+        ring = length < cfg.max_seq
+        cache = cache_update(cache, k, v, pos, ring=ring,
+                             shard=(tp.rank, tp.n) if seq else None)
     if cache is None or S > 1:
         if pos != 0:
             raise NotImplementedError(
@@ -173,25 +229,50 @@ def _self_attention(p, h, q, cfg, kind, cache, pos, causal):
                 f"as the JAX package's do")
         if cache is None:
             q, k, v = grad_fence(q), grad_fence(k), grad_fence(v)
+        if tp is not None and tp.heads and not split:
+            k, v = tp.copy(k), tp.copy(v)
+        k, v = _local_kv(k, cfg, tp), _local_kv(v, cfg, tp)
+        if (cache is not None and tp is not None and tp.cp and not tp.heads
+                and S % tp.n == 0):
+            return cp_attention(q, k, v, tp, causal=causal, window=window,
+                                softcap=cfg.attn_softcap), cache
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   softcap=cfg.attn_softcap)
+    elif seq:
+        slots = torch.arange(length, device=h.device)
+        kpos = (ring_positions(pos + S, length, h.device) if ring
+                else slots)
+        mine = slice(tp.rank * cache["k"].shape[1],
+                     (tp.rank + 1) * cache["k"].shape[1])
+        out = sharded_decode_attention(
+            tp.gather(q, 2) if tp.heads else q, cache["k"], cache["v"], tp,
+            q_pos=pos, k_pos=kpos[mine],
+            valid=(slots < pos + S)[mine], causal=True, window=window,
+            softcap_val=cfg.attn_softcap)
+        if tp.heads:
+            out = tp.slice(out, 2)
     elif ring:
         kpos = ring_positions(pos + S, cache["k"].shape[1], h.device)
-        out = blocked_attention(q, cache["k"], cache["v"], q_offset=pos,
+        out = blocked_attention(q, _local_kv(cache["k"], cfg, tp),
+                                _local_kv(cache["v"], cfg, tp), q_offset=pos,
                                 causal=True, window=window,
                                 softcap_val=cfg.attn_softcap,
                                 k_positions=kpos)
     else:
-        out = plain_attention(q, cache["k"], cache["v"], q_offset=pos,
+        out = plain_attention(q, _local_kv(cache["k"], cfg, tp),
+                              _local_kv(cache["v"], cfg, tp), q_offset=pos,
                               causal=True, window=window,
                               softcap_val=cfg.attn_softcap, kv_len=pos + S)
     return out, cache
 
 
-def _cross_attention(p, q, cfg, cache, ctx, fill_cross):
+def _cross_attention(p, q, cfg, cache, ctx, fill_cross, tp):
     B = q.shape[0]
-    nkv, hd = cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    split = _kv_split(tp)
+    nkv = cfg.n_kv_heads // tp.n if split else cfg.n_kv_heads
     decode = cache is not None and not fill_cross
+    full = cfg.enc_seq if cfg.family == "audio" else cfg.vision_seq
     if decode:
         k, v = cache["ck"], cache["cv"]           # precomputed at prefill
     else:
@@ -199,14 +280,26 @@ def _cross_attention(p, q, cfg, cache, ctx, fill_cross):
             raise ValueError("a cross layer's prefill or forward needs the "
                              "context (ctx)")
         T = ctx.shape[1]
-        k = (ctx @ p.wk.to(ctx.dtype)).reshape(B, T, nkv, hd)
-        v = (ctx @ p.wv.to(ctx.dtype)).reshape(B, T, nkv, hd)
+        c = tp.copy(ctx) if split else ctx
+        k = (c @ p.wk.to(ctx.dtype)).reshape(B, T, nkv, hd)
+        v = (c @ p.wv.to(ctx.dtype)).reshape(B, T, nkv, hd)
         if cache is not None:                     # prefill: store
-            cache = {"ck": k.to(cache["ck"].dtype),
-                     "cv": v.to(cache["cv"].dtype)}
+            keep = (tp.slice(k, 1), tp.slice(v, 1)) if _seq_split(
+                tp, cache["ck"].shape[1], full) else (k, v)
+            cache = {"ck": keep[0].to(cache["ck"].dtype).contiguous(),
+                     "cv": keep[1].to(cache["cv"].dtype).contiguous()}
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm)
-        k = rms_norm(k, p.k_norm)
+        k = rms_norm(k, tp.copy(p.k_norm) if split else p.k_norm)
+    if decode and _seq_split(tp, k.shape[1], full):
+        slots = torch.arange(k.shape[1], device=k.device)
+        out = sharded_decode_attention(
+            tp.gather(q, 2) if tp.heads else q, k, v, tp, q_pos=0,
+            k_pos=slots, valid=torch.ones_like(slots, dtype=torch.bool),
+            causal=False, softcap_val=cfg.attn_softcap)
+        return (tp.slice(out, 2) if tp.heads else out), cache
+    if tp is not None and tp.heads and not split and not decode:
+        k, v = tp.copy(k), tp.copy(v)
+    k, v = _local_kv(k, cfg, tp), _local_kv(v, cfg, tp)
     if decode:
         out = blocked_attention(q, k, v, causal=False,
                                 softcap_val=cfg.attn_softcap)
@@ -216,13 +309,13 @@ def _cross_attention(p, q, cfg, cache, ctx, fill_cross):
     return out, cache
 
 
-def ffn_apply(p: Params, x: torch.Tensor, cfg, gate=None):
+def ffn_apply(p: Params, x: torch.Tensor, cfg, gate=None, tp=None):
     """The MLP sub-block with residual (K7), or the mixture of experts.
     Returns (y, aux loss: None for a dense MLP).  ``gate`` (a vlm cross
     layer's ``gate_mlp``) scales the block's update by ``tanh(gate)``."""
     if cfg.n_experts:
-        return moe_apply(p, x, cfg)
-    y = mlp_apply(p, x, cfg)
+        return moe_apply(p, x, cfg, tp)
+    y = mlp_apply(p, x, cfg, tp)
     if gate is not None:
         y = x + torch.tanh(gate.to(x.dtype)) * (y - x)
     return y, None
@@ -230,37 +323,38 @@ def ffn_apply(p: Params, x: torch.Tensor, cfg, gate=None):
 
 # -------------------------------------------------------------- one layer
 def apply_layer(layer: Layer, x: torch.Tensor, cfg, *, cache=None,
-                pos: int = 0, ctx=None, fill_cross: bool = False):
+                pos: int = 0, ctx=None, fill_cross: bool = False, tp=None):
     """Returns (x, new_cache, aux: None without experts)."""
     kind = layer.kind
     if kind == "ssm":
-        x, cache = ssm_apply(layer.ssm, x, cfg, state=cache)
+        x, cache = ssm_apply(layer.ssm, x, cfg, state=cache, tp=tp)
         return x, cache, None
     if kind == "recurrent":
-        x, cache = rglru_apply(layer.rglru, x, cfg, state=cache)
-        x, aux = ffn_apply(layer.ffn, x, cfg)
+        x, cache = rglru_apply(layer.rglru, x, cfg, state=cache, tp=tp)
+        x, aux = ffn_apply(layer.ffn, x, cfg, tp=tp)
         return x, cache, aux
     if kind == "encdec":
         sc = None if cache is None else cache["self"]
         xc = None if cache is None else cache["crosskv"]
-        x, sc = attn_apply(layer.attn, x, cfg, "global", cache=sc, pos=pos)
+        x, sc = attn_apply(layer.attn, x, cfg, "global", cache=sc, pos=pos,
+                           tp=tp)
         x, xc = attn_apply(layer.xattn, x, cfg, "cross", cache=xc, ctx=ctx,
-                           fill_cross=fill_cross)
-        x, aux = ffn_apply(layer.ffn, x, cfg)
+                           fill_cross=fill_cross, tp=tp)
+        x, aux = ffn_apply(layer.ffn, x, cfg, tp=tp)
         return x, None if cache is None else {"self": sc, "crosskv": xc}, aux
     if kind == "enc":
-        x, _ = attn_apply(layer.attn, x, cfg, "global", causal=False)
-        x, aux = ffn_apply(layer.ffn, x, cfg)
+        x, _ = attn_apply(layer.attn, x, cfg, "global", causal=False, tp=tp)
+        x, aux = ffn_apply(layer.ffn, x, cfg, tp=tp)
         return x, None, aux
     x, cache = attn_apply(layer.attn, x, cfg, kind, cache=cache, pos=pos,
-                          ctx=ctx, fill_cross=fill_cross)
+                          ctx=ctx, fill_cross=fill_cross, tp=tp)
     gate = layer.attn.get("gate_mlp") if kind == "cross" else None
-    x, aux = ffn_apply(layer.ffn, x, cfg, gate=gate)
+    x, aux = ffn_apply(layer.ffn, x, cfg, gate=gate, tp=tp)
     return x, cache, aux
 
 
-def _layer_output(layer: Layer, x: torch.Tensor, cfg, ctx):
-    return apply_layer(layer, x, cfg, ctx=ctx)[::2]
+def _layer_output(layer: Layer, x: torch.Tensor, cfg, ctx, tp):
+    return apply_layer(layer, x, cfg, ctx=ctx, tp=tp)[::2]
 
 
 def _dots_policy(_ctx, op, *_args, **_kwargs):
@@ -332,7 +426,7 @@ def stack_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def apply_stack(layers: nn.ModuleList, x: torch.Tensor, cfg, *,
                 cache: list | None = None, pos: int = 0, ctx=None,
-                remat: str = "none", fill_cross: bool = False):
+                remat: str = "none", fill_cross: bool = False, tp=None):
     """Run the whole layer stack.  Returns (x, new_cache, aux): aux is the
     MoE layers' aux losses summed in depth order (a float32 scalar), None
     for a stack without experts.
@@ -379,21 +473,23 @@ def apply_stack(layers: nn.ModuleList, x: torch.Tensor, cfg, *,
       step bound by the host costs more than the recomputation it saves
       (``PERF.md`` §6).
 
-    With a cache (serving) ``remat`` is ignored."""
+    With a cache (serving) ``remat`` is ignored.  ``tp``: the mesh's
+    ``model`` axis (see the module docstring), None without one."""
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r} not in {REMAT}")
     aux = None
     new_cache = None if cache is None else []
     for i, layer in enumerate(layers):
         if cache is None and remat != "none":
-            x, a = checkpoint(_layer_output, layer, x, cfg, ctx,
+            x, a = checkpoint(_layer_output, layer, x, cfg, ctx, tp,
                               use_reentrant=False,
                               context_fn=(_dots_contexts if remat == "dots"
                                           else noop_context_fn))
         else:
             x, c, a = apply_layer(layer, x, cfg,
                                   cache=None if cache is None else cache[i],
-                                  pos=pos, ctx=ctx, fill_cross=fill_cross)
+                                  pos=pos, ctx=ctx, fill_cross=fill_cross,
+                                  tp=tp)
             if new_cache is not None:
                 new_cache.append(c)
         if a is not None:

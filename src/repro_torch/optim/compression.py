@@ -8,9 +8,11 @@ feedback keeps SGD/Adam convergence -- Karimireddy et al. 2019).
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the codes
 and scales are the JAX package's.
 
-:func:`compressed_psum` -- the all-reduce of the compressed gradients over
-a pod axis -- is not ported yet (a mesh run sums its gradients over the
-ranks uncompressed, ``launch/distributed.py``).
+:func:`compressed_psum` is the all-reduce of the compressed gradients
+over a process group (a mesh run's ``pod`` group,
+``launch/distributed.py::MeshRun.groups``); like the JAX package's, the
+training step never calls it (a mesh run sums its gradients
+uncompressed).
 """
 from __future__ import annotations
 
@@ -39,9 +41,24 @@ def decompress(q: dict, scales: dict) -> dict:
     return {n: q[n].to(torch.float32) * scales[n] for n in q}
 
 
-def compressed_psum(grads, error, axis_name: str):
-    """The int8 all-reduce over the pod axis ``axis_name``: not ported
-    yet."""
-    raise NotImplementedError(
-        f"compressed_psum over {axis_name!r}: the int8 all-reduce over a "
-        f"pod axis is not ported yet (ROADMAP queue 1 item 3)")
+def compressed_psum(grads: dict, error: dict, group) -> tuple[dict, dict]:
+    """The all-reduce of ``grads`` over ``group`` (the mesh's ``pod``
+    axis) in int8 with error feedback: each rank compresses its own
+    gradients (:func:`compress`), the int8 codes are summed as int32 and
+    the scales reduced with MAX over the group, and each leaf is the
+    codes' sum times the largest scale divided by the group's size.
+    Returns ``(mean, new error)``.  That is the JAX package's function as
+    it stands: each rank quantised with its own scale, so a rank whose
+    scale is below the largest is weighted by the wrong one (ROADMAP R11;
+    its ``train`` never calls it, nor does the port's)."""
+    from repro_torch.launch import tensor_parallel as tpc
+
+    q, scales, new_error = compress(grads, error)
+    n = torch.distributed.get_world_size(group)
+    mean = {}
+    for k in q:
+        total = tpc.all_reduce(q[k].to(torch.int32), group)
+        top = tpc.all_reduce(scales[k].clone(), group,
+                             torch.distributed.ReduceOp.MAX)
+        mean[k] = total.to(torch.float32) * top / n
+    return mean, new_error

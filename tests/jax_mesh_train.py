@@ -1,49 +1,64 @@
-"""The JAX package's ``train(..., mesh=)`` on host devices, for
-``test_torch_mesh_reference.py``: a process of its own, started with
+"""The JAX package on host devices, for ``test_torch_mesh_reference.py``:
+a process of its own, started with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` in its environment
 alone, so the test's process keeps one device.
 
     python tests/jax_mesh_train.py job.json
 
-The job names the mesh's dims (as ``data``, ``model``) and the cases:
-each resumes the checkpoint in its ``ckpt_dir`` and trains a smoke config
-to ``steps``, checkpointing at the end; ``fsdp`` forces the plan's FSDP
-on (the ``embed`` axis over ``data``, the rule the reference's
-``make_plan`` applies above its threshold).  The mesh's axes are
-``Auto``: under jax 0.9 ``jax.make_mesh`` makes explicit axes by default,
-on which the reference's embedding gather raises ``ShardingTypeError``
-(ROADMAP R4).  The losses go to ``losses.json`` beside the job.
+The job lists cases, each with its mesh's ``dims`` (as ``data``,
+``model``; a ``pod`` axis first when three) and a ``kind``:
+
+* ``train`` -- resume the checkpoint in ``ckpt_dir`` and train a smoke
+  config to ``steps``, checkpointing at the end; ``fsdp`` forces the
+  plan's FSDP on (the ``embed`` axis over ``data``, the rule the
+  reference's ``make_plan`` applies above its threshold);
+* ``serve`` -- ``serve`` of a batch with the weights pickled in
+  ``params`` (the JAX package's tree, numpy leaves);
+* ``cp`` -- ``models/attention.py::cp_attention`` on numpy inputs;
+* ``psum`` -- ``optim/compression.py::compressed_psum`` over ``pod`` in a
+  ``shard_map``, each participant's gradients its row of the inputs.
+
+The mesh's axes are ``Auto``: under jax 0.9 ``jax.make_mesh`` makes
+explicit axes by default, on which the reference's embedding gather
+raises ``ShardingTypeError`` (ROADMAP R4, R7).  The results go to
+``results.pkl`` beside the job.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import pickle
 import sys
 from pathlib import Path
 
+import numpy as np
 
-def main(job_path: str) -> None:
+
+def _mesh(dims):
     import jax
 
+    names = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    return jax.make_mesh(tuple(dims), names,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(dims))
+
+
+def _train(case, mesh):
     import repro.launch.train as reference
     from repro.configs import smoke_config
     from repro.data.pipeline import DataConfig
 
-    job = json.loads(Path(job_path).read_text())
     make_plan = reference.make_plan
-    out = {}
-    for case in job["cases"]:
-        def plan(cfg, mesh, fsdp=case["fsdp"]):
-            p = make_plan(cfg, mesh)
-            if not fsdp:
-                return p
-            return dataclasses.replace(
-                p, fsdp=True, rules={**p.rules, "embed": "data"})
 
-        reference.make_plan = plan
+    def plan(cfg, mesh, fsdp=case["fsdp"]):
+        p = make_plan(cfg, mesh)
+        if not fsdp:
+            return p
+        return dataclasses.replace(p, fsdp=True,
+                                   rules={**p.rules, "embed": "data"})
+
+    reference.make_plan = plan
+    try:
         cfg = smoke_config(case["arch"]).replace(max_seq=case["seq"])
-        mesh = jax.make_mesh(tuple(job["dims"]), ("data", "model"),
-                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
         res = reference.train(
             cfg, reference.TrainConfig(
                 steps=case["steps"], log_every=1,
@@ -52,9 +67,71 @@ def main(job_path: str) -> None:
             data_cfg=DataConfig(seq_len=case["seq"],
                                 global_batch=case["batch"],
                                 vocab=cfg.vocab, seed=case["data_seed"]))
-        out[case["id"]] = res["losses"]
-    reference.make_plan = make_plan
-    (Path(job_path).parent / "losses.json").write_text(json.dumps(out))
+    finally:
+        reference.make_plan = make_plan
+    return res["losses"]
+
+
+def _serve(case, mesh):
+    import jax
+
+    from repro.configs import smoke_config
+    from repro.launch.serve import ServeConfig, serve
+
+    cfg = smoke_config(case["arch"]).replace(max_seq=case["seq"])
+    with open(case["params"], "rb") as f:
+        params = jax.tree.map(jax.numpy.asarray, pickle.load(f))
+    out = serve(cfg, ServeConfig(batch=case["batch"],
+                                 prompt_len=case["seq"] - case["gen"],
+                                 gen_len=case["gen"], seed=case["seed"]),
+                mesh=mesh, params=params)
+    return out["tokens"]
+
+
+def _cp(case, mesh):
+    import jax.numpy as jnp
+
+    from repro.models.attention import cp_attention
+
+    q, k, v = (jnp.asarray(case["inputs"][n]) for n in ("q", "k", "v"))
+    with mesh:
+        out = cp_attention(q, k, v, mesh=mesh, batch_axes=("data",),
+                           model_axis="model", causal=True,
+                           window=case["window"])
+    return np.asarray(out)
+
+
+def _psum(case, mesh):
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.optim.compression import compressed_psum
+
+    g = np.asarray(case["grads"], np.float32)        # [participants, n]
+
+    def local(x):
+        mean, err = compressed_psum({"w": x[0]}, {"w": 0 * x[0]}, "pod")
+        return mean["w"][None], err["w"][None]
+
+    fn = jax.shard_map(local, mesh=mesh, in_specs=P("pod"),
+                       out_specs=(P("pod"), P("pod")), check_vma=False)
+    mean, err = fn(g)
+    return np.asarray(mean), np.asarray(err)
+
+
+KINDS = {"train": _train, "serve": _serve, "cp": _cp, "psum": _psum}
+
+
+def main(job_path: str) -> None:
+    job = json.loads(Path(job_path).read_text())
+    out = {}
+    for case in job["cases"]:
+        if "inputs" in case:
+            with open(case["inputs"], "rb") as f:
+                case = {**case, "inputs": pickle.load(f)}
+        out[case["id"]] = KINDS[case["kind"]](case, _mesh(case["dims"]))
+    with open(Path(job_path).parent / "results.pkl", "wb") as f:
+        pickle.dump(out, f)
 
 
 if __name__ == "__main__":

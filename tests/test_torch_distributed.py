@@ -29,9 +29,12 @@ the one-process results.  The cases use the smoke configs:
   in one process match a straight one-process run within 1e-4, and a mesh
   run restarts from a one-process checkpoint as well.
 
-A mesh whose model axis is above 1, or a config with experts on any
-mesh, raises ``NotImplementedError`` before any process group is touched,
-and this process never has one.
+* a model axis above 1 (smollm-360m on (1, 2), (2, 2) and (1, 2, 4) as
+  (pod, data, model)): train and serve equal to one process (the
+  model axis itself is ``test_torch_tensor_parallel.py``'s), and a config
+  with experts on (2, 1), each rank routing its own rows.
+
+This process never has a process group.
 """
 import shutil
 from pathlib import Path
@@ -44,7 +47,6 @@ import torch_ranks
 from repro_torch.checkpoint.checkpoint import latest_step
 from repro_torch.configs import smoke_config
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import ServeConfig, serve
 from repro_torch.launch.train import TrainConfig, train
 from repro_torch.models.model import Model
@@ -114,8 +116,12 @@ def runs(tmp_path_factory):
         if world in CKPT_WORLDS:
             shutil.copytree(one, root / world / "one_ckpt")
         cases = (_train_cases(world) + _serve_cases(world)
-                 + _ckpt_cases(world, root) + _peak_cases(world))
+                 + _ckpt_cases(world, root) + _peak_cases(world)
+                 + _experts_cases(world))
         started[world] = torch_ranks.start_world(dims, cases, root / world)
+    for world, dims in MODEL_WORLDS.items():
+        started[world] = torch_ranks.start_world(dims, _model_cases(),
+                                                 root / world)
 
     try:
         # the one-process results, while the ranks run
@@ -132,6 +138,10 @@ def runs(tmp_path_factory):
                 device="cpu")
         base["straight4"] = _one_process_train("smollm-360m", 4,
                                                root / "straight4")["losses"]
+        cfg = smoke_config(EXPERTS).replace(max_seq=SEQ + GEN)
+        base["serve"][EXPERTS] = serve(cfg, ServeConfig(
+            batch=BATCH, prompt_len=SEQ, gen_len=GEN, seed=3), device="cpu")
+        base["experts-loss"] = _experts_first_loss()
         results = {world: torch_ranks.wait_world(procs, root / world,
                                                  TIMEOUT_S)
                    for world, procs in started.items()}
@@ -142,6 +152,22 @@ def runs(tmp_path_factory):
                     proc.kill()
                     proc.wait()
     return root, base, results
+
+
+def _experts_first_loss() -> float:
+    """The first loss of a (2, 1) mesh's training of the experts' config:
+    the global batch's nll plus the mean of the two row shards' aux."""
+    cfg = smoke_config(EXPERTS).replace(max_seq=SEQ)
+    model = Model(cfg, device="cpu",
+                  param_dtype=torch.float32).init_weights(5)
+    batch = torch_ranks.case_batch(cfg, dict(seq=SEQ, batch=BATCH))
+    with torch.no_grad():
+        nll = model.loss(batch)[1]["nll"]
+        half = BATCH // 2
+        aux = [model.loss({k: v[i * half:(i + 1) * half]
+                           for k, v in batch.items()})[1]["aux"]
+               for i in range(2)]
+    return float(nll + (aux[0] + aux[1]) / 2)
 
 
 def _close(got, want, tol, what):
@@ -238,31 +264,69 @@ def test_a_mesh_run_restarts_from_a_one_process_checkpoint(runs, world):
             _close(g, straight[s], 1e-4, (world, s))
 
 
-@pytest.mark.parametrize("entry", ["train", "serve"])
-@pytest.mark.parametrize("dims", [(1, 2), (2, 2), (1, 2, 4)])
-def test_a_model_axis_above_one_raises(tmp_path, entry, dims):
-    cfg = smoke_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        if entry == "train":
-            train(cfg, TrainConfig(steps=1, ckpt_dir=str(tmp_path)),
-                  device="cpu", mesh=make_mesh(dims))
-        else:
-            serve(cfg, ServeConfig(batch=2, prompt_len=4, gen_len=2),
-                  device="cpu", mesh=make_mesh(dims))
-    assert not torch.distributed.is_initialized()
+MODEL_WORLDS = {"1x2": (1, 2), "2x2": (2, 2), "1x2x4": (1, 2, 4)}
+EXPERTS = "qwen3-moe-235b-a22b"
+
+
+def _model_cases():
+    base = dict(arch="smollm-360m", fsdp=False, batch=BATCH)
+    return [dict(base, id="model-train", kind="train", seq=SEQ,
+                 steps=STEPS),
+            dict(base, id="model-serve", kind="serve", seq=SEQ + GEN,
+                 gen=GEN)]
+
+
+def _experts_cases(world):
+    if world != "2x1":
+        return []
+    base = dict(arch=EXPERTS, fsdp=False, batch=BATCH)
+    return [dict(base, id="experts-train", kind="train", seq=SEQ, steps=1),
+            dict(base, id="experts-serve", kind="serve", seq=SEQ + GEN,
+                 gen=GEN)]
 
 
 @pytest.mark.parametrize("entry", ["train", "serve"])
-def test_a_config_with_experts_on_a_mesh_raises(tmp_path, entry):
-    cfg = smoke_config("qwen3-moe-235b-a22b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+@pytest.mark.parametrize("dims", list(MODEL_WORLDS.values()))
+def test_a_model_axis_above_one_runs(runs, entry, dims):
+    """``train`` and ``serve`` on meshes whose model axis is 2 or 4 (2 x 2:
+    data and model; 1 x 2 x 4: pod, data, model), equal to one
+    process."""
+    _, base, results = runs
+    world = next(w for w, d in MODEL_WORLDS.items() if d == dims)
+    for rank, res in enumerate(results[world]):
         if entry == "train":
-            train(cfg, TrainConfig(steps=1, ckpt_dir=str(tmp_path)),
-                  device="cpu", mesh=make_mesh((2, 1)))
+            got = res["model-train"]
+            want, _ = base["train"]["smollm-360m"]
+            for (s, g), (_, w) in zip(got["losses"], want):
+                _close(g, w, 1e-5, (world, rank, s))
+            assert len(got["losses"]) == STEPS
+            assert got["local_param_bytes"] == got["shard_param_bytes"]
         else:
-            serve(cfg, ServeConfig(batch=2, prompt_len=4, gen_len=2),
-                  device="cpu", mesh=make_mesh((2, 1)))
-    assert not torch.distributed.is_initialized()
+            got, want = res["model-serve"], base["serve"]["smollm-360m"]
+            assert (got["tokens"] == want["tokens"]).all(), (world, rank)
+            err = float((got["logits"] - want["logits"]).abs().max())
+            assert err <= 1e-5 * float(want["logits"].abs().max())
+            assert got["param_bytes"] == got["shard_param_bytes"]
+            assert got["cache_bytes"] == got["shard_cache_bytes"]
+
+
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_a_config_with_experts_runs_on_a_mesh(runs, entry):
+    """qwen3's smoke config (8 experts, no token dropped) on (2, 1): each
+    rank routes its own rows with the capacity of its own tokens, the
+    reference's path on a model axis of 1.  Served, it equals one process;
+    trained, its first loss is the global batch's nll plus the mean of
+    the two row shards' aux losses (the reference's ``pmean``)."""
+    _, base, results = runs
+    for res in results["2x1"]:
+        if entry == "serve":
+            got, want = res["experts-serve"], base["serve"][EXPERTS]
+            assert (got["tokens"] == want["tokens"]).all()
+            err = float((got["logits"] - want["logits"]).abs().max())
+            assert err <= 1e-5 * float(want["logits"].abs().max())
+        else:
+            (_, got), = res["experts-train"]["losses"]
+            _close(got, base["experts-loss"], 1e-5, "experts")
 
 
 def test_the_entry_points_run_as_torchrun_starts_them(tmp_path):

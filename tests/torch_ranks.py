@@ -14,6 +14,7 @@ started in the test's own process.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -90,42 +91,72 @@ def wait_world(procs: list, workdir: Path, timeout: float) -> list:
 
 # ------------------------------------------------------------- a rank
 def run_case(case: dict, mesh) -> dict:
-    """One case on this rank: ``train`` or ``serve`` of a smoke config on
-    ``mesh`` with ``device="cpu"``, FSDP as the plan says or forced."""
+    """One case on this rank: ``train`` or ``serve`` of a smoke config
+    (``replace``: fields of the config to change) on ``mesh`` with
+    ``device="cpu"``, FSDP as the plan says or forced, ``cp`` for a serve;
+    a serve of ``params`` (a pickled tree of the JAX package's layout)
+    holds those weights.  Each records its placed bytes beside
+    ``dryrun.shard_bytes``'s."""
+    import pickle
+
     from repro_torch.configs import smoke_config
+    from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.launch.dryrun import abstract_params, shard_bytes
+    from repro_torch.launch.dryrun import (abstract_cache, abstract_params,
+                                           shard_bytes)
     from repro_torch.launch.serve import ServeConfig, serve
-    from repro_torch.launch.sharding import (force_fsdp, make_plan,
-                                             param_pspecs)
+    from repro_torch.launch.sharding import (cache_pspecs, force_fsdp,
+                                             make_plan, param_pspecs)
     from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.models.layers import model_dtype
     from repro_torch.models.model import Model
 
+    if case["kind"] in OPERATOR_CASES:
+        return OPERATOR_CASES[case["kind"]](case, mesh)
     cfg = smoke_config(case["arch"]).replace(
         max_seq=case["seq"], **case.get("replace", {}))
     plan = make_plan(cfg, mesh)
     if case["fsdp"]:
         plan = force_fsdp(plan)
+    meta = Model(cfg, device="meta")
     if case["kind"] == "serve":
-        out = serve(cfg, ServeConfig(batch=case["batch"],
-                                     prompt_len=case["seq"] - case["gen"],
-                                     gen_len=case["gen"], seed=3),
-                    device="cpu", mesh=mesh, plan=plan)
-        return {"tokens": out["tokens"], "logits": out["logits"]}
+        params = None
+        if case.get("params"):
+            with open(case["params"], "rb") as f:
+                params = lm_params_from_numpy(cfg, pickle.load(f), "cpu")
+        with gathered_sizes() as gathered:
+            out = serve(cfg, ServeConfig(batch=case["batch"],
+                                         prompt_len=case["seq"] - case["gen"],
+                                         gen_len=case["gen"], seed=3),
+                        device="cpu", params=params, mesh=mesh, plan=plan,
+                        cp=case.get("cp", False))
+        cache = abstract_cache(cfg, case["batch"], case["seq"])
+        return {"tokens": out["tokens"], "logits": out["logits"],
+                "largest_gather": max(gathered, default=0),
+                "param_bytes": out["param_bytes"],
+                "cache_bytes": out["cache_bytes"],
+                "shard_param_bytes": shard_bytes(
+                    abstract_params(meta, model_dtype(cfg)),
+                    param_pspecs(meta, mesh, plan), mesh),
+                "shard_cache_bytes": shard_bytes(
+                    cache, cache_pspecs(cache, mesh, case["batch"], plan),
+                    mesh) - 4}
+    if case["kind"] == "grads":
+        return mesh_case_grads(cfg, case, mesh, plan)
     tc = TrainConfig(steps=case["steps"], log_every=1,
                      ckpt_every=case.get("ckpt_every", 1000),
                      ckpt_dir=case.get("ckpt_dir", "unused_ckpt"), seed=5)
     dc = DataConfig(seq_len=case["seq"], global_batch=case["batch"],
-                    vocab=cfg.vocab, seed=7)
+                    vocab=cfg.vocab, seed=case.get("data_seed", 7))
     out = train(cfg, tc, data_cfg=dc, device="cpu", mesh=mesh, plan=plan)
-    meta = Model(cfg, device="meta")
     want = shard_bytes(abstract_params(meta, torch.float32),
                        param_pspecs(meta, mesh, plan), mesh)
     local = sum(p.numel() * p.element_size()
                 for p in out["model"].parameters())
     opt = sum(t.numel() * t.element_size()
               for part in ("m", "v") for t in out["opt_state"][part].values())
-    res = {"losses": out["losses"], "params": full_params(out["model"]),
+    res = {"losses": out["losses"],
+           "params": full_params(out["model"], out["run"]),
            "local_param_bytes": local, "shard_param_bytes": want,
            "opt_bytes": opt}
     if case.get("peak"):
@@ -133,20 +164,144 @@ def run_case(case: dict, mesh) -> dict:
     return res
 
 
-@torch.no_grad()
-def full_params(model) -> dict:
-    """A mesh run's parameters, full, on the host, by their unsharded
-    names: one leaf at a time, each read through its all-gather (every
-    rank calls this, in the same order)."""
-    from repro_torch.models.layers import Params
+@contextlib.contextmanager
+def gathered_sizes():
+    """The element counts of every all-gather's input over a group of the
+    mesh's axes on this rank inside the block
+    (``launch/tensor_parallel.py::all_gather``, which every gather of the
+    port goes through; the gather of the results' rows over the world is
+    not counted), a list."""
+    from repro_torch.launch import tensor_parallel as tpc
 
-    out = {}
-    for prefix, mod in model.named_modules():
-        if isinstance(mod, Params):
-            for name in mod.defs:
-                full = f"{prefix}.{name}" if prefix else name
-                out[full] = getattr(mod, name).detach().to("cpu", copy=True)
-    return out
+    sizes, real = [], tpc.all_gather
+
+    def spy(t, dim, group, n):
+        if group is not None:
+            sizes.append(t.numel())
+        return real(t, dim, group, n)
+    tpc.all_gather = spy
+    try:
+        yield sizes
+    finally:
+        tpc.all_gather = real
+
+
+def _axis(mesh):
+    """The world as one ``model`` group, every rule split over it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.tensor_parallel import ModelAxis
+
+    return ModelAxis(group=dist.group.WORLD, n=mesh.size,
+                     rank=dist.get_rank(), heads=True, kv=True, ff=True,
+                     vocab=True, experts=True, seq_cache=False, cp=True)
+
+
+def cp_case(case, mesh) -> dict:
+    """``models/attention.py::cp_attention`` on a pickled q, k, v."""
+    import pickle
+
+    from repro_torch.models.attention import cp_attention
+
+    with open(case["inputs"], "rb") as f:
+        q, k, v = (torch.from_numpy(t) for t in pickle.load(f).values())
+    return {"out": cp_attention(q, k, v, _axis(mesh), causal=True,
+                                window=case["window"])}
+
+
+def psum_case(case, mesh) -> dict:
+    """``optim/compression.py::compressed_psum`` over the world (a mesh
+    of ``pod`` alone), this rank's gradients its row of the case's."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.compression import compressed_psum
+
+    g = {"w": torch.tensor(case["grads"][dist.get_rank()],
+                           dtype=torch.float32)}
+    mean, err = compressed_psum(g, {"w": torch.zeros(3)}, dist.group.WORLD)
+    return {"mean": mean["w"], "error": err["w"]}
+
+
+def gradcheck_case(case, mesh) -> dict:
+    """``torch.autograd.gradcheck`` in float64 of the conjugate operators
+    of ``launch/tensor_parallel.py``, each in a function whose input and
+    output are the same on every rank (so all ranks perturb and read the
+    same global function in step): rank-dependent work between them."""
+    import torch.distributed as dist
+
+    tp = _axis(mesh)
+    r = dist.get_rank()
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(tp.n, 6, 6, dtype=torch.float64, generator=gen)
+
+    def copy_reduce(x):                     # column then row parallel
+        return tp.reduce(torch.tanh(tp.copy(x) @ w[r]) @ w[r].t())
+
+    def split_gather(x):                    # a slice each, gathered
+        return tp.gather(torch.sin(tp.slice(tp.copy(x), 0) @ w[r]), 0)
+
+    def gather_shards(x):                   # shards gathered, used split
+        full = tp.gather_shards(tp.slice(tp.copy(x), 1), 1)
+        return tp.reduce(torch.cos(full @ w[r]))
+
+    def exchange(x):                        # all-to-all there and back
+        y = tp.all_to_all(torch.sinh(tp.copy(x) * (r + 1)))
+        return tp.reduce(tp.all_to_all(y @ w[r]))
+
+    x = torch.randn(2 * tp.n, 6, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+    return {name: torch.autograd.gradcheck(fn, (x,), eps=1e-6, atol=1e-8)
+            for name, fn in (("copy_reduce", copy_reduce),
+                             ("split_gather", split_gather),
+                             ("gather_shards", gather_shards),
+                             ("exchange", exchange))}
+
+
+OPERATOR_CASES = {"cp": cp_case, "psum": psum_case,
+                  "gradcheck": gradcheck_case}
+
+
+def case_batch(cfg, case) -> dict:
+    """The first global batch of a case's data pipeline."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+
+    pipe = Pipeline(DataConfig(seq_len=case["seq"],
+                               global_batch=case["batch"], vocab=cfg.vocab,
+                               seed=case.get("data_seed", 7)))
+    try:
+        return next(iter(pipe))
+    finally:
+        pipe.close()
+
+
+def mesh_case_grads(cfg, case, mesh, plan) -> dict:
+    """The gradients of one step's loss on ``mesh`` (the weights of
+    ``Model.init_weights(5)``, the case's first batch), each gathered
+    whole, with the step's global nll and aux."""
+    from repro_torch.launch.distributed import MeshRun
+    from repro_torch.launch.steps import mesh_grads, train_params
+    from repro_torch.models.model import Model
+
+    run = MeshRun(cfg, mesh, plan, "cpu")
+    model = Model(cfg, device="meta", param_dtype=torch.float32)
+    run.place_init(model, 5)
+    params = train_params(model)
+    grads, nll, aux = mesh_grads(model, run, params, case_batch(cfg, case))
+    nll, aux = run.dp_sum(torch.stack([nll, aux])).tolist()
+    return {"nll": nll, "aux": aux,
+            "grads": {n: run.full_tensor(n, g).to("cpu", copy=True)
+                      for n, g in zip(params, grads)}}
+
+
+@torch.no_grad()
+def full_params(model, run) -> dict:
+    """A mesh run's parameters, full, on the host, by their unsharded
+    names: one leaf at a time, each gathered over the axes that split it
+    (every rank calls this, in the same order)."""
+    from repro_torch.launch.distributed import parameters_by_name
+
+    return {name: run.full_tensor(name, p).to("cpu", copy=True)
+            for name, p in parameters_by_name(model).items()}
 
 
 def checkpoint_peak(cfg, out: dict) -> int:
