@@ -255,7 +255,15 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                same launches (K6, K7); a checkpoint of the mesh run's
                state then raises the device's peak by less than the
                model's float32 parameters (one leaf gathered at a time).
-               The group is destroyed before the phase ends; the
+               Before the group, the traced half of the dry-run
+               (``dryrun.trace_cell``: the step run once on fake tensors
+               on a process group of fake ranks, started and destroyed)
+               on mesh (1, 1) for smollm-360m's train step (8 x 512,
+               ``"full"``) and recurrentgemma-2b's prefill (2 x 3,072);
+               inside the group each step on the card: the traced peak
+               within ``MESH_TRACE_TOL`` of the rise of
+               ``torch.cuda.max_memory_allocated()`` over the step, one
+               line each.  The group is destroyed before the phase ends; the
                ``kernels`` line gains each kernel's
                ``launches_in_mesh_phase``.
 10. model axis -- after phase 9: tensor parallelism over a mesh's
@@ -271,7 +279,15 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                with a query offset, K7's partial form) and trained 3 steps
                at 8 x 512, mamba2-2.7b served (40 heads a rank; K8) and
                moonshot-v1-16b-a3b served at 24 of its 48 layers (32
-               experts a rank, the dispatch by all-to-all; K6).  Each in
+               experts a rank, the dispatch by all-to-all; K6); and
+               recurrentgemma-2b again with Megatron-SP (``seq_shard``:
+               the stream between blocks split by sequence, K6, K7's
+               partial form and K9 on the gathered sequence), held to the
+               ranks' run without SP: float32 logits within 1e-5 of
+               their scale, bf16 tokens equal, the same launches, each
+               rank's peak beside the run without SP, and one prefill
+               and one decode step whose collectives by kind equal their
+               traces' on two fake ranks.  Each in
                float32 at cut depth (mamba2-2.7b at its full 64 layers,
                and there also the run without a mesh against itself
                through the plain versions): logits (or losses) within 1e-4 of
@@ -2872,6 +2888,26 @@ MESH_SERVE = ("recurrentgemma-2b",
 MESH_SERVE_KERNELS = ("flash_attention", "fused_block", "rglru_scan")
 MESH_TRAIN_STEPS = 3
 MESH_TRAIN_KERNELS = ("flash_attention", "fused_block")
+# the traced half of the dry-run on mesh (1, 1) against the card: one step
+# (``dryrun.cell_step``) of each, traced on a fake rank
+# (``dryrun.trace_cell``), then run on the card; the traced peak
+# (arguments + the most live temporaries, each storage rounded up to
+# 512 B as the caching allocator rounds a block) within MESH_TRACE_TOL of
+# the rise of ``torch.cuda.max_memory_allocated()`` over the step from
+# before its model was placed.  The trace sees every tensor the step's
+# ops make and frees each when its last reference goes, as the allocator
+# does; it does not see what is allocated inside a launch (cuBLAS's
+# workspace, made once a handle and stream and already there by phase 9)
+# nor a library's scratch inside an op (a sort's, a reduction's), which
+# the card's peak holds for the op's duration: a few MB at these shapes,
+# far under 10 % of steps of 1.5-12 GB.  The tolerance covers those with
+# room; a miscount of one saved activation a layer would exceed it.
+MESH_TRACES = {
+    "smollm-360m train": ("smollm-360m", ("smollm_train", 512, 8, "train"),
+                          "full"),
+    "recurrentgemma-2b prefill": ("recurrentgemma-2b",
+                                  ("serve", 3072, 2, "prefill"), "full")}
+MESH_TRACE_TOL = 0.10
 
 
 def allocator_bound(sizes) -> int:
@@ -3073,6 +3109,77 @@ def mesh_checkpoint_peak(cfg, out: dict) -> dict:
             "seconds": seconds}
 
 
+def mesh_traces() -> dict:
+    """Each of ``MESH_TRACES`` traced on a fake rank of mesh (1, 1)
+    (a process group of fake ranks started and destroyed by each)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    out = {}
+    for name, (arch, cell, remat) in MESH_TRACES.items():
+        out[name] = dryrun.trace_cell(arch, ShapeCell(*cell), remat=remat,
+                                      mesh=make_host_mesh())
+        require(not dist.is_initialized(),
+                f"the trace of {name}'s process group outlived it")
+    return out
+
+
+def mesh_trace_on_card(name: str, traced: dict) -> dict:
+    """``MESH_TRACES[name]``'s step on the card on mesh (1, 1) (inside
+    phase 9's process group of one): the rise of the allocated bytes over
+    placing its model and inputs, and of the peak over the step, against
+    the trace's arguments and peak."""
+    import torch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.distributed import MeshRun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+
+    arch, cell, remat = MESH_TRACES[name]
+    cfg, cell = dryrun.cell_config(arch, ShapeCell(*cell))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    run = MeshRun(cfg, make_host_mesh(), None, "cuda")
+    model = Model(cfg, device="meta", param_dtype=(
+        torch.float32 if cell.mode == "train" else None))
+    run.place_init(model, 0)
+    call, _args = dryrun.cell_step(model, run, cell, remat)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = launch_counts()
+    del out, call, _args, model, run
+    torch.cuda.empty_cache()
+    mem = traced["memory"]
+    err = (mem["peak_bytes"] - peak) / peak
+    require(abs(err) <= MESH_TRACE_TOL,
+            f"{name}: traced peak {mem['peak_bytes']} B, the card's "
+            f"{peak} B (off by {err:+.4f}, > {MESH_TRACE_TOL})")
+    return {"traced_step": name, "mesh": [1, 1], "remat": remat,
+            "traced_peak_bytes": mem["peak_bytes"],
+            "card_peak_rise_bytes": peak, "relative_error": err,
+            "tol": MESH_TRACE_TOL,
+            "traced_argument_bytes": mem["argument_bytes"],
+            "card_placed_bytes": placed,
+            "traced_temp_bytes": mem["temp_bytes"],
+            "card_temp_rise_bytes": peak - placed,
+            "traced_flops": traced["cost"]["flops"],
+            "traced_bytes_accessed": traced["cost"]["bytes_accessed"],
+            "trace_s": traced["trace_s"], "card_step_s": seconds,
+            "launches": launches}
+
+
 def mesh_phase() -> dict:
     """Phase 9 (see the module docstring)."""
     import numpy as np
@@ -3099,6 +3206,9 @@ def mesh_phase() -> dict:
     memory = {arch: mesh_memory(arch) for arch in MESH_MEMORY_ARCHS}
     for row in memory.values():
         log(f"  {json.dumps(row)}")
+    t_traces = time.perf_counter()
+    traced = mesh_traces()
+    traces_s = time.perf_counter() - t_traces
 
     store = fresh_dir("mesh_store")
     store.mkdir(parents=True)
@@ -3106,6 +3216,10 @@ def mesh_phase() -> dict:
         "nccl", store=dist.FileStore(str(store / "store"), 1), rank=0,
         world_size=1, device_id=torch.device("cuda", 0))
     try:
+        trace_rows = [mesh_trace_on_card(name, traced[name])
+                      for name in MESH_TRACES]
+        for row in trace_rows:
+            log(json.dumps(row))
         arch, shape = MESH_SERVE
         cfg = get_config(arch)
         sc = ServeConfig(**shape, seed=0)
@@ -3162,6 +3276,7 @@ def mesh_phase() -> dict:
         dist.destroy_process_group()
     require(not dist.is_initialized(), "the process group outlived phase 9")
     return {"seconds": time.perf_counter() - t0, "dryrun_s": dry_s,
+            "traces_s": traces_s, "traces": trace_rows,
             "total_memory_bytes": total_memory, "memory": memory,
             "serve": serve_row, "train": train_row}
 
@@ -3212,6 +3327,15 @@ MODEL_AXIS_SERVES = {
                   "gen_len": 4},
         "kernels": ("flash_attention",)},
 }
+# Megatron-SP (``seq_shard=True``): recurrentgemma-2b's serve and its
+# float32 check again with the stream split by sequence, each against the
+# same case on the ranks without SP: tokens equal, the float32 logits
+# within MODEL_AXIS_SP_TOL of their scale (two ranks: a reduce-scatter
+# adds the same two numbers as the all-reduce), the same launches; and
+# one prefill and one decode step at the serve's shape whose collectives
+# by kind equal the step's trace on fake ranks
+MODEL_AXIS_SP = {"arch": "recurrentgemma-2b", "tol": 1e-5,
+                 "step": {"batch": 2, "seq": 3072}}
 MODEL_AXIS_TRAIN = {"arch": "smollm-360m", "batch": 8, "seq": 512,
                     "steps": 3, "check": {"n_layers": 2, "batch": 2,
                                           "seq": 256},
@@ -3259,6 +3383,10 @@ def model_axis_jobs() -> list:
             if check and spec.get("fault"):
                 cases.append(dict(base, id=f"{arch}-fault",
                                   fault=spec["fault"]))
+            if arch == MODEL_AXIS_SP["arch"]:
+                tag = "f32" if check else "bf16"
+                cases.append(dict(base, seq_shard=True, sp_steps=not check,
+                                  id=f"{arch}-sp-{tag}"))
     t = MODEL_AXIS_TRAIN
     for check in (True, False):
         shape = t["check"] if check else t
@@ -3303,7 +3431,8 @@ def model_axis_run(case: dict, mesh=None) -> dict:
         seq = shape["prompt_len"] + shape["gen_len"]
         cfg = model_axis_cfg(case, seq)
         out = serve(cfg, ServeConfig(**shape, seed=0), mesh=mesh,
-                    cp=case["cp"] and mesh is not None)
+                    cp=case["cp"] and mesh is not None,
+                    seq_shard=case.get("seq_shard", False))
         res = {"tokens": out["tokens"].tolist(),
                "logits": out["logits"].float().cpu(),
                "prefill_s": out["prefill_s"], "decode_s": out["decode_s"]}
@@ -3325,6 +3454,8 @@ def model_axis_run(case: dict, mesh=None) -> dict:
                launches_by_form=launch_counts_by_form(),
                transport=dict(tpc.TRANSPORT),
                peak_bytes=torch.cuda.max_memory_allocated() - before)
+    if case.get("sp_steps"):
+        res["step_collectives"] = model_axis_sp_steps(cfg, mesh)
     if mesh is not None:
         plan = make_plan(cfg, mesh)
         meta = Model(cfg, device="meta")
@@ -3345,6 +3476,40 @@ def model_axis_run(case: dict, mesh=None) -> dict:
             mesh)
     del out
     return res
+
+
+def sp_step_cells():
+    """The prefill and decode cells of phase 10's SP steps."""
+    from repro_torch.configs.base import ShapeCell
+
+    st = MODEL_AXIS_SP["step"]
+    return {mode: ShapeCell(f"sp_{mode}", st["seq"], st["batch"], mode)
+            for mode in ("prefill", "decode")}
+
+
+def model_axis_sp_steps(cfg, mesh) -> dict:
+    """One prefill and one decode step (``dryrun.cell_step``) of ``cfg``
+    with Megatron-SP on this rank of ``mesh``: the collectives of each by
+    kind (``tensor_parallel.collectives_summary``)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import tensor_parallel as tpc
+    from repro_torch.launch.distributed import MeshRun
+    from repro_torch.models.model import Model
+
+    out = {}
+    for mode, cell in sp_step_cells().items():
+        run = MeshRun(cfg, mesh, None, "cuda", seq_shard=True)
+        model = Model(cfg.replace(max_seq=cell.seq_len), device="meta")
+        run.place_init(model, 0)
+        call, _args = dryrun.cell_step(model, run, cell)
+        tpc.reset_transport()
+        call()
+        torch.cuda.synchronize()
+        out[mode] = tpc.collectives_summary()
+        del run, model, call, _args
+        torch.cuda.empty_cache()
+    return out
 
 
 def model_axis_psum() -> dict:
@@ -3578,7 +3743,9 @@ def model_axis_phase() -> dict:
 
     cases = model_axis_jobs()
     alone = {c["id"]: model_axis_run(c) for c in cases
-             if c["kind"] != "psum" and not c.get("fault")}
+             if c["kind"] != "psum" and not c.get("fault")
+             and not c.get("seq_shard")}
+    sp_traced = model_axis_sp_traces()
     spread = {}
     for c in cases:
         if (c["kind"] == "serve" and not c.get("fault")
@@ -3645,6 +3812,11 @@ def model_axis_phase() -> dict:
                         f"formula by {g['max_abs_err']}")
             rows[cid] = got
             log(json.dumps({"model_axis": cid, "ranks": got}))
+            continue
+        if case.get("seq_shard"):
+            rows[cid] = model_axis_sp_row(case, got, [
+                r[cid.replace("-sp", "")] for r in ranks], sp_traced)
+            log(json.dumps(rows[cid]))
             continue
         want = alone[case["id"].replace("-fault", "-f32")]
         row = {"model_axis": cid, "kind": case["kind"], "arch": case["arch"],
@@ -3714,6 +3886,88 @@ def model_axis_phase() -> dict:
         log(json.dumps(row))
     return {"seconds": time.perf_counter() - t0, "ranks_s": ranks_s,
             "gloo_cuda": ranks[0]["gloo_cuda"], "rows": rows}
+
+
+def model_axis_sp_traces() -> dict:
+    """Phase 10's SP steps traced on two fake ranks of mesh (1, 2)
+    (``dryrun.trace_cell``, a process group of fake ranks started and
+    destroyed here): ``{mode: the trace}``."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    arch = MODEL_AXIS_SP["arch"]
+    out = {mode: dryrun.trace_cell(arch, cell, mesh=make_mesh(
+        MODEL_AXIS_DIMS), seq_shard=True)
+        for mode, cell in sp_step_cells().items()}
+    require(not dist.is_initialized(),
+            "a trace's process group of fake ranks outlived it")
+    return out
+
+
+def model_axis_sp_row(case: dict, got: list, base: list,
+                      traced: dict) -> dict:
+    """Phase 10's row of an SP case: each rank (``got``) against the
+    same case without SP on the same rank (``base``): tokens equal, the
+    float32 logits within ``MODEL_AXIS_SP["tol"]`` of their scale, the
+    same launches, each rank's peak with and without SP; for the bf16
+    serve, K6, K7's partial form and K9 launched on every rank, and its
+    steps' collectives by kind equal to their traces'."""
+    import numpy as np
+
+    cid = case["id"]
+    errs, agree = [], []
+    for rank, (g, b) in enumerate(zip(got, base)):
+        scale = float(b["logits"].abs().max())
+        errs.append(float((g["logits"] - b["logits"]).abs().max()) / scale)
+        agree.append(float(np.mean(np.asarray(g["tokens"])
+                                   == np.asarray(b["tokens"]))))
+        require(g["launches"] == b["launches"]
+                and g["launches_by_form"] == b["launches_by_form"],
+                f"{cid} rank {rank}: launches {g['launches_by_form']}, "
+                f"without SP {b['launches_by_form']}")
+        require(g["param_bytes"] == g["shard_param_bytes"]
+                and g["cache_bytes"] == g["shard_cache_bytes"],
+                f"{cid} rank {rank}: placed bytes off the dry-run's")
+    row = {"model_axis": cid, "kind": "serve", "arch": case["arch"],
+           "check": case["check"], "seq_shard": True, "rel_err": errs,
+           "token_agreement": agree}
+    if case["check"]:
+        require(max(errs) <= MODEL_AXIS_SP["tol"] and min(agree) == 1.0,
+                f"{cid}: SP off the ranks without it by {max(errs)} of "
+                f"the logits' scale (> {MODEL_AXIS_SP['tol']}), tokens "
+                f"agree {agree}")
+        row["tol"] = MODEL_AXIS_SP["tol"]
+    else:
+        require(min(agree) == 1.0,
+                f"{cid}: tokens agree {agree} with the ranks without SP")
+        for kernel in ("flash_attention", "fused_block", "rglru_scan"):
+            require(all(g["launches"][kernel] > 0 for g in got),
+                    f"{cid}: a rank launched {kernel} no time")
+        require(all(g["launches_by_form"]["fused_block"]["partial"] > 0
+                    for g in got), f"{cid}: K7's partial form not launched")
+        for mode, tr in traced.items():
+            real = got[0]["step_collectives"][mode]
+            require(real == tr["collectives"],
+                    f"{cid}: the {mode} step's collectives {real}, its "
+                    f"trace's {tr['collectives']}")
+            if mode == "prefill":
+                require(real["dynamic_count"].get("reduce-scatter", 0) > 0
+                        and "all-reduce" not in real["dynamic_count"],
+                        f"{cid}: SP's prefill made {real['dynamic_count']}")
+        row["step_collectives"] = {
+            mode: {"real_rank0": got[0]["step_collectives"][mode],
+                   "traced": tr["collectives"], "equal": True,
+                   "trace_s": tr["trace_s"],
+                   "traced_peak_bytes": tr["memory"]["peak_bytes"]}
+            for mode, tr in traced.items()}
+    row.update({k: [g[k] for g in got] for k in (
+        "wall_s", "launches", "launches_by_variant", "launches_by_form",
+        "transport", "peak_bytes", "param_bytes", "prefill_s",
+        "decode_s", "cache_bytes")})
+    row["peak_bytes_without_sp"] = [b["peak_bytes"] for b in base]
+    row["transport_without_sp"] = [b["transport"] for b in base]
+    return row
 
 
 # ---------------------------------------------------------------- main path

@@ -25,7 +25,9 @@ and on the CPU alike.
 """
 import contextlib
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.autograd import (FlashAttention, FusedBlock,
                                           RGLRUScan, SSDScan)
@@ -95,6 +97,93 @@ _LIB.impl("fused_block", _fused_block, "CompositeExplicitAutograd")
 _LIB.impl("flash_attention", _flash_attention, "CompositeExplicitAutograd")
 _LIB.impl("ssd_scan", _ssd_scan, "CompositeExplicitAutograd")
 _LIB.impl("rglru_scan", _rglru_scan, "CompositeExplicitAutograd")
+
+
+# ------------------------------------------- fake versions and FLOP counts
+# What lets a step be traced on fake tensors (``launch/dryrun.py::
+# trace_cell``, under ``FakeTensorMode``, where ``x.is_cuda`` holds without
+# a card): each operator's output shapes and types without running it, and
+# the FLOPs of its own work for ``torch.utils.flop_counter.FlopCounterMode``
+# (so the plain version's steps are never what is counted), each counted
+# as ``utils/costmodel.py`` counts the same layer.
+def _fused_block_fake(x, scale, w_gate, w_up, w_down, post_scale, *, act,
+                      gated, sandwich, partial=False):
+    return x.new_empty((x.shape[0], w_down.shape[1]),
+                       dtype=torch.float32 if partial else x.dtype)
+
+
+def _flash_attention_fake(q, k, v, *, causal, window, softcap, q_offset=0):
+    return q.new_empty(q.shape)
+
+
+def _ssd_scan_fake(x, dt, A, Bm, Cm, D, h0, *, chunk):
+    b, _s, h, p = x.shape
+    return x.new_empty(x.shape), x.new_empty((b, h, p, Bm.shape[-1]),
+                                             dtype=torch.float32)
+
+
+def _rglru_scan_fake(a, b):
+    return a.new_empty(a.shape, dtype=torch.float32)
+
+
+for _name, _fake in (("fused_block", _fused_block_fake),
+                     ("flash_attention", _flash_attention_fake),
+                     ("ssd_scan", _ssd_scan_fake),
+                     ("rglru_scan", _rglru_scan_fake)):
+    torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
+
+
+def attention_pairs(s: int, t: int, *, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
+    """The (query, key) pairs K6 attends: queries at positions
+    ``q_offset + i`` (i < s), keys at ``j < t``, each pair kept by the
+    causal mask (``j <= position``) and the sliding window (``position -
+    j < window``, 0 for none)."""
+    pos = np.arange(s, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(s, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, *, causal, window,
+                           softcap, q_offset=0, **_kw) -> int:
+    """``Q K^T`` and ``P V`` over the pairs the masks keep, 2 hd each:
+    ``costmodel._attn_layer_flops``'s ``2 * 2 * S * eff * nh * hd``, with
+    the pairs counted exactly (causal: ``S (S + 1) / 2``, its
+    ``eff = (S + 1) / 2``)."""
+    b, s, h, hd = q_shape
+    return 4 * b * h * hd * attention_pairs(
+        s, k_shape[1], causal=causal, window=window, q_offset=q_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_block)
+def _fused_block_flops(x_shape, scale_shape, w_gate_shape, w_up_shape,
+                       w_down_shape, post_scale_shape, *, gated, **_kw
+                       ) -> int:
+    """K7's products, ``2 M d F`` each, three gated and two not
+    (``costmodel._ffn_flops``); the partial form's ``F`` is the rank's."""
+    m, d = x_shape
+    return (3 if gated else 2) * 2 * m * d * w_up_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_scan_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, d_shape,
+                    h0_shape, *, chunk, **_kw) -> int:
+    """``costmodel._ssm_layer_flops``'s scan: ``S (2 Q g n + 2 Q h p + 8 h
+    p n)`` a sequence, Q the chunk."""
+    b, s, h, p = x_shape
+    g, n = b_shape[2], b_shape[3]
+    return b * s * (2 * chunk * g * n + 2 * chunk * h * p + 8 * h * p * n)
+
+
+@register_flop_formula(torch.ops.repro_torch.rglru_scan)
+def _rglru_scan_flops(a_shape, b_shape, **_kw) -> int:
+    """``costmodel._rglru_layer_flops``'s scan: ``8 S W`` a sequence."""
+    b, s, w = a_shape
+    return 8 * b * s * w
+
+
 fused_block_op = torch.ops.repro_torch.fused_block.default
 flash_attention_op = torch.ops.repro_torch.flash_attention.default
 ssd_scan_op = torch.ops.repro_torch.ssd_scan.default

@@ -46,7 +46,16 @@ the tensors' own device.
   writes the entries of its slots and attends over them, and the step's
   partial softmaxes are merged by log-sum-exp (``models/attention.py``).
   ``cp=True`` runs a prefill's attention context-parallel where the heads
-  are not split.
+  are not split.  ``seq_shard=True`` (under a ``tp`` plan; ignored
+  under a hybrid one, as the JAX package's ``dryrun.run_cell`` ignores
+  it) is Megatron-SP, the JAX package's ``set_mesh_axes(...,
+  seq_shard=True)``: the residual stream between blocks is split by
+  sequence over ``model``, so each block enters its split work through
+  an all-gather of the sequence and leaves it through a reduce-scatter
+  where it would all-reduce (``models/layers.py::block_in`` /
+  ``block_out``); a decode step, and a sequence that the axis does not
+  divide, keep the replicated stream.  The results are the same: only
+  where the sums are made moves.
 * **Gradients.** Each rank's loss is weighted by its share of the
   batch's counted labels (and the MoE's aux loss by its share of the row
   shards), so the gradients summed over the ranks of other rows are the
@@ -64,8 +73,9 @@ the tensors' own device.
 
 There is no global mesh state (the JAX package's ``set_mesh_axes``): the
 run is passed explicitly, the model holds its ``tp``, and the
-reference's ``shard_hidden`` is the identity on a rank's local rows.  The
-Megatron-SP activation layout (``seq_shard``) is not ported (ROADMAP).
+reference's ``shard_hidden`` is the identity on a rank's local rows
+(with ``seq_shard``, the split of the stream by sequence that the
+model's ``tp.seq`` carries out).
 """
 from __future__ import annotations
 
@@ -127,7 +137,7 @@ class MeshRun:
     same order."""
 
     def __init__(self, cfg, mesh: Mesh, plan: ShardingPlan | None,
-                 device, cp: bool = False):
+                 device, cp: bool = False, seq_shard: bool = False):
         if dist.get_world_size() != mesh.size:
             raise ValueError(f"mesh {mesh.dims} needs {mesh.size} ranks, the "
                              f"process group has {dist.get_world_size()}")
@@ -148,7 +158,8 @@ class MeshRun:
             kv=rules.get("kv") == "model", ff=rules.get("ff") == "model",
             vocab=rules.get("vocab") == "model",
             experts=rules.get("experts") == "model",
-            seq_cache=rules.get("kv") != "model", cp=cp)
+            seq_cache=rules.get("kv") != "model", cp=cp,
+            seq=seq_shard and self.plan.kind == "tp")
 
     def _axis_groups(self) -> dict:
         """``{axis: the group of this rank's line along it}``: every rank

@@ -18,7 +18,9 @@ gathered layer by layer, the ``model`` axis's heads, ``ff`` slices,
 widths, experts and vocabulary run split, a cache that keeps its kv
 heads whole split by sequence (``launch/distributed.py``), and with
 ``cp=True`` the prefill's attention context-parallel where the heads are
-not split; every rank returns the whole batch's tokens and logits.  Either way:
+not split, with ``seq_shard=True`` the stream between blocks split by
+sequence (Megatron-SP, ``MeshRun``); every rank returns the whole
+batch's tokens and logits.  Either way:
 the prompts (``numpy.random.default_rng(seed)``, as there), a prefill of
 ``prompt_len`` tokens (``launch/steps.py::make_prefill_step``), then
 ``gen_len - 1`` greedy decode steps (``make_decode_step``).  Every other
@@ -60,7 +62,8 @@ class ServeConfig:
 
 def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
           params: dict | None = None, mesh: Mesh | None = None,
-          plan: ShardingPlan | None = None, cp: bool = False) -> dict:
+          plan: ShardingPlan | None = None, cp: bool = False,
+          seq_shard: bool = False) -> dict:
     """Serve ``sc.batch`` random prompts.  ``params`` is a ``state_dict``
     of the model (``convert.py::lm_params_from_numpy``), whose tensors the
     model then holds as they are (moved to ``device`` or cast to the
@@ -78,7 +81,8 @@ def serve(cfg: ModelConfig, sc: ServeConfig, device="cuda",
         raise RuntimeError("serve: no CUDA device (torch.cuda.is_available() "
                            "is False); pass device='cpu' to serve on the "
                            "host")
-    run = None if mesh is None else MeshRun(cfg, mesh, plan, device, cp=cp)
+    run = None if mesh is None else MeshRun(cfg, mesh, plan, device, cp=cp,
+                                            seq_shard=seq_shard)
     max_len = sc.prompt_len + sc.gen_len
     run_cfg = cfg.replace(max_seq=max_len)
     rows = slice(0, sc.batch)

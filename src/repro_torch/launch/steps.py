@@ -73,12 +73,17 @@ def mesh_grads(model, run, params: dict, batch: dict, remat: str = "full"):
     labels = torch.as_tensor(batch["labels"])
     rows = run.rows(labels.shape[0])
     copies = run.replicas(labels.shape[0])
-    counted = max(int((labels != -1).sum()), 1)
-    w_nll = int((labels[rows] != -1).sum()) / counted / copies
+    # the share is a tensor where the labels are (no read back to the
+    # host, so a step traced on fake tensors runs it too), in float64
+    # and rounded once, as the host's division was
+    counted = torch.clamp((labels != -1).sum(), min=1).to(torch.float64)
+    w_nll = (labels[rows] != -1).sum().to(torch.float64) / counted / copies
     w_aux = 1.0 / (run.row_shards(labels.shape[0]) * copies)
     _, metrics = model.loss({k: v[rows] for k, v in batch.items()},
                             remat=remat)
-    nll, aux = metrics["nll"] * w_nll, metrics["aux"] * w_aux
+    nll = metrics["nll"] * w_nll.to(device=metrics["nll"].device,
+                                    dtype=metrics["nll"].dtype)
+    aux = metrics["aux"] * w_aux
     grads = run.reduce_grads(list(params), list(torch.autograd.grad(
         nll + aux, list(params.values()))))
     return grads, nll.detach(), aux.detach()

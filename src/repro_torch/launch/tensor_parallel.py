@@ -14,8 +14,13 @@ explicitly, as ``launch/distributed.py::MeshRun`` does):
   axis is 1, and gloo would take each such copy through the host).  Every
   call's host seconds, bytes and calls add up in ``TRANSPORT`` (read and
   reset by the caller), so that the wall of a run across ranks can be
-  split into the collectives and the rest.  The arithmetic stays where the
-  tensors are.
+  split into the collectives and the rest; ``TRANSPORT["by_kind"]`` keeps
+  the calls and bytes of each kind of collective (``KINDS``), the bytes
+  counted as the JAX package's ``utils/hlo.py`` counts a compiled
+  program's, as the *result's* bytes (an all-gather's whole output, a
+  reduce-scatter's shard), beside the input's.  A step traced on fake
+  ranks (``launch/dryrun.py::trace_cell``) reads its collectives from
+  there.  The arithmetic stays where the tensors are.
 * **Conjugate operators** (``torch.autograd.Function``s, Megatron's
   ``f`` / ``g`` pairs), through which a layer enters and leaves the part
   of its work that is split over ``model``:
@@ -32,7 +37,16 @@ explicitly, as ``launch/distributed.py::MeshRun`` does):
   - :class:`GatherShards`: forward all-gather, backward reduce-scatter:
     shards gathered for work that is itself split over the ranks (FSDP's
     weights over ``data``, the RG-LRU's gate blocks and the SSM's B / C
-    over ``model``), whose gradient is a part a rank;
+    over ``model``, and under Megatron-SP a block's sequence shards at its
+    entry), whose gradient is a part a rank;
+  - :class:`ReduceScatterToModel`: forward reduce-scatter, backward
+    all-gather: the conjugate of ``GatherShards``, through which a block
+    leaves its split work under Megatron-SP (the ranks' partial results
+    summed, each rank keeping its shard of the sequence);
+  - :class:`ScatterToModel`: forward this rank's slice, backward
+    all-gather: a tensor that is the same on all ranks (the embedding of a
+    vocabulary that is not split, an encoder's input) cut into the
+    sequence shards of Megatron-SP;
   - :class:`AllToAll`: forward the exchange of equal slices, backward
     the reverse exchange.
 
@@ -43,41 +57,70 @@ whose ``model`` axis is 1, and without a mesh).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
 
-TRANSPORT = {"calls": 0, "bytes": 0, "seconds": 0.0}
+# the kinds of collective, by the names the JAX package's HLO gives them
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "broadcast")
+TRANSPORT: dict = {}
 
 
 def reset_transport() -> None:
-    """Set ``TRANSPORT`` to 0."""
-    TRANSPORT.update(calls=0, bytes=0, seconds=0.0)
+    """Set ``TRANSPORT`` to 0: ``calls``, ``bytes`` (the inputs'),
+    ``seconds`` (host), and ``by_kind``: ``{kind: {"calls", "bytes" (the
+    results'), "input_bytes"}}`` for every kind of ``KINDS``."""
+    TRANSPORT.update(calls=0, bytes=0, seconds=0.0, by_kind={
+        k: {"calls": 0, "bytes": 0, "input_bytes": 0} for k in KINDS})
 
 
-def _timed(t: torch.Tensor, fn):
-    """``fn()``, its host seconds and ``t``'s bytes added to
-    ``TRANSPORT``."""
+reset_transport()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _timed(kind: str, t: torch.Tensor, out: torch.Tensor, fn):
+    """``fn()``, its host seconds, ``t``'s bytes (the input) and
+    ``out``'s (the result) added to ``TRANSPORT`` under ``kind``."""
     t0 = time.perf_counter()
-    out = fn()
+    fn()
     TRANSPORT["seconds"] += time.perf_counter() - t0
     TRANSPORT["calls"] += 1
-    TRANSPORT["bytes"] += t.numel() * t.element_size()
+    TRANSPORT["bytes"] += _nbytes(t)
+    row = TRANSPORT["by_kind"][kind]
+    row["calls"] += 1
+    row["bytes"] += _nbytes(out)
+    row["input_bytes"] += _nbytes(t)
     return out
+
+
+def collectives_summary(transport: dict | None = None) -> dict:
+    """The collectives of ``transport`` (default ``TRANSPORT``) with the
+    keys of the JAX package's ``CollectiveReport.summary()``:
+    ``total_bytes``, ``bytes`` and ``dynamic_count`` by kind (the kinds
+    that made a call)."""
+    rows = (transport or TRANSPORT)["by_kind"]
+    used = {k: r for k, r in rows.items() if r["calls"]}
+    return {"total_bytes": sum(r["bytes"] for r in used.values()),
+            "bytes": {k: r["bytes"] for k, r in used.items()},
+            "dynamic_count": {k: r["calls"] for k, r in used.items()}}
 
 
 # ------------------------------------------------------------ transport
 def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM
                ) -> torch.Tensor:
     """``t`` reduced over ``group``, in place; returns ``t``."""
-    _timed(t, lambda: dist.all_reduce(t, op=op, group=group))
-    return t
+    return _timed("all-reduce", t, t,
+                  lambda: dist.all_reduce(t, op=op, group=group))
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
-    _timed(t, lambda: dist.broadcast(t, src, group=group))
-    return t
+    return _timed("broadcast", t, t,
+                  lambda: dist.broadcast(t, src, group=group))
 
 
 def all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -87,7 +130,8 @@ def all_gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     part = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * part.shape[0], *part.shape[1:]),
                       dtype=part.dtype, device=part.device)
-    _timed(part, lambda: dist.all_gather_into_tensor(out, part, group=group))
+    _timed("all-gather", part, out,
+           lambda: dist.all_gather_into_tensor(out, part, group=group))
     return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -99,7 +143,8 @@ def reduce_scatter(t: torch.Tensor, dim: int, group, n: int
     full = t.movedim(dim, 0).contiguous()
     out = torch.empty((full.shape[0] // n, *full.shape[1:]),
                       dtype=full.dtype, device=full.device)
-    _timed(full, lambda: dist.reduce_scatter_tensor(out, full, group=group))
+    _timed("reduce-scatter", full, out,
+           lambda: dist.reduce_scatter_tensor(out, full, group=group))
     return out.movedim(0, dim).contiguous() if dim else out
 
 
@@ -108,8 +153,8 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     ``i``; the result's slice ``j`` from rank ``j``."""
     t = t.contiguous()
     out = torch.empty_like(t)
-    _timed(t, lambda: dist.all_to_all_single(out, t, group=group))
-    return out
+    return _timed("all-to-all", t, out,
+                  lambda: dist.all_to_all_single(out, t, group=group))
 
 
 def all_gather_list(t: torch.Tensor, group, n: int) -> list:
@@ -163,6 +208,30 @@ class GatherShards(torch.autograd.Function):
         return reduce_scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
+class ReduceScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return reduce_scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        k = x.shape[dim] // n
+        return x.narrow(dim, rank * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None,
+                None)
+
+
 class AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -183,7 +252,15 @@ class ModelAxis:
     the experts.  ``seq_cache``: kv heads stay whole and ``model`` is not
     a batch axis, so a decode cache whose length ``n`` divides is split
     by sequence (``launch/sharding.py::cache_pspecs``).  ``cp``:
-    context-parallel prefill attention where the heads are not split."""
+    context-parallel prefill attention where the heads are not split.
+
+    ``seq``: Megatron-SP, the JAX package's ``set_mesh_axes(...,
+    seq_shard=True)``: the residual stream between blocks is split by
+    sequence over the ranks, ``[B, S / n, d]`` on each.  A run sets it for
+    the whole model; the model narrows it to each stream it runs
+    (:meth:`on_sequence`: a sequence of one token, or one that ``n`` does
+    not divide, stays whole, as XLA leaves such a dimension), so inside a
+    block ``tp.seq`` says that the block's input and output are shards."""
     group: object
     n: int
     rank: int
@@ -194,6 +271,14 @@ class ModelAxis:
     experts: bool
     seq_cache: bool
     cp: bool
+    seq: bool = False
+
+    def on_sequence(self, length: int) -> "ModelAxis":
+        """This axis for a stream of ``length`` positions: ``seq`` kept
+        where the ranks split the length into equal shards of it, else
+        off."""
+        keep = self.seq and length > 1 and length % self.n == 0
+        return self if keep == self.seq else replace(self, seq=keep)
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
         return CopyToModel.apply(x, self.group)
@@ -207,6 +292,14 @@ class ModelAxis:
 
     def gather_shards(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return GatherShards.apply(x, dim % x.ndim, self.group, self.n)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return ReduceScatterToModel.apply(x, dim % x.ndim, self.group,
+                                          self.n)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return ScatterToModel.apply(x, dim % x.ndim, self.group, self.n,
+                                    self.rank)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         return AllToAll.apply(x, self.group)

@@ -64,8 +64,8 @@ class TrainConfig:
 
 def train(cfg: ModelConfig, tc: TrainConfig,
           data_cfg: DataConfig | None = None, device="cuda",
-          mesh: Mesh | None = None, plan: ShardingPlan | None = None
-          ) -> dict:
+          mesh: Mesh | None = None, plan: ShardingPlan | None = None,
+          seq_shard: bool = False) -> dict:
     """Train from the newest checkpoint in ``tc.ckpt_dir`` (or from
     scratch) up to step ``tc.steps``.  Returns the logged ``losses``
     ``[(step, loss)]``, each step's seconds (``step_s``), the
@@ -73,13 +73,14 @@ def train(cfg: ModelConfig, tc: TrainConfig,
     ``opt_state``.  With ``mesh`` (and ``plan``, default ``make_plan`` of
     the config on it) the model and state are this rank's shards, and
     ``run`` is the ``MeshRun`` they belong to (:func:`checkpoint_tree`
-    gathers them)."""
+    gathers them); ``seq_shard``: Megatron-SP (``MeshRun``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device (torch.cuda.is_available() "
                            "is False); pass device='cpu' to train on the "
                            "host")
-    run = None if mesh is None else MeshRun(cfg, mesh, plan, device)
+    run = None if mesh is None else MeshRun(cfg, mesh, plan, device,
+                                            seq_shard=seq_shard)
     model = Model(cfg, device=device if run is None else "meta",
                   param_dtype=torch.float32)
     if run is None:

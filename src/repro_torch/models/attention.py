@@ -20,6 +20,7 @@ partial softmaxes over their own slots by log-sum-exp.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -154,15 +155,17 @@ def cache_update(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
         v_new = v_new[:, -max_len:]
         pos = pos + (s_new - max_len)
         s_new = max_len
-    idx = pos + torch.arange(s_new)
+    # host arithmetic in numpy: no tensor of a shape that depends on
+    # values, so a step traced on fake tensors runs it too
+    idx = pos + np.arange(s_new)
     if ring:
         idx = idx % max_len
     if n > 1:
         own = (idx >= r * local) & (idx < (r + 1) * local)
-        src = torch.arange(s_new)[own].to(k_new.device)
+        src = torch.from_numpy(np.nonzero(own)[0]).to(k_new.device)
         idx = idx[own] - r * local
         k_new, v_new = k_new[:, src], v_new[:, src]
-    idx = idx.to(cache["k"].device)
+    idx = torch.from_numpy(idx).to(cache["k"].device)
     cache["k"][:, idx] = k_new.to(cache["k"].dtype)
     cache["v"][:, idx] = v_new.to(cache["v"].dtype)
     return cache

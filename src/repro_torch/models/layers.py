@@ -138,6 +138,37 @@ def grad_fence(x: torch.Tensor) -> torch.Tensor:
     return _GradFence.apply(x)
 
 
+# --------------------------------------------------- a block's split work
+def block_in(h: torch.Tensor, tp, split: bool) -> torch.Tensor:
+    """``h`` as the input of a block's work split over ``tp``'s ranks
+    (``split``): entered through ``tp.copy`` (its gradient, a part a rank,
+    summed); under Megatron-SP (``tp.seq``) the ranks' sequence shards
+    gathered instead, whose backward reduce-scatters the parts.  Work that
+    is not split takes ``h`` as it is (under SP it has no path: the plans
+    that split the stream split every block)."""
+    if tp is not None and tp.seq:
+        if not split:
+            raise ValueError("Megatron-SP needs every block's work split "
+                             "over the model axis (a tp plan)")
+        return tp.gather_shards(h, 1)
+    return tp.copy(h) if split else h
+
+
+def block_out(y: torch.Tensor, tp, dtype) -> torch.Tensor:
+    """The ranks' partial float32 results ``y`` summed, in ``dtype``: an
+    all-reduce, or under Megatron-SP a reduce-scatter that leaves each
+    rank its shard of the sequence (dimension 1)."""
+    y = tp.reduce_scatter(y, 1) if tp.seq else tp.reduce(y)
+    return y.to(dtype)
+
+
+def on_shard(t: torch.Tensor, tp) -> torch.Tensor:
+    """A parameter used on this rank's sequence shard under Megatron-SP
+    (a norm's scale, a gate): entered through ``tp.copy``, so that its
+    gradient sums the shards'.  Without SP, ``t``."""
+    return tp.copy(t) if tp is not None and tp.seq else t
+
+
 # ------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -205,27 +236,47 @@ def embed_lookup(embed: Params, tokens: torch.Tensor, cfg,
     package's numpy scalar makes it), in the model's type.  With the
     vocabulary split over ``tp``'s ranks: each rank looks up the tokens
     of its rows of the table (zeros for the others) and the ranks' rows
-    are summed, in float32, exactly."""
+    are summed, in float32, exactly.  Under Megatron-SP (``tp.seq``) the
+    result is this rank's shard of the sequence: the sum a
+    reduce-scatter, or a table that is not split looked up whole and
+    cut (``tp.scatter``)."""
     if tp is None or not tp.vocab:
         x = embed.tok[tokens].to(torch.float32)
+        if tp is not None and tp.seq:
+            x = tp.scatter(x, 1)
     else:
         rows = embed.tok.shape[0]
         local = tokens.long() - tp.rank * rows
         own = (local >= 0) & (local < rows)
         x = embed.tok[local.clamp(0, rows - 1)].to(torch.float32)
-        x = tp.reduce(torch.where(own[..., None], x, torch.zeros_like(x)))
+        x = torch.where(own[..., None], x, torch.zeros_like(x))
+        x = tp.reduce_scatter(x, 1) if tp.seq else tp.reduce(x)
     return (x * math.sqrt(cfg.d_model)).to(model_dtype(cfg))
 
 
+def gather_sequence(x: torch.Tensor, tp) -> torch.Tensor:
+    """Under Megatron-SP, the ranks' sequence shards of the stream
+    gathered for the unembedding: by ``tp.gather_shards`` where the
+    vocabulary is split (the column-parallel product leaves each rank a
+    part of the gradient), else by ``tp.gather`` (every rank computes
+    the same whole logits)."""
+    if tp is None or not tp.seq:
+        return x
+    return tp.gather_shards(x, 1) if tp.vocab else tp.gather(x, 1)
+
+
 def unembed(embed: Params, x: torch.Tensor, cfg, tp=None,
-            gather: bool = True) -> torch.Tensor:
+            gather: bool = True, enter: bool = True) -> torch.Tensor:
     """The float32 logits of ``x``.  With the vocabulary split over
     ``tp``'s ranks the product is column-parallel: each rank computes the
     logits of its slice of the vocabulary, gathered whole (in vocabulary
     order, so ``argmax`` keeps its first-occurrence rule) unless
-    ``gather=False`` (the loss, :func:`vocab_parallel_nll`)."""
+    ``gather=False`` (the loss, :func:`vocab_parallel_nll`).  ``x``
+    enters the split product through ``tp.copy`` unless ``enter=False``
+    (a sequence gathered by :func:`gather_sequence`, whose backward
+    already sums the ranks' parts)."""
     split = tp is not None and tp.vocab
-    if split:
+    if split and enter:
         x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = x @ embed.tok.to(x.dtype).t()
@@ -277,7 +328,10 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     of ``w_gate`` / ``w_up`` and rows of ``w_down``), K7 runs in its
     partial form on the rank's slice; the float32 partial sums are
     all-reduced, then the sandwich norm (not linear) and the residual are
-    applied in float32, as K7 applies them."""
+    applied in float32, as K7 applies them.  Under Megatron-SP
+    (``tp.seq``: ``x`` is this rank's sequence shard) K7 runs on the
+    gathered sequence and the partial sums are reduce-scattered back to
+    the shard, where the norm and the residual are applied."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
 
@@ -291,12 +345,15 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg, tp=None) -> torch.Tensor:
             p.get("post_norm"), act=cfg.act, gated=cfg.mlp_gated,
             sandwich=cfg.sandwich_norm)
         return y.reshape(shape)
-    y = tp.reduce(ops.fused_block(
-        tp.copy(x2), tp.copy(p.pre_norm), w("w_gate"), w("w_up"),
-        w("w_down"), None, act=cfg.act, gated=cfg.mlp_gated, partial=True))
+    xin = block_in(x, tp, True)
+    y = ops.fused_block(
+        xin.reshape(-1, shape[-1]).contiguous(), tp.copy(p.pre_norm),
+        w("w_gate"), w("w_up"), w("w_down"), None, act=cfg.act,
+        gated=cfg.mlp_gated, partial=True)
+    y = block_out(y.reshape(*xin.shape[:-1], -1), tp, torch.float32)
     if cfg.sandwich_norm:
-        y = rms_norm(y, p.post_norm)
-    return (x2.to(torch.float32) + y).to(x.dtype).reshape(shape)
+        y = rms_norm(y, on_shard(p.post_norm, tp))
+    return (x.to(torch.float32) + y).to(x.dtype)
 
 
 def mlp_unfused(x, scale, w_gate, w_up, w_down, post_scale=None, *,

@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import D, Params, model_dtype, rms_norm
+from repro_torch.models.layers import (D, Params, block_in, block_out,
+                                       model_dtype, on_shard, rms_norm)
 
 
 def ssm_defs(cfg) -> dict:
@@ -69,21 +70,23 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
               tp=None):
     """Full Mamba-2 block with residual.  state:
       {"convx": [B,K-1,di], "convbc": [B,K-1,2gn], "ssd": [B,h,p,n]}
-    (di, 2gn and h the rank's under ``tp``).  Returns (y, new_state)."""
+    (di, 2gn and h the rank's under ``tp``).  Under Megatron-SP
+    (``tp.seq``) ``x`` is this rank's sequence shard: normed there,
+    gathered for the block and its output reduce-scattered back.
+    Returns (y, new_state)."""
     f32 = torch.float32
     dtype = model_dtype(cfg)
-    B_, S, _ = x.shape
     split = tp is not None and tp.ff
     k = tp.n if split else 1
     di, g, n = cfg.d_inner // k, cfg.ssm_ngroups, cfg.ssm_state
     nh, hp = cfg.ssm_nheads // k, cfg.ssm_headdim
 
-    h = rms_norm(x, p.pre_norm)
-    hh = tp.copy(h) if split else h
-    z = hh @ p.in_z.to(h.dtype)
-    xin = hh @ p.in_x.to(h.dtype)
-    bc = hh @ p.in_bc.to(h.dtype)
-    dt = hh @ p.in_dt.to(h.dtype)
+    hh = block_in(rms_norm(x, on_shard(p.pre_norm, tp)), tp, split)
+    B_, S, _ = hh.shape
+    z = hh @ p.in_z.to(hh.dtype)
+    xin = hh @ p.in_x.to(hh.dtype)
+    bc = hh @ p.in_bc.to(hh.dtype)
+    dt = hh @ p.in_dt.to(hh.dtype)
     cx = None if state is None else state["convx"]
     cbc = None if state is None else state["convbc"]
     xin, new_convx = causal_conv(xin, p.conv_x_w.to(dtype),
@@ -132,7 +135,7 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
          else _split_rms_norm(y, p.gate_norm, tp, cfg.d_inner))
     out = y @ p.out_proj.to(y.dtype)
     if split:
-        out = tp.reduce(out.to(f32)).to(x.dtype)
+        out = block_out(out.to(f32), tp, x.dtype)
     new_state = {"convx": new_convx, "convbc": new_convbc, "ssd": ssd_state}
     return x + out, new_state
 

@@ -30,7 +30,11 @@ loss adds the MoE layers' aux loss.  A model placed on a mesh whose
 ``model`` axis is above 1 holds the axis as ``tp``
 (``launch/distributed.py::MeshRun.place``) and passes it to every block;
 its logits come back whole, and its loss is the vocabulary-parallel cross
-entropy.
+entropy.  Under Megatron-SP (the axis's ``seq``, ``MeshRun(...,
+seq_shard=True)``) the stream between the embedding and the final norm
+is each rank's shard of the sequence (the audio encoder's too, its
+output gathered whole for the cross-attention); the loss gathers the
+sequence before the unembedding, a prefill only the last positions.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (D, Params, embed_defs, embed_lookup,
-                                       init_params, model_dtype,
+                                       gather_sequence, init_params,
+                                       model_dtype, on_shard,
                                        partition_specs, rms_norm, unembed,
                                        vocab_parallel_nll)
 from repro_torch.models.transformer import (apply_stack, build_stack,
@@ -119,11 +124,20 @@ class Model(Params):
         if cfg.family == "audio":
             frames = torch.as_tensor(batch["frames"],
                                      device=self.device).to(dtype)
-            pe = torch.from_numpy(_sinusoidal(frames.shape[1], cfg.d_model))
-            x = frames + pe.to(device=self.device, dtype=dtype)
+            # the table reaches the device by a copy into a device tensor
+            # (a host tensor's ``.to(device)`` has no fake counterpart in a
+            # traced step, ``launch/dryrun.py::trace_cell``)
+            pe = torch.empty(frames.shape[1:], dtype=dtype,
+                             device=frames.device).copy_(torch.from_numpy(
+                                 _sinusoidal(frames.shape[1], cfg.d_model)))
+            x = frames + pe
+            tp = self._stream(x.shape[1])
+            if tp is not None and tp.seq:
+                x = tp.scatter(x, 1)
             x, _, _ = apply_stack(self.enc_layers, x, cfg, remat="none",
-                                  tp=self.tp)
-            return rms_norm(x, self.enc_norm)
+                                  tp=tp)
+            x = rms_norm(x, on_shard(self.enc_norm, tp))
+            return x if tp is None or not tp.seq else tp.gather(x, 1)
         if cfg.family == "vlm":
             return torch.as_tensor(batch["patches"],
                                    device=self.device).to(dtype)
@@ -138,37 +152,48 @@ class Model(Params):
         cfg = self.cfg
         ctx = self._context(batch)
         tokens = self._tokens(batch["tokens"])
-        x = embed_lookup(self.embed, tokens, cfg, self.tp)
+        tp = self._stream(tokens.shape[1])
+        x = embed_lookup(self.embed, tokens, cfg, tp)
         x, _, aux = apply_stack(self.layers, x, cfg, ctx=ctx, remat=remat,
-                                tp=self.tp)
-        x = rms_norm(x, self.final_norm)
-        nll = self._chunked_xent(x, self._tokens(batch["labels"]))
+                                tp=tp)
+        x = gather_sequence(rms_norm(x, on_shard(self.final_norm, tp)), tp)
+        nll = self._chunked_xent(x, self._tokens(batch["labels"]),
+                                 enter=tp is None or not tp.seq)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return nll + aux, {"nll": nll, "aux": aux}
 
-    def _chunked_xent(self, x: torch.Tensor, labels: torch.Tensor):
+    def _stream(self, length: int):
+        """The model axis for a stream of ``length`` positions (Megatron-SP
+        kept only where the ranks split it, ``ModelAxis.on_sequence``);
+        None without one."""
+        return None if self.tp is None else self.tp.on_sequence(length)
+
+    def _chunked_xent(self, x: torch.Tensor, labels: torch.Tensor,
+                      enter: bool = True):
         """Cross entropy over sequence chunks of ``LOSS_CHUNK // B`` tokens
         (the batch stays whole, as in the JAX package), the ragged
         remainder last; each chunk's logits are recomputed in the
-        backward instead of kept."""
+        backward instead of kept.  ``enter``: see ``layers.unembed``."""
         B, S, _ = x.shape
         chunk = min(max(1, LOSS_CHUNK // B), S)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.int64, device=x.device)
         for start in range(0, S, chunk):
             t, c = checkpoint(self._chunk_nll, x[:, start:start + chunk],
-                              labels[:, start:start + chunk],
+                              labels[:, start:start + chunk], enter,
                               use_reentrant=False)
             tot, cnt = tot + t, cnt + c
         return tot / torch.clamp(cnt, min=1)
 
-    def _chunk_nll(self, xc: torch.Tensor, lc: torch.Tensor):
+    def _chunk_nll(self, xc: torch.Tensor, lc: torch.Tensor,
+                   enter: bool = True):
         """(sum of the negative log-likelihoods, count) of one chunk."""
         tp = self.tp
         mask = lc != -1
         if tp is not None and tp.vocab:
-            logits = unembed(self.embed, xc, self.cfg, tp, gather=False)
+            logits = unembed(self.embed, xc, self.cfg, tp, gather=False,
+                             enter=enter)
             nll = vocab_parallel_nll(logits, lc.clamp(min=0), tp)
             return (nll * mask).sum(), mask.sum()
         logits = unembed(self.embed, xc, self.cfg)
@@ -199,11 +224,16 @@ class Model(Params):
             cache = self.init_cache(B, max(cfg.max_seq, S))
         pos = cache["pos"]
         ctx = self._context(batch)
-        x = embed_lookup(self.embed, tokens, cfg, self.tp)
+        tp = self._stream(S)
+        x = embed_lookup(self.embed, tokens, cfg, tp)
         x, layers, _ = apply_stack(self.layers, x, cfg,
                                    cache=cache["layers"], pos=pos, ctx=ctx,
-                                   fill_cross=True, tp=self.tp)
+                                   fill_cross=True, tp=tp)
         x = rms_norm(x, self.final_norm)
+        if tp is not None and tp.seq:
+            # the last position is the last rank's: every rank's last, the
+            # last of them
+            x = tp.gather(x[:, -1:], 1)
         return self._last_logits(x), {"layers": layers, "pos": pos + S}
 
     @torch.no_grad()
@@ -212,9 +242,10 @@ class Model(Params):
         cfg = self.cfg
         tokens = self._tokens(tokens)
         pos = cache["pos"]
-        x = embed_lookup(self.embed, tokens, cfg, self.tp)
+        tp = self._stream(tokens.shape[1])
+        x = embed_lookup(self.embed, tokens, cfg, tp)
         x, layers, _ = apply_stack(self.layers, x, cfg,
-                                   cache=cache["layers"], pos=pos, tp=self.tp)
+                                   cache=cache["layers"], pos=pos, tp=tp)
         x = rms_norm(x, self.final_norm)
         return (self._last_logits(x),
                 {"layers": layers, "pos": pos + tokens.shape[1]})

@@ -30,17 +30,20 @@ keeps ``E / n`` experts ``[E/n, d, F]``, and the dispatch buffer
 the same way.  When ``T % n == 0`` and ``T >= 8 n`` each rank routes its
 ``T / n`` slice of the rows with the capacity of that slice, and the
 outputs are gathered (sequence-parallel dispatch); otherwise every rank
-routes all of its rows (decode).  The aux loss is the mean over the
-``model`` ranks of theirs (``launch/steps.py`` averages it over the
-batch axes, as the reference's ``pmean``).  On a mesh whose ``model``
-axis is 1 each rank routes its own rows with the capacity of its own
-tokens: the reference's path with n = 1.
+routes all of its rows (decode, or fewer than ``8 n`` rows); each rank
+then sends the same tokens to each expert, so in the backward each copy
+carries ``1 / n`` of the gradient, and the experts' and the router's
+gradients come out as one process's, as the reference's do.  The aux
+loss is the mean over the ``model`` ranks of theirs (``launch/steps.py``
+averages it over the batch axes, as the reference's ``pmean``).  On a
+mesh whose ``model`` axis is 1 each rank routes its own rows with the
+capacity of its own tokens: the reference's path with n = 1.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import D, act_fn, rms_norm
+from repro_torch.models.layers import D, act_fn, on_shard, rms_norm
 
 
 def moe_defs(cfg) -> dict:
@@ -148,15 +151,37 @@ def _dispatch_combine(p, h2: torch.Tensor, cfg, tp=None, router=None):
     return y, aux
 
 
+class _ShareOfGradient(torch.autograd.Function):
+    """Forward identity; backward the gradient over ``n``: one of ``n``
+    ranks' equal shares of a gradient that each of them computes whole."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 def moe_apply(p, x: torch.Tensor, cfg, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> (y with residual, aux loss, a float32 scalar)."""
-    B, S, d = x.shape
-    h = rms_norm(x, p.pre_norm).reshape(B * S, d)
+    """x [B, S, d] -> (y with residual, aux loss, a float32 scalar).
+    Under Megatron-SP (``tp.seq``) ``x`` is this rank's sequence shard:
+    the normed shards are gathered, so the layer routes the same rows in
+    the same order as without SP (capacity drops depend on that order),
+    and the output keeps this rank's shard."""
     if tp is not None and tp.ff and not tp.experts:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_experts} experts on {tp.n} model ranks: "
             f"the plan splits the experts' ff instead, which has no path")
+    sp = tp is not None and tp.seq
+    h = rms_norm(x, on_shard(p.pre_norm, tp))
+    if sp:
+        h = tp.gather_shards(h, 1)
+    B, S, d = h.shape
+    h = h.reshape(B * S, d)
     if tp is None or not tp.experts:
         y, aux = _dispatch_combine(p, h, cfg)
         return x + y.reshape(B, S, d).to(x.dtype), aux
@@ -164,16 +189,24 @@ def moe_apply(p, x: torch.Tensor, cfg, tp=None
     router = tp.gather_shards(p.router, 1)
     if T % n == 0 and T >= 8 * n:
         # sequence-parallel dispatch: this rank's slice of the rows
-        y, aux = _dispatch_combine(p, tp.slice(tp.copy(h), 0), cfg, tp,
-                                   router)
-        y = tp.gather(y, 0)
+        y, aux = _dispatch_combine(p, tp.slice(h if sp else tp.copy(h), 0),
+                                   cfg, tp, router)
+        y = tp.gather_shards(y, 0) if sp else tp.gather(y, 0)
         aux = tp.reduce(aux) / n
-    else:
-        if torch.is_grad_enabled() and h.requires_grad:
-            raise NotImplementedError(
-                f"{cfg.name}: {T} rows on {n} model ranks route whole on "
-                f"every rank, so each expert would take every rank's "
-                f"gradient of the same tokens; train with at least "
-                f"{8 * n} rows a multiple of {n}")
+    elif sp:
+        # whole rows on every rank, each rank's gradient only its shard's
+        # positions' (the output is sliced below): the ranks' parts add
+        # up; the aux loss, the same on every rank, takes 1/n a rank
         y, aux = _dispatch_combine(p, h, cfg, tp, router)
-    return x + y.reshape(B, S, d).to(x.dtype), aux
+        aux = _ShareOfGradient.apply(aux, n)
+    else:
+        # whole rows on every rank, the same on each: every expert and the
+        # router see each token n times, so each copy takes 1/n of the
+        # gradient, and the rows enter through ``tp.copy``, whose sum
+        # gives each rank the whole of theirs
+        y, aux = _dispatch_combine(p, tp.copy(h), cfg, tp, router)
+        y, aux = _ShareOfGradient.apply(y, n), _ShareOfGradient.apply(aux, n)
+    y = y.reshape(B, S, d)
+    if sp:
+        y = tp.slice(y, 1)
+    return x + y.to(x.dtype), aux

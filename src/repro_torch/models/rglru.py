@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (D, Params, act_fn, model_dtype,
+from repro_torch.models.layers import (D, Params, act_fn, block_in,
+                                       block_out, model_dtype, on_shard,
                                        rms_norm)
 from repro_torch.models.mamba2 import causal_conv
 
@@ -99,13 +100,14 @@ def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
                 tp=None):
     """Griffin recurrent block with residual.  state (decode):
       {"conv": [B,K-1,W], "h": [B,W] float32} (W the rank's width under
-    ``tp``)."""
-    S = x.shape[1]
+    ``tp``).  Under Megatron-SP (``tp.seq``) ``x`` is this rank's
+    sequence shard: normed there, gathered for the block, its output
+    reduce-scattered back."""
     split = tp is not None and tp.ff
-    hidden = rms_norm(x, p.pre_norm)
-    hh = tp.copy(hidden) if split else hidden
-    gate = act_fn(cfg.act)(hh @ p.w_y.to(hidden.dtype))
-    xb = hh @ p.w_x.to(hidden.dtype)
+    hh = block_in(rms_norm(x, on_shard(p.pre_norm, tp)), tp, split)
+    S = hh.shape[1]
+    gate = act_fn(cfg.act)(hh @ p.w_y.to(hh.dtype))
+    xb = hh @ p.w_x.to(hh.dtype)
     conv_state = None if state is None else state["conv"]
     xc, new_conv = causal_conv(xb, p.conv_w.to(x.dtype),
                                p.conv_b.to(x.dtype), conv_state)
@@ -119,7 +121,7 @@ def rglru_apply(p: Params, x: torch.Tensor, cfg, state: dict | None = None,
         h_last = h[:, 0]
     y = (h.to(x.dtype) * gate) @ p.w_out.to(x.dtype)
     if split:
-        y = tp.reduce(y.to(torch.float32)).to(x.dtype)
+        y = block_out(y.to(torch.float32), tp, x.dtype)
     return x + y, {"conv": new_conv, "h": h_last}
 
 

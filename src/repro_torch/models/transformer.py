@@ -50,8 +50,9 @@ from repro_torch.models.attention import (blocked_attention, cache_update,
                                           cp_attention, init_kv_cache,
                                           plain_attention, ring_positions,
                                           sharded_decode_attention)
-from repro_torch.models.layers import (D, Params, apply_rope, grad_fence,
-                                       mlp_apply, mlp_defs, rms_norm,
+from repro_torch.models.layers import (D, Params, apply_rope, block_in,
+                                       block_out, grad_fence, mlp_apply,
+                                       mlp_defs, on_shard, rms_norm,
                                        rope_angles)
 from repro_torch.models.mamba2 import init_ssm_state, ssm_apply, ssm_defs
 from repro_torch.models.moe import moe_apply, moe_defs
@@ -142,14 +143,20 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
     with them, and ``wo`` is row-parallel: the partial outputs are summed
     in float32 before the sandwich norm and the vlm gate.  A decode
     cache that keeps every kv head is split by sequence
-    (:func:`_seq_split`)."""
-    B, S, _ = x.shape
+    (:func:`_seq_split`).  Under Megatron-SP (``tp.seq``) ``x`` is this
+    rank's sequence shard: normed there, gathered whole for the
+    projections (``layers.py::block_in``), and the partial outputs
+    reduce-scattered back to the shard (``block_out``), where the
+    sandwich norm, the gate and the residual apply."""
     hd = cfg.hd
     heads = tp is not None and tp.heads
     nh = cfg.n_heads // tp.n if heads else cfg.n_heads
-    h = rms_norm(x, p.pre_norm)
-    q = ((tp.copy(h) if heads else h) @ p.wq.to(h.dtype)).reshape(
-        B, S, nh, hd)
+    h = rms_norm(x, on_shard(p.pre_norm, tp))
+    hq = block_in(h, tp, heads)
+    if tp is not None and tp.seq:
+        h = hq                      # the gathered sequence; k and v from it
+    B, S, _ = hq.shape
+    q = (hq @ p.wq.to(h.dtype)).reshape(B, S, nh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, tp.copy(p.q_norm) if heads else p.q_norm)
     if kind == "cross":
@@ -159,12 +166,12 @@ def attn_apply(p: Params, x: torch.Tensor, cfg, kind: str, *,
                                      tp)
     y = out.reshape(B, S, nh * hd) @ p.wo.to(x.dtype)
     if heads:
-        y = tp.reduce(y.to(torch.float32)).to(x.dtype)
+        y = block_out(y.to(torch.float32), tp, x.dtype)
     if cfg.sandwich_norm:
-        y = rms_norm(y, p.post_norm)
+        y = rms_norm(y, on_shard(p.post_norm, tp))
     gate = p.get("gate_attn") if kind == "cross" else None
     if gate is not None:
-        y = torch.tanh(gate.to(y.dtype)) * y
+        y = torch.tanh(on_shard(gate, tp).to(y.dtype)) * y
     return x + y, cache
 
 
@@ -185,7 +192,10 @@ def _local_kv(t: torch.Tensor, cfg, tp) -> torch.Tensor:
     if nh % (hi - lo) == 0 and idx == [lo + i // (nh // (hi - lo))
                                        for i in range(nh)]:
         return t[:, :, lo:hi]
-    return t[:, :, idx]
+    # the index made on the device (no host list reaches a traced step)
+    at = torch.div(torch.arange(nh, device=t.device) + tp.rank * nh, g,
+                   rounding_mode="floor")
+    return t.index_select(2, at)
 
 
 def _seq_split(tp, length: int, full: int) -> bool:
@@ -201,12 +211,20 @@ def _self_attention(p, h, q, cfg, kind, cache, pos, causal, tp):
     B, S, _ = h.shape
     hd = cfg.hd
     split = _kv_split(tp)
+    sp = tp is not None and tp.seq
     nkv = cfg.n_kv_heads // tp.n if split else cfg.n_kv_heads
-    hk = tp.copy(h) if split else h
-    k = (hk @ p.wk.to(h.dtype)).reshape(B, S, nkv, hd)
-    v = (hk @ p.wv.to(h.dtype)).reshape(B, S, nkv, hd)
+    # under SP ``h`` is already the gathered input of split work; kv heads
+    # that are not split are then computed whole from it, each rank's
+    # gradient of them a part, so their weights (not k and v) enter
+    # through ``tp.copy``
+    hk = tp.copy(h) if split and not sp else h
+    wk, wv = p.wk, p.wv
+    if sp and not split:
+        wk, wv = tp.copy(wk), tp.copy(wv)
+    k = (hk @ wk.to(h.dtype)).reshape(B, S, nkv, hd)
+    v = (hk @ wv.to(h.dtype)).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
-        k = rms_norm(k, tp.copy(p.k_norm) if split else p.k_norm)
+        k = rms_norm(k, tp.copy(p.k_norm) if split or sp else p.k_norm)
     sin, cos = rope_angles(pos + torch.arange(S, device=h.device), hd,
                            cfg.rope_theta)
     q = apply_rope(q, sin, cos)
@@ -229,7 +247,7 @@ def _self_attention(p, h, q, cfg, kind, cache, pos, causal, tp):
                 f"as the JAX package's do")
         if cache is None:
             q, k, v = grad_fence(q), grad_fence(k), grad_fence(v)
-        if tp is not None and tp.heads and not split:
+        if tp is not None and tp.heads and not split and not sp:
             k, v = tp.copy(k), tp.copy(v)
         k, v = _local_kv(k, cfg, tp), _local_kv(v, cfg, tp)
         if (cache is not None and tp is not None and tp.cp and not tp.heads
@@ -317,7 +335,7 @@ def ffn_apply(p: Params, x: torch.Tensor, cfg, gate=None, tp=None):
         return moe_apply(p, x, cfg, tp)
     y = mlp_apply(p, x, cfg, tp)
     if gate is not None:
-        y = x + torch.tanh(gate.to(x.dtype)) * (y - x)
+        y = x + torch.tanh(on_shard(gate, tp).to(x.dtype)) * (y - x)
     return y, None
 
 

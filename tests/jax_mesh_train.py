@@ -16,7 +16,11 @@ The job lists cases, each with its mesh's ``dims`` (as ``data``,
   ``params`` (the JAX package's tree, numpy leaves);
 * ``cp`` -- ``models/attention.py::cp_attention`` on numpy inputs;
 * ``psum`` -- ``optim/compression.py::compressed_psum`` over ``pod`` in a
-  ``shard_map``, each participant's gradients its row of the inputs.
+  ``shard_map``, each participant's gradients its row of the inputs;
+* ``grads`` -- the loss and its gradient (``jax.value_and_grad`` of
+  ``Model.loss``, jitted on the mesh with the reference's plan, as its
+  ``train`` sets it up) at the weights pickled in ``params`` and the batch
+  in ``inputs``.
 
 The mesh's axes are ``Auto``: under jax 0.9 ``jax.make_mesh`` makes
 explicit axes by default, on which the reference's embedding gather
@@ -119,7 +123,42 @@ def _psum(case, mesh):
     return np.asarray(mean), np.asarray(err)
 
 
-KINDS = {"train": _train, "serve": _serve, "cp": _cp, "psum": _psum}
+def _grads(case, mesh):
+    import jax
+
+    from repro.configs import smoke_config
+    from repro.launch.sharding import (batch_pspecs, hidden_batch_axes,
+                                       make_plan, param_pspecs, to_named)
+    from repro.models.model import build_model
+    from repro.models.transformer import set_mesh_axes
+
+    cfg = smoke_config(case["arch"]).replace(max_seq=case["seq"],
+                                             **case.get("replace", {}))
+    model = build_model(cfg)
+    with open(case["params"], "rb") as f:
+        params = jax.tree.map(jax.numpy.asarray, pickle.load(f))
+    batch = {k: jax.numpy.asarray(v) for k, v in case["inputs"].items()}
+    rows = batch["tokens"].shape[0]
+    plan = make_plan(cfg, mesh)
+    set_mesh_axes(hidden_batch_axes(plan, mesh, rows), "model", mesh=mesh)
+    try:
+        with mesh:
+            pshard = to_named(mesh, param_pspecs(model, mesh, plan))
+            bshard = to_named(mesh, batch_pspecs(
+                model, mesh, model.batch_spec(case["seq"], rows, "train"),
+                rows, plan))
+            fn = jax.jit(jax.value_and_grad(
+                lambda p, b: model.loss(p, b)[0]),
+                in_shardings=(pshard, bshard))
+            loss, grads = fn(jax.device_put(params, pshard),
+                             jax.device_put(batch, bshard))
+    finally:
+        set_mesh_axes(None)
+    return float(loss), jax.tree.map(np.asarray, grads)
+
+
+KINDS = {"train": _train, "serve": _serve, "cp": _cp, "psum": _psum,
+         "grads": _grads}
 
 
 def main(job_path: str) -> None:

@@ -99,7 +99,6 @@ def run_case(case: dict, mesh) -> dict:
     ``dryrun.shard_bytes``'s."""
     import pickle
 
-    from repro_torch.configs import smoke_config
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.dryrun import (abstract_cache, abstract_params,
@@ -111,27 +110,34 @@ def run_case(case: dict, mesh) -> dict:
     from repro_torch.models.layers import model_dtype
     from repro_torch.models.model import Model
 
+    from repro_torch.launch import tensor_parallel as tpc
+
     if case["kind"] in OPERATOR_CASES:
         return OPERATOR_CASES[case["kind"]](case, mesh)
-    cfg = smoke_config(case["arch"]).replace(
-        max_seq=case["seq"], **case.get("replace", {}))
+    cfg = case_config(case)
     plan = make_plan(cfg, mesh)
     if case["fsdp"]:
         plan = force_fsdp(plan)
+    if case["kind"] == "step":
+        return step_case(cfg, case, mesh, plan)
     meta = Model(cfg, device="meta")
+    sp = case.get("seq_shard", False)
     if case["kind"] == "serve":
         params = None
         if case.get("params"):
             with open(case["params"], "rb") as f:
                 params = lm_params_from_numpy(cfg, pickle.load(f), "cpu")
-        with gathered_sizes() as gathered:
+        tpc.reset_transport()
+        with gathered_sizes() as gathered, dropped_assignments() as dropped:
             out = serve(cfg, ServeConfig(batch=case["batch"],
                                          prompt_len=case["seq"] - case["gen"],
                                          gen_len=case["gen"], seed=3),
                         device="cpu", params=params, mesh=mesh, plan=plan,
-                        cp=case.get("cp", False))
+                        cp=case.get("cp", False), seq_shard=sp)
         cache = abstract_cache(cfg, case["batch"], case["seq"])
         return {"tokens": out["tokens"], "logits": out["logits"],
+                "collectives": tpc.collectives_summary(),
+                "dropped": sum(dropped),
                 "largest_gather": max(gathered, default=0),
                 "param_bytes": out["param_bytes"],
                 "cache_bytes": out["cache_bytes"],
@@ -148,7 +154,8 @@ def run_case(case: dict, mesh) -> dict:
                      ckpt_dir=case.get("ckpt_dir", "unused_ckpt"), seed=5)
     dc = DataConfig(seq_len=case["seq"], global_batch=case["batch"],
                     vocab=cfg.vocab, seed=case.get("data_seed", 7))
-    out = train(cfg, tc, data_cfg=dc, device="cpu", mesh=mesh, plan=plan)
+    out = train(cfg, tc, data_cfg=dc, device="cpu", mesh=mesh, plan=plan,
+                seq_shard=sp)
     want = shard_bytes(abstract_params(meta, torch.float32),
                        param_pspecs(meta, mesh, plan), mesh)
     local = sum(p.numel() * p.element_size()
@@ -162,6 +169,53 @@ def run_case(case: dict, mesh) -> dict:
     if case.get("peak"):
         res["checkpoint_peak_bytes"] = checkpoint_peak(cfg, out)
     return res
+
+
+def case_config(case: dict):
+    """A case's smoke config: ``max_seq`` its ``seq``, then its
+    ``replace`` fields."""
+    from repro_torch.configs import smoke_config
+
+    return smoke_config(case["arch"]).replace(max_seq=case["seq"],
+                                              **case.get("replace", {}))
+
+
+def config_override(case: dict) -> dict:
+    """Every field of a case's config, as ``dryrun``'s ``cfg_override``
+    (which starts from the full config of the arch)."""
+    import dataclasses
+
+    cfg = case_config(case)
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def step_case(cfg, case, mesh, plan) -> dict:
+    """One step of a cell (``dryrun.cell_step``: a train step, a prefill
+    or a decode step, ``case["mode"]``) at the case's small size on this
+    rank, with real tensors: the collectives it made
+    (``tensor_parallel.collectives_summary``) and its arguments' bytes by
+    part, to hold against a trace of the same step."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import tensor_parallel as tpc
+    from repro_torch.launch.distributed import MeshRun
+    from repro_torch.models.model import Model
+
+    run = MeshRun(cfg, mesh, plan, "cpu",
+                  seq_shard=case.get("seq_shard", False))
+    train = case["mode"] == "train"
+    model = Model(cfg, device="meta",
+                  param_dtype=torch.float32 if train else None)
+    run.place_init(model, 5)
+    torch.manual_seed(0)
+    call, arguments = dryrun.cell_step(
+        model, run, ShapeCell("small", case["seq"], case["batch"],
+                              case["mode"]), case.get("remat", "full"))
+    tpc.reset_transport()
+    call()
+    return {"collectives": tpc.collectives_summary(),
+            "arguments": {k: sum(t.numel() * t.element_size() for t in v)
+                          for k, v in arguments.items()}}
 
 
 @contextlib.contextmanager
@@ -184,6 +238,26 @@ def gathered_sizes():
         yield sizes
     finally:
         tpc.all_gather = real
+
+
+@contextlib.contextmanager
+def dropped_assignments():
+    """The MoE's dropped (token, expert) assignments on this rank inside
+    the block, one count a dispatch (``models/moe.py::_rank_and_slot``),
+    a list."""
+    from repro_torch.models import moe
+
+    counts, real = [], moe._rank_and_slot
+
+    def spy(flat_e, E, C):
+        keep, slot = real(flat_e, E, C)
+        counts.append(int((~keep).sum()))
+        return keep, slot
+    moe._rank_and_slot = spy
+    try:
+        yield counts
+    finally:
+        moe._rank_and_slot = real
 
 
 def _axis(mesh):
@@ -262,16 +336,27 @@ OPERATOR_CASES = {"cp": cp_case, "psum": psum_case,
 
 
 def case_batch(cfg, case) -> dict:
-    """The first global batch of a case's data pipeline."""
+    """The first global batch of a case's data pipeline; for the audio
+    and vlm families (whose frames and patches no pipeline makes) also
+    ``frames`` / ``patches`` drawn from ``numpy.random.default_rng(11)``."""
+    import numpy as np
+
     from repro_torch.data.pipeline import DataConfig, Pipeline
 
     pipe = Pipeline(DataConfig(seq_len=case["seq"],
                                global_batch=case["batch"], vocab=cfg.vocab,
                                seed=case.get("data_seed", 7)))
     try:
-        return next(iter(pipe))
+        batch = next(iter(pipe))
     finally:
         pipe.close()
+    ctx = {"audio": ("frames", cfg.enc_seq),
+           "vlm": ("patches", cfg.vision_seq)}.get(cfg.family)
+    if ctx is not None:
+        draw = np.random.default_rng(11).standard_normal(
+            (case["batch"], ctx[1], cfg.d_model))
+        batch[ctx[0]] = torch.from_numpy(draw.astype(np.float32))
+    return batch
 
 
 def mesh_case_grads(cfg, case, mesh, plan) -> dict:
@@ -282,13 +367,21 @@ def mesh_case_grads(cfg, case, mesh, plan) -> dict:
     from repro_torch.launch.steps import mesh_grads, train_params
     from repro_torch.models.model import Model
 
-    run = MeshRun(cfg, mesh, plan, "cpu")
+    from repro_torch.launch import tensor_parallel as tpc
+
+    run = MeshRun(cfg, mesh, plan, "cpu",
+                  seq_shard=case.get("seq_shard", False))
     model = Model(cfg, device="meta", param_dtype=torch.float32)
     run.place_init(model, 5)
     params = train_params(model)
-    grads, nll, aux = mesh_grads(model, run, params, case_batch(cfg, case))
+    tpc.reset_transport()
+    with dropped_assignments() as dropped:
+        grads, nll, aux = mesh_grads(model, run, params,
+                                     case_batch(cfg, case))
+    collectives = tpc.collectives_summary()
     nll, aux = run.dp_sum(torch.stack([nll, aux])).tolist()
-    return {"nll": nll, "aux": aux,
+    return {"nll": nll, "aux": aux, "collectives": collectives,
+            "dropped": sum(dropped),
             "grads": {n: run.full_tensor(n, g).to("cpu", copy=True)
                       for n, g in zip(params, grads)}}
 
@@ -329,6 +422,69 @@ def checkpoint_peak(cfg, out: dict) -> int:
     return peak
 
 
+# ---------------------------------------------------------- traces
+def start_traces(calls: list, workdir: Path):
+    """Start one process that runs ``dryrun.run_cell(..., trace=True)``
+    (which traces on a process group of fake ranks) for each of
+    ``calls`` (dicts of its keyword arguments, with ``dims`` for a mesh
+    that is not a production one) in order, and writes their results as
+    JSON; :func:`wait_traces` reads them."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    job = workdir / "traces.json"
+    job.write_text(json.dumps(calls))
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
+                                          str(ROOT / "tests")])}
+    log = open(workdir / "traces.log", "w")
+    proc = subprocess.Popen([sys.executable, __file__, "--trace", str(job)],
+                            env=env, cwd=workdir, stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def wait_traces(proc, workdir: Path, timeout: float) -> list:
+    """The results of :func:`start_traces`'s calls, in order (killed at
+    ``timeout`` seconds; a failure raises with the end of its log)."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log = (workdir / "traces.log").read_text()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the traces exited {proc.returncode}:\n"
+                           f"{log[-4000:]}")
+    return json.loads((workdir / "traces.out.json").read_text())
+
+
+def run_traces(job_path: str) -> None:
+    one_thread()
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    from repro_torch.launch.sharding import force_fsdp, make_plan
+
+    calls = json.loads(Path(job_path).read_text())
+    out = []
+    for kw in calls:
+        kw = dict(kw)
+        if "dims" in kw:
+            kw["mesh"] = make_mesh(kw.pop("dims"))
+        if isinstance(kw["shape"], list):
+            kw["shape"] = ShapeCell(*kw["shape"])
+        if kw.get("cfg_override"):          # JSON made the tuples lists
+            kw["cfg_override"] = {k: tuple(v) if isinstance(v, list) else v
+                                  for k, v in kw["cfg_override"].items()}
+        if kw.pop("fsdp", False):
+            cfg, _cell = dryrun.cell_config(kw["arch"], kw["shape"],
+                                            kw.get("cfg_override"))
+            kw["plan_override"] = force_fsdp(make_plan(cfg, kw["mesh"]))
+        out.append(dryrun.run_cell(**kw, trace=True))
+    (Path(job_path).parent / "traces.out.json").write_text(json.dumps(out))
+
+
 def main(job_path: str) -> None:
     one_thread()
     import torch.distributed as dist
@@ -348,4 +504,7 @@ def main(job_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[1] == "--trace":
+        run_traces(sys.argv[2])
+    else:
+        main(sys.argv[1])
