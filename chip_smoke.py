@@ -310,6 +310,18 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                gloo on fresh data and must equal its plain result on
                every rank (one line), so a gloo that refuses or garbles
                one fails the phase.
+               A second world, mesh (1, 3) as three rank processes on
+               the card (gloo): qwen3-moe-235b-a22b at full width, 2 of
+               its 94 layers, served 2 x 2,048 + 16 in bf16 (64 heads and
+               128 experts do not divide by 3, ``d_ff`` 1,536 does: the
+               ``hybrid`` plan, attention whole on every rank, the
+               experts' ``ff`` split, the MoE's local path with the
+               partial down products summed over ``model``; K6 and no
+               other kernel, all ``tensor_core``), its float32 check at
+               depth 1 (1 x 512, capacity factor E / K) within 1e-4, and
+               its planted fault (the ``ff`` partials left unreduced)
+               caught; placed bytes, walls, transport and peaks a rank
+               as above.
                The ``kernels`` line gains the two forms and each LM
                kernel's ``launches_in_model_axis_phase``.
 6. report   -- wall and candidates per second of each compile, the execute
@@ -1650,13 +1662,16 @@ def check_lm_kernels(timed: bool, reps: int) -> dict:
 
 
 # K6 at the shapes the vlm and audio serves give it, bfloat16 and not
-# causal: (case, arch, B, S, T), the arch giving the heads and head dim
+# causal, and at qwen3-moe's prefill in phase 10 (causal, GQA 64 / 4):
+# (case, arch, B, S, T, causal), the arch giving the heads and head dim
 FAMILY_ATTENTION = (
     ("llama-3.2-vision-11b cross-attention prefill",
-     "llama-3.2-vision-11b", 2, 1024, 1600),
-    ("whisper-base encoder", "whisper-base", 4, 1500, 1500),
+     "llama-3.2-vision-11b", 2, 1024, 1600, False),
+    ("whisper-base encoder", "whisper-base", 4, 1500, 1500, False),
     ("whisper-base decoder cross-attention prefill", "whisper-base", 4, 128,
-     1500))
+     1500, False),
+    ("qwen3-moe-235b-a22b prefill", "qwen3-moe-235b-a22b", 2, 2048, 2048,
+     True))
 # K7 at those serves' MLPs, bfloat16: (arch, M), the prefill's and the
 # decode step's rows (whisper's encoder: 4 x 1,500 frames)
 FAMILY_BLOCKS = (("llama-3.2-vision-11b", 2048), ("llama-3.2-vision-11b", 2),
@@ -1700,7 +1715,7 @@ def check_family_shapes(randn, block, close_variant, cases, timed,
 
     bf16 = torch.bfloat16
     out = {"flash_attention": {}, "fused_block": {}}
-    for what, arch, b, s, t in FAMILY_ATTENTION:
+    for what, arch, b, s, t, causal in FAMILY_ATTENTION:
         cfg = get_config(arch)
         nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         f32 = torch.float32
@@ -1708,9 +1723,9 @@ def check_family_shapes(randn, block, close_variant, cases, timed,
         k = (randn((b, t, nkv, hd), f32)
              - FAMILY_SCORE_SHIFT / math.sqrt(hd)).to(bf16)
         v = randn((b, t, nkv, hd), bf16)
-        kw = dict(causal=False, window=0)
-        label = (f"{what}, B {b} S {s} T {t}, GQA {nh}/{nkv}, hd {hd}, not "
-                 f"causal, bf16")
+        kw = dict(causal=causal, window=0)
+        label = (f"{what}, B {b} S {s} T {t}, GQA {nh}/{nkv}, hd {hd}, "
+                 f"{'causal' if causal else 'not causal'}, bf16")
         close_variant(fa.flash_attention_cuda, fa.flash_attention_torch,
                       (q, k, v), kw, label, "tensor_core")
         err = cases[-1]["max_abs_err"]
@@ -1719,9 +1734,9 @@ def check_family_shapes(randn, block, close_variant, cases, timed,
         require(err <= limit, f"flash_attention {label}: max abs err {err} "
                               f"> {FAMILY_ATTENTION_ULPS} bf16 ulps of its "
                               f"largest |output| ({limit})")
-        bnd = flash_bound(b, s, t, nh, nkv, hd, False, 0, 2)
+        bnd = flash_bound(b, s, t, nh, nkv, hd, causal, 0, 2)
         entry = {"arch": arch, "B": b, "S": s, "T": t, "NH": nh, "NKV": nkv,
-                 "hd": hd, "causal": False, "dtype": "bfloat16",
+                 "hd": hd, "causal": causal, "dtype": "bfloat16",
                  "variant": cases[-1]["variant"], "max_abs_err": err,
                  "limit_abs": limit, "bound_ms": bnd[0], "bound_by": bnd[1]}
         pad = -t % flash_tc_key_tile(hd)
@@ -1747,8 +1762,8 @@ def check_family_shapes(randn, block, close_variant, cases, timed,
             qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
             def library():
-                return F.scaled_dot_product_attention(qh, kh, vh,
-                                                      enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal, enable_gqa=True)
             entry["library_max_abs_err"] = max_abs_err(
                 library().transpose(1, 2),
                 fa.flash_attention_torch(q, k, v, **kw))
@@ -3286,7 +3301,7 @@ def mesh_phase() -> dict:
 # width in bfloat16 (its depth, where given, cut so both ranks fit), with
 # its float32 check at cut depth against the run without a mesh; the
 # kernels each must launch on every rank (a form in brackets).
-MODEL_AXIS_DIMS = (1, 2)
+MODEL_AXIS_DIMS = (1, 2)       # the world of every case without "dims"
 MODEL_AXIS_TOL = 1e-4            # of the logits' / losses' scale, float32
 MODEL_AXIS_TIMEOUT_S = 600
 MODEL_AXIS_CP_ARCH = "smollm-360m"
@@ -3326,6 +3341,19 @@ MODEL_AXIS_SERVES = {
         "check": {"n_layers": 2, "batch": 1, "prompt_len": 512,
                   "gen_len": 4},
         "kernels": ("flash_attention",)},
+    # three ranks: the hybrid plan (64 heads, 128 experts: 3 divides
+    # neither), so attention whole on each rank and the experts' ff split
+    # (512 of 1,536 a rank), the MoE's local path; 2 of the 94 layers, K6
+    # and nothing else (every layer is MoE), all on the tensor cores
+    "qwen3-moe-235b-a22b": {
+        "dims": (1, 3),
+        "shape": {"batch": 2, "prompt_len": 2048, "gen_len": 16},
+        "n_layers": 2,
+        "check": {"n_layers": 1, "batch": 1, "prompt_len": 512,
+                  "gen_len": 4},
+        "kernels": ("flash_attention",), "only": True,
+        "variants": {"flash_attention": "tensor_core"},
+        "fault": "moe_ff_unreduced"},
 }
 # Megatron-SP (``seq_shard=True``): recurrentgemma-2b's serve and its
 # float32 check again with the stream split by sequence, each against the
@@ -3370,12 +3398,14 @@ def model_axis_cfg(case: dict, seq: int):
 def model_axis_jobs() -> list:
     """The cases both the ranks and the run without a mesh drive, in
     order: per serve its float32 check, its planted fault (ranks only) and
-    its bfloat16 run; the training run likewise; the compressed psum."""
+    its bfloat16 run; the training run likewise; the compressed psum.
+    Each case names the dims of its world's mesh."""
     cases = []
     for arch, spec in MODEL_AXIS_SERVES.items():
         for check in (True, False):
             shape = spec["check"] if check else spec["shape"]
             base = dict(kind="serve", arch=arch, check=check,
+                        dims=spec.get("dims", MODEL_AXIS_DIMS),
                         cp=spec.get("cp", False),
                         shape={k: shape[k] for k in ("batch", "prompt_len",
                                                      "gen_len")})
@@ -3391,10 +3421,11 @@ def model_axis_jobs() -> list:
     for check in (True, False):
         shape = t["check"] if check else t
         cases.append(dict(kind="train", arch=t["arch"], check=check,
+                          dims=MODEL_AXIS_DIMS,
                           id=f"train-{'f32' if check else 'bf16'}",
                           batch=shape["batch"], seq=shape["seq"],
                           steps=t["steps"]))
-    cases.append(dict(kind="psum", id="psum"))
+    cases.append(dict(kind="psum", id="psum", dims=MODEL_AXIS_DIMS))
     return cases
 
 
@@ -3557,14 +3588,17 @@ def planted(fault):
     """A fault in this rank's run, to show phase 10's check sees it:
     ``"ff_zero"`` zeroes rank 1's shard of the first layer's MLP down
     projection when it is placed; ``"cp_offset0"`` runs every rank's
-    context-parallel slice from position 0."""
+    context-parallel slice from position 0; ``"moe_ff_unreduced"`` leaves
+    the MoE's partial down products of an ``ff`` split unsummed over the
+    ranks."""
     import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch import distributed
     from repro_torch.launch.distributed import param_name
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     real_place, real_cp = distributed.MeshRun.place, transformer.cp_attention
+    real_ff_sum = moe._ff_sum
 
     def place(self, model, leaf):
         real_place(self, model, leaf)
@@ -3583,11 +3617,14 @@ def planted(fault):
         distributed.MeshRun.place = place
     elif fault == "cp_offset0":
         transformer.cp_attention = cp_from_zero
+    elif fault == "moe_ff_unreduced":
+        moe._ff_sum = lambda part, tp: part
     try:
         yield
     finally:
         distributed.MeshRun.place = real_place
         transformer.cp_attention = real_cp
+        moe._ff_sum = real_ff_sum
 
 
 COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
@@ -3630,7 +3667,11 @@ def gloo_cuda_probe(seen: set) -> dict:
     group of this rank alone, and held to its plain result computed here
     from every member's data: ``{"signatures": k, "by_op": {"op dtype":
     k}, "ok": k_ok, "failed": [...]}``; a failure is ``"wrong"`` or the
-    error's first line."""
+    error's first line.  A sum over three members or more is not bound to
+    one order of adding them (gloo's ring adds each chunk in its own), so
+    each element of a float sum must equal the sum of the members in some
+    order, in the type or with a float32 accumulator
+    (:func:`matches_some_sum`); everything else, exactly."""
     import torch
     import torch.distributed as dist
 
@@ -3665,6 +3706,8 @@ def gloo_cuda_probe(seen: set) -> dict:
         total = xs[0].clone()
         for y in xs[1:]:
             total = torch.maximum(total, y) if red == "max" else total + y
+        summed = red != "max" and name in ("all_reduce",
+                                           "reduce_scatter_tensor")
         try:
             if name == "all_reduce":
                 dist.all_reduce(x, op=dist.ReduceOp.MAX if red == "max"
@@ -3687,7 +3730,12 @@ def gloo_cuda_probe(seen: set) -> dict:
                 got = torch.empty_like(x)
                 dist.all_to_all_single(got, x, group=group)
                 want = torch.cat([y.chunk(size)[me] for y in xs])
-            result = "ok" if torch.equal(got, want) else "wrong"
+            if summed and dtype.is_floating_point and size > 2:
+                part = None if name == "all_reduce" else (me, size)
+                equal = matches_some_sum(got, xs, part)
+            else:
+                equal = torch.equal(got, want)
+            result = "ok" if equal else "wrong"
         except Exception as e:  # record what gloo says, choose nothing
             result = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
         if result == "ok":
@@ -3699,11 +3747,38 @@ def gloo_cuda_probe(seen: set) -> dict:
             "failed": failed[:10]}
 
 
+def matches_some_sum(got, xs: list, part=None) -> bool:
+    """Whether each element of ``got`` equals the sum of the members'
+    ``xs`` in some order (a first pair, then the others one by one) and
+    rounding (in their type after each add, or in float32 and rounded
+    once); ``part`` ``(i, n)``: ``got`` is chunk ``i`` of ``n`` of the
+    sum.  One order at a time, so at most one sum is held beside ``xs``."""
+    import itertools
+
+    import torch
+
+    def cut(t):
+        return t if part is None else t.chunk(part[1])[part[0]]
+    xs = [cut(x) for x in xs]
+    hit = torch.zeros(got.shape, dtype=torch.bool, device=got.device)
+    accumulators = {xs[0].dtype, torch.float32}
+    for order in itertools.permutations(range(len(xs))):
+        if order[0] > order[1]:
+            continue                    # the first add commutes
+        for acc in accumulators:
+            total = xs[order[0]].to(acc) + xs[order[1]].to(acc)
+            for k in order[2:]:
+                total = total + xs[k].to(acc)
+            hit |= total.to(got.dtype) == got
+            del total
+    return bool(hit.all())
+
+
 def model_axis_rank(job_path: str) -> int:
     """One rank of phase 10 (``--model-axis-rank JOB``): joins the gloo
-    group of the job's store on cuda:0, runs every case of the job on mesh
-    (1, 2) (the psum on its pod mesh), and writes its results beside the
-    job."""
+    group of the job's store on cuda:0, runs every case of the job on the
+    job's mesh (the psum on its pod mesh), and writes its results beside
+    the job."""
     import torch
     from repro_torch.launch.distributed import close_ranks, init_ranks
     from repro_torch.launch.mesh import make_mesh
@@ -3721,7 +3796,7 @@ def model_axis_rank(job_path: str) -> int:
                     continue
                 with planted(case.get("fault")):
                     results[case["id"]] = model_axis_run(
-                        case, make_mesh(MODEL_AXIS_DIMS))
+                        case, make_mesh(job["dims"]))
         t0 = time.perf_counter()
         results["gloo_cuda"] = gloo_cuda_probe(seen)
         results["gloo_cuda"]["seconds"] = time.perf_counter() - t0
@@ -3729,6 +3804,62 @@ def model_axis_rank(job_path: str) -> int:
         close_ranks()
     torch.save(results, Path(job_path).parent / f"rank{rank}.pt")
     return 0
+
+
+def model_axis_world(dims: tuple, cases: list) -> list:
+    """Phase 10's ranks of mesh ``dims`` on ``cases``: one subprocess of
+    this script a rank on the same card, joined over gloo through a
+    ``FileStore``; every rank's results, after each rank's gloo probe of
+    its collectives passed (the phase fails otherwise)."""
+    import torch
+
+    n = math.prod(dims)
+    tag = "x".join(map(str, dims))
+    work = fresh_dir(f"model_axis_{tag}")
+    work.mkdir(parents=True)
+    job = work / "job.json"
+    job.write_text(json.dumps({"store": f"file://{work / 'store'}",
+                               "dims": list(dims), "cases": cases}))
+    free, total = torch.cuda.mem_get_info()
+    log(f"  model axis {dims}: {n} ranks; the card has {free} B of {total} "
+        f"free, this process {torch.cuda.memory_allocated()} B allocated "
+        f"and {torch.cuda.memory_reserved()} B reserved")
+    procs = []
+    for rank in range(n):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(n),
+               "LOCAL_RANK": "0"}
+        with open(work / f"rank{rank}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--model-axis-rank", str(job)], env=env, cwd=ROOT,
+                stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MODEL_AXIS_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        require(p.returncode == 0,
+                f"phase 10 mesh {dims} rank {rank} exited {p.returncode}: "
+                f"{(work / f'rank{rank}.log').read_text()[-3000:]}")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(n)]
+    for rank, r in enumerate(ranks):
+        probe = r["gloo_cuda"]
+        require(probe["signatures"] > 0 and not probe["failed"]
+                and probe["ok"] == probe["signatures"],
+                f"phase 10 mesh {dims} rank {rank}: gloo's collectives on "
+                f"CUDA tensors at the cases' shapes: "
+                f"{json.dumps(probe)[:1500]}")
+    log(f"  model axis {dims}: gloo on CUDA tensors, every collective of "
+        f"the cases again on fresh data: {json.dumps(ranks[0]['gloo_cuda'])}")
+    return ranks
 
 
 def model_axis_phase() -> dict:
@@ -3760,50 +3891,16 @@ def model_axis_phase() -> dict:
                     np.asarray(plain["tokens"])
                     == np.asarray(want["tokens"])))}
     torch.cuda.empty_cache()
-    work = fresh_dir("model_axis")
-    work.mkdir(parents=True)
-    job = work / "job.json"
-    job.write_text(json.dumps({"store": f"file://{work / 'store'}",
-                               "cases": cases}))
-    procs = []
-    t_ranks = time.perf_counter()
-    for rank in range(2):
-        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "2",
-               "LOCAL_RANK": "0"}
-        with open(work / f"rank{rank}.log", "w") as out:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"),
-                 "--model-axis-rank", str(job)], env=env, cwd=ROOT,
-                stdout=out, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + MODEL_AXIS_TIMEOUT_S
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks_s = time.perf_counter() - t_ranks
-    for rank, p in enumerate(procs):
-        require(p.returncode == 0,
-                f"phase 10 rank {rank} exited {p.returncode}: "
-                f"{(work / f'rank{rank}.log').read_text()[-3000:]}")
-    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
-             for r in range(2)]
-    for rank, r in enumerate(ranks):
-        probe = r["gloo_cuda"]
-        require(probe["signatures"] > 0 and not probe["failed"]
-                and probe["ok"] == probe["signatures"],
-                f"phase 10 rank {rank}: gloo's collectives on CUDA tensors "
-                f"at the cases' shapes: {json.dumps(probe)[:1500]}")
-    log(f"  model axis: gloo on CUDA tensors, every collective of the cases "
-        f"again on fresh data: {json.dumps(ranks[0]['gloo_cuda'])}")
+    worlds, ranks_s = {}, {}
+    for dims in dict.fromkeys(tuple(c["dims"]) for c in cases):
+        t_ranks = time.perf_counter()
+        worlds[dims] = model_axis_world(
+            dims, [c for c in cases if tuple(c["dims"]) == dims])
+        ranks_s["x".join(map(str, dims))] = time.perf_counter() - t_ranks
     rows = {}
     for case in cases:
         cid = case["id"]
+        ranks = worlds[tuple(case["dims"])]
         got = [r[cid] for r in ranks]
         if case["kind"] == "psum":
             for rank, g in enumerate(got):
@@ -3853,7 +3950,8 @@ def model_axis_phase() -> dict:
                     f"float32 check ({max(errs)} <= {MODEL_AXIS_TOL})")
         elif case["check"]:
             require(max(errs) <= MODEL_AXIS_TOL,
-                    f"{cid}: mesh (1, 2) off the run without a mesh by "
+                    f"{cid}: mesh {tuple(case['dims'])} off the run without "
+                    f"a mesh by "
                     f"{max(errs)} of the scale (> {MODEL_AXIS_TOL})")
         else:
             spec = (MODEL_AXIS_SERVES[case["arch"]] if case["kind"] == "serve"
@@ -3868,6 +3966,18 @@ def model_axis_phase() -> dict:
                 require(not form or sum(
                     g["launches_by_form"][base][form[:-1]] for g in got) > 0,
                     f"{cid}: no rank launched {kernel}")
+            bases = {k.partition("[")[0] for k in spec["kernels"]}
+            for rank, g in enumerate(got):
+                require(not spec.get("only") or all(
+                    n == 0 for k, n in g["launches"].items()
+                    if k not in bases),
+                    f"{cid}: rank {rank} launched {g['launches']}, only "
+                    f"{sorted(bases)} expected")
+                for k, v in spec.get("variants", {}).items():
+                    require(g["launches_by_variant"][k].get(v, 0)
+                            == g["launches"][k],
+                            f"{cid}: rank {rank} ran {k} as "
+                            f"{g['launches_by_variant'][k]}, not all {v}")
         row.update({k: [g[k] for g in got] for k in (
             "wall_s", "launches", "launches_by_variant", "launches_by_form",
             "transport", "peak_bytes", "param_bytes")})
@@ -3885,7 +3995,7 @@ def model_axis_phase() -> dict:
         rows[cid] = row
         log(json.dumps(row))
     return {"seconds": time.perf_counter() - t0, "ranks_s": ranks_s,
-            "gloo_cuda": ranks[0]["gloo_cuda"], "rows": rows}
+            "rows": rows}
 
 
 def model_axis_sp_traces() -> dict:
@@ -4863,10 +4973,11 @@ def main(argv=None) -> int:
     meshed = mesh_phase()
     log(f"mesh phase ({meshed['seconds']:.1f} s)")
 
-    # ---- phase 10: the model axis, mesh (1, 2) as two ranks on the card
+    # ---- phase 10: the model axis, meshes (1, 2) and (1, 3) as two and
+    # three ranks on the card
     model_axis = model_axis_phase()
     log(f"model axis phase ({model_axis['seconds']:.1f} s, of which the "
-        f"ranks {model_axis['ranks_s']:.1f} s)")
+        f"ranks {model_axis['ranks_s']})")
 
     # ---- phase 6: numbers
     for (net, engine, backend), (sig, seconds, opts) in results.items():

@@ -6,8 +6,8 @@ mesh=)`` (``launch/serve.py``, ``launch/train.py``) run with, inside a
 process group that the caller has initialised (:func:`init_ranks` from
 ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``, as ``torchrun`` sets them; the
 tests start each rank as a subprocess over gloo and a ``file://`` store,
-``chip_smoke.py``'s phase 10 two ranks on one card, over gloo).  It takes
-the plan (``launch/sharding.py``) on the mesh description
+``chip_smoke.py``'s phase 10 two and three ranks on one card, over
+gloo).  It takes the plan (``launch/sharding.py``) on the mesh description
 (``launch/mesh.py``), and makes one process group an axis and a
 coordinate of the other axes (rank ``r`` at the mesh's row-major
 coordinate ``r``).  Every collective goes through
@@ -40,8 +40,11 @@ the tensors' own device.
   heads that the axis does not divide are computed whole and the ones
   the local heads read are taken); K7's partial sum over the local
   ``ff`` slice, summed in float32 before the sandwich norm and the
-  residual; the RG-LRU's and the SSM block's width by heads; the experts
-  over ``model`` with the dispatch buffers carried by all-to-all.  A
+  residual; the RG-LRU's and the SSM block's width by heads; the MoE by
+  the reference's rule (``models/moe.py``: expert-parallel, the dispatch
+  buffers carried by all-to-all, where the rows have a batch axis and
+  the axis divides the experts; else every rank routing all its rows,
+  the experts split as the plan placed them, on ``ff`` or by expert).  A
   decode cache whose kv heads stay whole is split by sequence: each rank
   writes the entries of its slots and attends over them, and the step's
   partial softmaxes are merged by log-sum-exp (``models/attention.py``).
@@ -83,6 +86,7 @@ import itertools
 import math
 import os
 import re
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -93,7 +97,8 @@ from torch.nn.utils import parametrize
 from repro_torch.launch import tensor_parallel as tpc
 from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.sharding import (ShardingPlan, cache_pspecs,
-                                         make_plan, shard_shape)
+                                         hidden_batch_axes, make_plan,
+                                         shard_shape)
 from repro_torch.models.layers import Params, init_leaf, model_dtype
 
 _PARAM = re.compile(r"(^|\.)parametrizations\.(\w+)\.original$")
@@ -150,6 +155,7 @@ class MeshRun:
         self.coord = dict(zip(mesh.axis_names, self._coordinate(self.rank)))
         self.groups = self._axis_groups()
         self.specs: dict = {}         # name -> spec of a sharded parameter
+        self.model = None             # the model placed on this run
         n = mesh.shape.get("model", 1)
         rules = self.plan.rules
         self.tp = None if n == 1 else tpc.ModelAxis(
@@ -189,7 +195,16 @@ class MeshRun:
         return _axes(bp[0]) if bp else ()
 
     def rows(self, global_batch: int) -> slice:
-        """This rank's rows of a global batch."""
+        """This rank's rows of a global batch.  The run's model axis, and
+        that of the model it placed, then say whether these rows have a
+        batch axis (``ModelAxis.batch_axis``: the JAX package sets its
+        ``hidden_batch_axes`` from a run's global batch), which the MoE's
+        choice of path reads."""
+        if self.tp is not None:
+            self.tp = replace(self.tp, batch_axis=hidden_batch_axes(
+                self.plan, self.mesh, global_batch) is not None)
+            if self.model is not None:
+                self.model.tp = self.tp
         idx, n = 0, 1
         for a in self._batch_axes(global_batch):
             idx = idx * self.mesh.shape[a] + self.coord[a]
@@ -273,6 +288,7 @@ class MeshRun:
                 if self._split_dims(spec):
                     self.specs[full] = spec
         model.tp = self.tp
+        self.model = model
 
     def _split_dims(self, spec: tuple) -> list:
         """``[(dim, axis)]`` of a parameter spec: every ``data`` dimension

@@ -260,7 +260,13 @@ class ModelAxis:
     the whole model; the model narrows it to each stream it runs
     (:meth:`on_sequence`: a sequence of one token, or one that ``n`` does
     not divide, stays whole, as XLA leaves such a dimension), so inside a
-    block ``tp.seq`` says that the block's input and output are shards."""
+    block ``tp.seq`` says that the block's input and output are shards.
+
+    ``batch_axis``: the rows of the run's global batch have a batch axis
+    (the JAX package's ``hidden_batch_axes`` is not None for it;
+    ``MeshRun.rows`` sets it).  With it, and ``n`` dividing the experts,
+    the MoE runs expert-parallel, as the reference's rule is; ``experts``
+    and ``ff`` only say where the plan placed the weights."""
     group: object
     n: int
     rank: int
@@ -272,6 +278,7 @@ class ModelAxis:
     seq_cache: bool
     cp: bool
     seq: bool = False
+    batch_axis: bool = True
 
     def on_sequence(self, length: int) -> "ModelAxis":
         """This axis for a stream of ``length`` positions: ``seq`` kept

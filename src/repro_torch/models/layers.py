@@ -107,16 +107,20 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 def init_leaf(p: torch.Tensor, d: ParamDef,
               generator: torch.Generator) -> torch.Tensor:
     """Fill one parameter ``p`` of ``d`` from ``generator`` and return it:
-    normal draws are float32, then rounded to the parameter's type."""
+    normal draws are float32, scaled in place (a float32 ``p`` is drawn
+    into, so a leaf takes no second copy of its size), then rounded to the
+    parameter's type."""
     if d.init == "zeros":
         return p.zero_()
     if d.init == "ones":
         return p.fill_(1.0)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else max(1, d.shape[-1])
     scale = d.scale or 1.0 / math.sqrt(fan_in)
-    draw = torch.empty(d.shape, dtype=torch.float32, device=p.device)
+    draw = (p if p.dtype == torch.float32 else
+            torch.empty(d.shape, dtype=torch.float32, device=p.device))
     nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return p.copy_(scale * draw)
+    draw.mul_(scale)
+    return p if draw is p else p.copy_(draw)
 
 
 # -------------------------------------------------------------- grad fence

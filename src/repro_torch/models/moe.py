@@ -23,21 +23,42 @@ device without a host sync (no ``.item()``, no data-dependent shapes):
   scatter-add computes, and deterministic on the card, where
   ``index_add_`` would add in the order its atomics land.
 
-The expert-parallel path, the JAX package's ``_moe_shard_map``, runs
-with the experts split over a mesh's ``model`` axis (``tp``): each rank
-keeps ``E / n`` experts ``[E/n, d, F]``, and the dispatch buffer
-``[E, C, d]`` goes to the experts' owners by all-to-all and comes back
-the same way.  When ``T % n == 0`` and ``T >= 8 n`` each rank routes its
-``T / n`` slice of the rows with the capacity of that slice, and the
-outputs are gathered (sequence-parallel dispatch); otherwise every rank
-routes all of its rows (decode, or fewer than ``8 n`` rows); each rank
-then sends the same tokens to each expert, so in the backward each copy
-carries ``1 / n`` of the gradient, and the experts' and the router's
-gradients come out as one process's, as the reference's do.  The aux
-loss is the mean over the ``model`` ranks of theirs (``launch/steps.py``
-averages it over the batch axes, as the reference's ``pmean``).  On a
-mesh whose ``model`` axis is 1 each rank routes its own rows with the
-capacity of its own tokens: the reference's path with n = 1.
+On a mesh whose ``model`` axis is above 1 (``tp``) the layer chooses as
+the JAX package's ``moe_apply`` does, from the run and not from the plan:
+the expert-parallel path, its ``_moe_shard_map``, when the rows have a
+batch axis (``tp.batch_axis``, the reference's ``hidden_batch_axes``) and
+``n`` divides ``E``; otherwise its ``_moe_local``, every rank routing
+all of its rows with their capacity, the same on each rank.  Where the
+weights sit is the plan's (``launch/sharding.py``), and each path takes
+them as they were placed:
+
+* **Expert-parallel.**  Each rank runs ``E / n`` experts ``[E/n, d, F]``
+  and the dispatch buffer ``[E, C, d]`` goes to the experts' owners by
+  all-to-all and comes back the same way.  Experts the plan split over
+  ``model`` are the rank's already; experts it replicated are narrowed to
+  the rank's (``tp.scatter``: its backward gathers the whole gradient);
+  experts it split on ``ff`` are exchanged once, ``[E, d, F/n]`` into
+  ``[E/n, d, F]`` (``tp.all_to_all``, whose backward is the reverse): what
+  the reference's ``shard_map`` ``in_specs`` do on every call.  When
+  ``T % n == 0`` and ``T >= 8 n`` each rank routes its ``T / n`` slice of
+  the rows with the capacity of that slice, and the outputs are gathered
+  (sequence-parallel dispatch); otherwise every rank routes all of its
+  rows (decode, or fewer than ``8 n`` rows), each rank sends the same
+  tokens to each expert, so in the backward each copy carries ``1 / n``
+  of the gradient.  The aux loss is the mean over the ``model`` ranks of
+  theirs (``launch/steps.py`` averages it over the batch axes, as the
+  reference's ``pmean``).
+* **Local.**  Every rank routes and dispatches all of its rows, the same
+  on each, then runs the experts as they were placed: split on ``ff``,
+  ``[E, C, d] x [E, d, F/n]`` on its slice, the partial down products
+  summed over ``model`` before the combine (the contraction GSPMD reduces
+  in the reference); split by expert, its ``E / n`` slabs of the buffer,
+  gathered; replicated, all of them.  The routing is computed whole on
+  every rank, so only the dispatched buffer enters the split work through
+  ``tp.copy``.
+
+On a mesh whose ``model`` axis is 1 each rank routes its own rows with
+the capacity of its own tokens: the reference's path with n = 1.
 """
 from __future__ import annotations
 
@@ -102,20 +123,28 @@ def _route(p, h2: torch.Tensor, cfg, router=None):
     return gate_vals, expert_idx, me, ce
 
 
-def _expert_ffn(buf: torch.Tensor, p, cfg) -> torch.Tensor:
-    """[E, C, d] -> [E, C, d]: every expert's gated MLP on its slab, the
-    products in the buffer's type."""
+def _weights(p) -> tuple:
+    return p.w_gate, p.w_up, p.w_down
+
+
+def _expert_ffn(buf: torch.Tensor, w: tuple, cfg) -> torch.Tensor:
+    """[E', C, d] -> [E', C, d]: every expert's gated MLP on its slab, the
+    products in the buffer's type; ``w`` is ``(w_gate [E', d, F'], w_up,
+    w_down [E', F', d])``.  With ``F'`` a slice of ``ff`` the result is
+    that slice's part of the down product."""
     dt = buf.dtype
-    a = act_fn(cfg.act)(torch.bmm(buf, p.w_gate.to(dt)))
-    u = torch.bmm(buf, p.w_up.to(dt))
-    return torch.bmm(a * u, p.w_down.to(dt))
+    wg, wu, wd = w
+    a = act_fn(cfg.act)(torch.bmm(buf, wg.to(dt)))
+    u = torch.bmm(buf, wu.to(dt))
+    return torch.bmm(a * u, wd.to(dt))
 
 
-def _dispatch_combine(p, h2: torch.Tensor, cfg, tp=None, router=None):
-    """Dispatch -> expert FFN -> combine on a [T, d] token block.  Returns
-    (y [T, d] in h2's type, aux loss).  With ``tp`` the experts are the
-    rank's ``E / n`` and the buffer travels to them by all-to-all;
-    ``router`` is then the whole router."""
+def _dispatch_combine(p, h2: torch.Tensor, cfg, experts=None,
+                      router=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch -> experts -> combine on a [T, d] token block.  Returns (y
+    [T, d] in h2's type, aux loss).  ``experts`` maps the dispatch buffer
+    ``[E, C, d]`` to its outputs (default: every expert of ``p`` on its
+    slab); ``router`` is ``p.router`` unless given."""
     T, d = h2.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(T, cfg)
@@ -130,16 +159,8 @@ def _dispatch_combine(p, h2: torch.Tensor, cfg, tp=None, router=None):
     buf = torch.zeros((E * C + 1, d), dtype=h2.dtype,
                       device=h2.device).index_copy(0, dest, h2[tok])
     buf = buf[:E * C].reshape(E, C, d)
-    if tp is None:
-        out = _expert_ffn(buf, p, cfg).reshape(E * C, d)
-    else:
-        # [E, C, d] -> the owners' [E/n, n*C, d] (slot blocks by source
-        # rank), and back
-        n, el = tp.n, E // tp.n
-        got = tp.all_to_all(buf.reshape(n, el, C, d))
-        y = _expert_ffn(got.transpose(0, 1).reshape(el, n * C, d), p, cfg)
-        out = tp.all_to_all(y.reshape(el, n, C, d).transpose(0, 1)
-                            ).reshape(E * C, d)
+    out = (_expert_ffn(buf, _weights(p), cfg) if experts is None
+           else experts(buf)).reshape(E * C, d)
 
     # keep the combine in the activation type, as the JAX package does
     w = torch.where(keep, gate_vals.reshape(-1),
@@ -165,6 +186,103 @@ class _ShareOfGradient(torch.autograd.Function):
         return g / ctx.n, None
 
 
+def _ff_to_experts(w: torch.Tensor, tp, ff_dim: int) -> torch.Tensor:
+    """Experts split on ``ff`` (``[E, d, F/n]``, or ``[E, F/n, d]`` with
+    ``ff_dim`` 1) -> this rank's ``E / n`` experts whole, by one
+    all-to-all (backward: the reverse)."""
+    n = tp.n
+    got = tp.all_to_all(w.reshape(n, w.shape[0] // n, *w.shape[1:]))
+    # got[j] is rank j's ff slice of this rank's experts: put the slices
+    # in rank order along ff
+    got = got.movedim(0, ff_dim)
+    shape = list(w.shape)
+    shape[0] //= n
+    shape[ff_dim] *= n
+    return got.reshape(shape)
+
+
+def _expert_parallel(p, h: torch.Tensor, cfg, tp):
+    """The reference's ``_moe_shard_map`` on this rank's rows ``h`` [T, d]
+    (under SP gathered whole): (y [T, d], aux)."""
+    T, n, sp = h.shape[0], tp.n, tp.seq
+    if tp.experts:
+        w = _weights(p)
+        router = tp.gather_shards(p.router, 1)
+    else:
+        w = ((_ff_to_experts(p.w_gate, tp, 2), _ff_to_experts(p.w_up, tp, 2),
+              _ff_to_experts(p.w_down, tp, 1)) if tp.ff
+             else tuple(tp.scatter(t, 0) for t in _weights(p)))
+        # each rank's share of the router's gradient is a part
+        router = tp.copy(p.router)
+
+    def experts(buf):
+        # [E, C, d] -> the owners' [E/n, n*C, d] (slot blocks by source
+        # rank), and back
+        E, C, d = buf.shape
+        el = E // n
+        got = tp.all_to_all(buf.reshape(n, el, C, d))
+        y = _expert_ffn(got.transpose(0, 1).reshape(el, n * C, d), w, cfg)
+        return tp.all_to_all(y.reshape(el, n, C, d).transpose(0, 1))
+
+    if T % n == 0 and T >= 8 * n:
+        # sequence-parallel dispatch: this rank's slice of the rows
+        y, aux = _dispatch_combine(p, tp.slice(h if sp else tp.copy(h), 0),
+                                   cfg, experts, router)
+        return (tp.gather_shards(y, 0) if sp else tp.gather(y, 0),
+                tp.reduce(aux) / n)
+    if sp:
+        # whole rows on every rank, each rank's gradient only its shard's
+        # positions' (the output is sliced): the ranks' parts add up; the
+        # aux loss, the same on every rank, takes 1/n a rank
+        y, aux = _dispatch_combine(p, h, cfg, experts, router)
+        return y, _ShareOfGradient.apply(aux, n)
+    # whole rows on every rank, the same on each: every expert and the
+    # router see each token n times, so each copy takes 1/n of the
+    # gradient, and the rows enter through ``tp.copy``, whose sum gives
+    # each rank the whole of theirs
+    y, aux = _dispatch_combine(p, tp.copy(h), cfg, experts, router)
+    return _ShareOfGradient.apply(y, n), _ShareOfGradient.apply(aux, n)
+
+
+def _ff_sum(part: torch.Tensor, tp) -> torch.Tensor:
+    """The ranks' partial down products of an ``ff`` split summed.  Under
+    SP each rank's gradient of the sum is a part (its shard's positions),
+    so the backward sums them too."""
+    out = tp.reduce(part)
+    return tp.copy(out) if tp.seq else out
+
+
+def _local(p, h: torch.Tensor, cfg, tp):
+    """The reference's ``_moe_local`` on this rank's rows ``h`` [T, d]
+    (under SP gathered whole), every rank routing all of them alike, the
+    experts as the plan placed them: (y [T, d], aux).
+
+    Without SP each rank's gradient is the whole one: the split work's
+    parts of the buffer's gradient are summed by ``tp.copy``, a gathered
+    router's is this rank's slice.  Under SP each rank's gradient is its
+    shard's part, summed where the shards were gathered: the buffer enters
+    as it is, the sums' and gathers' backwards sum, and the aux loss takes
+    1/n a rank."""
+    sp, w = tp.seq, _weights(p)
+    if tp.experts:
+        router = (tp.gather_shards if sp else tp.gather)(p.router, 1)
+    else:
+        router = on_shard(p.router, tp)
+
+    def experts(buf):
+        if not (tp.experts or tp.ff):
+            # replicated (a hybrid plan, so never under SP): all of them
+            return _expert_ffn(buf, w, cfg)
+        buf = buf if sp else tp.copy(buf)
+        if tp.experts:
+            out = _expert_ffn(tp.slice(buf, 0), w, cfg)
+            return tp.gather_shards(out, 0) if sp else tp.gather(out, 0)
+        return _ff_sum(_expert_ffn(buf, w, cfg), tp)
+
+    y, aux = _dispatch_combine(p, h, cfg, experts, router)
+    return y, (_ShareOfGradient.apply(aux, tp.n) if sp else aux)
+
+
 def moe_apply(p, x: torch.Tensor, cfg, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y with residual, aux loss, a float32 scalar).
@@ -172,40 +290,19 @@ def moe_apply(p, x: torch.Tensor, cfg, tp=None
     the normed shards are gathered, so the layer routes the same rows in
     the same order as without SP (capacity drops depend on that order),
     and the output keeps this rank's shard."""
-    if tp is not None and tp.ff and not tp.experts:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_experts} experts on {tp.n} model ranks: "
-            f"the plan splits the experts' ff instead, which has no path")
     sp = tp is not None and tp.seq
     h = rms_norm(x, on_shard(p.pre_norm, tp))
     if sp:
         h = tp.gather_shards(h, 1)
     B, S, d = h.shape
     h = h.reshape(B * S, d)
-    if tp is None or not tp.experts:
+    if tp is None:
         y, aux = _dispatch_combine(p, h, cfg)
         return x + y.reshape(B, S, d).to(x.dtype), aux
-    T, n = B * S, tp.n
-    router = tp.gather_shards(p.router, 1)
-    if T % n == 0 and T >= 8 * n:
-        # sequence-parallel dispatch: this rank's slice of the rows
-        y, aux = _dispatch_combine(p, tp.slice(h if sp else tp.copy(h), 0),
-                                   cfg, tp, router)
-        y = tp.gather_shards(y, 0) if sp else tp.gather(y, 0)
-        aux = tp.reduce(aux) / n
-    elif sp:
-        # whole rows on every rank, each rank's gradient only its shard's
-        # positions' (the output is sliced below): the ranks' parts add
-        # up; the aux loss, the same on every rank, takes 1/n a rank
-        y, aux = _dispatch_combine(p, h, cfg, tp, router)
-        aux = _ShareOfGradient.apply(aux, n)
-    else:
-        # whole rows on every rank, the same on each: every expert and the
-        # router see each token n times, so each copy takes 1/n of the
-        # gradient, and the rows enter through ``tp.copy``, whose sum
-        # gives each rank the whole of theirs
-        y, aux = _dispatch_combine(p, tp.copy(h), cfg, tp, router)
-        y, aux = _ShareOfGradient.apply(y, n), _ShareOfGradient.apply(aux, n)
+    # the reference's rule: experts over the model axis iff the rows have
+    # a batch axis and the axis divides the experts
+    ep = tp.batch_axis and cfg.n_experts % tp.n == 0
+    y, aux = (_expert_parallel if ep else _local)(p, h, cfg, tp)
     y = y.reshape(B, S, d)
     if sp:
         y = tp.slice(y, 1)

@@ -13,7 +13,8 @@ The job lists cases, each with its mesh's ``dims`` (as ``data``,
   plan's FSDP on (the ``embed`` axis over ``data``, the rule the
   reference's ``make_plan`` applies above its threshold);
 * ``serve`` -- ``serve`` of a batch with the weights pickled in
-  ``params`` (the JAX package's tree, numpy leaves);
+  ``params`` (the JAX package's tree, numpy leaves), the smoke config's
+  fields ``replace`` changed;
 * ``cp`` -- ``models/attention.py::cp_attention`` on numpy inputs;
 * ``psum`` -- ``optim/compression.py::compressed_psum`` over ``pod`` in a
   ``shard_map``, each participant's gradients its row of the inputs;
@@ -82,7 +83,8 @@ def _serve(case, mesh):
     from repro.configs import smoke_config
     from repro.launch.serve import ServeConfig, serve
 
-    cfg = smoke_config(case["arch"]).replace(max_seq=case["seq"])
+    cfg = smoke_config(case["arch"]).replace(max_seq=case["seq"],
+                                             **case.get("replace", {}))
     with open(case["params"], "rb") as f:
         params = jax.tree.map(jax.numpy.asarray, pickle.load(f))
     out = serve(cfg, ServeConfig(batch=case["batch"],

@@ -362,8 +362,11 @@ def case_batch(cfg, case) -> dict:
 def mesh_case_grads(cfg, case, mesh, plan) -> dict:
     """The gradients of one step's loss on ``mesh`` (the weights of
     ``Model.init_weights(5)``, the case's first batch), each gathered
-    whole, with the step's global nll and aux."""
+    whole, with the step's global nll and aux, its collectives, and the
+    parameters' bytes placed on this rank beside ``dryrun.shard_bytes``'s."""
     from repro_torch.launch.distributed import MeshRun
+    from repro_torch.launch.dryrun import abstract_params, shard_bytes
+    from repro_torch.launch.sharding import param_pspecs
     from repro_torch.launch.steps import mesh_grads, train_params
     from repro_torch.models.model import Model
 
@@ -380,8 +383,14 @@ def mesh_case_grads(cfg, case, mesh, plan) -> dict:
                                      case_batch(cfg, case))
     collectives = tpc.collectives_summary()
     nll, aux = run.dp_sum(torch.stack([nll, aux])).tolist()
+    meta = Model(cfg, device="meta")
     return {"nll": nll, "aux": aux, "collectives": collectives,
             "dropped": sum(dropped),
+            "local_param_bytes": sum(p.numel() * p.element_size()
+                                     for p in model.parameters()),
+            "shard_param_bytes": shard_bytes(
+                abstract_params(meta, torch.float32),
+                param_pspecs(meta, mesh, plan), mesh),
             "grads": {n: run.full_tensor(n, g).to("cpu", copy=True)
                       for n, g in zip(params, grads)}}
 
