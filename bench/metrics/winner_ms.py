@@ -1,0 +1,18 @@
+"""winner_ms: mean time a compile spends on the winner: its journal re-
+pricing and the direct oracle's ``evaluate``, from the program's spans
+(``repro_torch/utils/tracing.py``): the seconds of ``search.reprice`` and
+``search.oracle`` over the compiles of the traced window, in ms."""
+
+SPANS = ("search.reprice", "search.oracle")
+
+
+def read(window):
+    try:
+        from repro_torch.utils.tracing import totals
+    except ImportError:             # a program that marks no spans
+        return None
+    spans = totals()
+    if not window.compiles_run or not any(n in spans for n in SPANS):
+        return None
+    seconds = sum(spans[n]["seconds"] for n in SPANS if n in spans)
+    return 1e3 * seconds / window.compiles_run

@@ -14,6 +14,10 @@ Pipeline (paper Fig. 4), one pass per stage:
    winning allocation to the accelerator's register-level instruction
    stream (one GroupInstruction per group).
 
+Under a ``torch.profiler`` each call is a ``compile`` span with the stages
+as ``compile.group``, ``search`` and ``compile.plan`` inside it
+(``utils/tracing.py``).
+
 The result is an :class:`ExecutionPlan`: the chosen policy/allocation, the
 three analytic reports the paper tabulates (SRAM, DRAM, latency), derived
 metrics (GOPS, MAC efficiency, off-chip reduction vs. the all-row
@@ -39,6 +43,7 @@ from repro_torch.core.ir import Graph
 from repro_torch.core.isa import GroupInstruction, generate_instructions
 from repro_torch.core.sram import SRAMReport, sram_report
 from repro_torch.core.timing import LatencyReport, latency_report
+from repro_torch.utils.tracing import COMPILE, span
 
 
 @dataclass
@@ -149,34 +154,38 @@ def compile_graph(graph: Graph, hw: FPGAConfig = KCU1500,
     oracle and seeds the branch-and-bound incumbent -- exhaustive-path
     results stay bit-identical to a cold compile.
     """
-    opts = resolve_options(options, legacy, site="compile_graph")
-    graph.validate()
-    gg = group_nodes(graph)
-    result: SearchResult | None = None
-    if policy is None:
-        result = search(gg, hw, opts, guard=guard, warm_start=warm_start)
-        cand = result.best
-        alloc = cand.alloc
-    else:
-        alloc = allocate(gg, policy)
-    sram = sram_report(gg, alloc, hw)
-    dram = dram_report(gg, alloc)
-    latency = latency_report(gg, alloc, hw)
-    if policy is not None:
-        feasible = (sram.sram_total <= hw.sram_budget
-                    and frame_feasible(gg, policy, alloc))
-        cand = Candidate(
-            cuts=(), policy=policy, alloc=alloc,
-            latency_cycles=latency.cycles,
-            dram_total=dram.total, dram_fm=dram.fm_bytes,
-            sram_total=sram.sram_total, bram18k=sram.bram18k,
-            feasible=feasible)
-    plan = ExecutionPlan(
-        graph=graph, grouped=gg, hw=hw, candidate=cand, alloc=alloc,
-        sram=sram, dram=dram, latency=latency,
-        instructions=generate_instructions(gg, alloc),
-        search=result)
-    return apply_verification(plan, opts.verify)
+    with span(COMPILE):
+        opts = resolve_options(options, legacy, site="compile_graph")
+        with span("compile.group"):
+            graph.validate()
+            gg = group_nodes(graph)
+        result: SearchResult | None = None
+        if policy is None:
+            result = search(gg, hw, opts, guard=guard,
+                            warm_start=warm_start)
+            cand = result.best
+            alloc = cand.alloc
+        else:
+            alloc = allocate(gg, policy)
+        with span("compile.plan"):
+            sram = sram_report(gg, alloc, hw)
+            dram = dram_report(gg, alloc)
+            latency = latency_report(gg, alloc, hw)
+            if policy is not None:
+                feasible = (sram.sram_total <= hw.sram_budget
+                            and frame_feasible(gg, policy, alloc))
+                cand = Candidate(
+                    cuts=(), policy=policy, alloc=alloc,
+                    latency_cycles=latency.cycles,
+                    dram_total=dram.total, dram_fm=dram.fm_bytes,
+                    sram_total=sram.sram_total, bram18k=sram.bram18k,
+                    feasible=feasible)
+            plan = ExecutionPlan(
+                graph=graph, grouped=gg, hw=hw, candidate=cand, alloc=alloc,
+                sram=sram, dram=dram, latency=latency,
+                instructions=generate_instructions(gg, alloc),
+                search=result)
+        return apply_verification(plan, opts.verify)
 
 
 def all_row_policy(gg: GroupedGraph) -> dict[int, str]:

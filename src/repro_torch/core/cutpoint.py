@@ -121,6 +121,7 @@ from repro_torch.core.sram import (sram_report, sram_tables, sram_total_fast,
 from repro_torch.core.timing import (latency_cycles_fast,
                                      latency_cycles_fast_batch,
                                      latency_report, latency_tables, seq_sum)
+from repro_torch.utils.tracing import span
 
 
 # ------------------------------------------------------------------- blocks
@@ -763,8 +764,9 @@ class CutpointEngine:
         (built on first use)."""
         if self._at is None:
             from repro_torch.kernels.alloc_scan import pack_alloc_tables
-            self._at = pack_alloc_tables(self.gg, self.hw,
-                                         device=self.device)
+            with span("pipeline.tables"):
+                self._at = pack_alloc_tables(self.gg, self.hw,
+                                             device=self.device)
         return self._at
 
     # ------------------------------------------------------ batched scoring
@@ -1302,15 +1304,21 @@ def search(gg: GroupedGraph, hw: FPGAConfig,
                                   task_deadline_s=opts.task_deadline_s,
                                   guard=guard) as driver:
             return driver.search(gg, hw, opts, warm_start=warm_start)
+    with span("search"):
+        return _serial_search(gg, hw, opts, warm_start)
 
-    blocks = split_blocks(gg)
-    runs = monotone_runs(blocks)
+
+def _serial_search(gg: GroupedGraph, hw: FPGAConfig, opts: CompileOptions,
+                   warm_start) -> SearchResult:
+    """``search`` in this process: the exhaustive path or the descent."""
+    with span("search.engine"):
+        blocks = split_blocks(gg)
+        runs = monotone_runs(blocks)
+        engine = CutpointEngine(gg, hw, blocks, runs, backend=opts.backend,
+                                engine=opts.engine, device=opts.device)
     space = 1
     for r in runs:
         space *= len(r) + 1
-
-    engine = CutpointEngine(gg, hw, blocks, runs, backend=opts.backend,
-                            engine=opts.engine, device=opts.device)
     spec = opts.engine_spec()
     objective, batch_size = opts.objective, spec.batch_size
 
@@ -1319,7 +1327,8 @@ def search(gg: GroupedGraph, hw: FPGAConfig,
         # Re-run the winner through the direct oracle so the returned
         # Candidate (policy, alloc, metrics) is exactly what the direct
         # search would have produced.
-        cand = evaluate(gg, blocks, runs, best.cuts, hw)
+        with span("search.oracle"):
+            cand = evaluate(gg, blocks, runs, best.cuts, hw)
         evaluated = engine.evaluations
         if opts.count_pruned:
             evaluated += pruned
@@ -1335,7 +1344,7 @@ def search(gg: GroupedGraph, hw: FPGAConfig,
                 f"core; use engine='pipeline' to enumerate on the "
                 f"device, keep prune=True, or lower exhaustive_limit to "
                 f"fall back to coordinate descent",
-                RuntimeWarning, stacklevel=2)
+                RuntimeWarning, stacklevel=3)
         # Warm start: price the cached cuts through the direct oracle
         # (not the engine, so ``evaluations`` bookkeeping is untouched)
         # and open branch-and-bound with that real candidate's key as

@@ -92,3 +92,17 @@ def reset_launch_counts() -> None:
             fn.launches_by_variant[variant] = 0
         for form in getattr(fn, "launches_by_form", ()):
             fn.launches_by_form[form] = 0
+
+
+def upload(device, *arrays) -> list:
+    """numpy arrays -> tensors on ``device``, a copy each: the one way the
+    cut search's tables reach the device, counted under a profiler as
+    ``pipeline.uploads`` (``utils/tracing.py``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.utils import tracing
+
+    tracing.count("pipeline.uploads", len(arrays))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]

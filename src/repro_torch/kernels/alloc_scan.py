@@ -62,6 +62,7 @@ from repro_torch.core.allocator import (GRAPH_INPUT, LIVE_EMPTY, LOC_DRAM,
                                         LOC_SIDE, NUM_BUFFERS, graph_steps,
                                         init_alloc_state, spill_is_long_path,
                                         state_to_arrays)
+from repro_torch.kernels import upload
 
 # Sink slot's initial consumer count: decremented once per padded fan-in
 # slot per step in the plain version, must never reach zero.
@@ -225,17 +226,13 @@ class AllocScanTables:
         slots = lane_slots(f["gin"], f["main"], f["sc"])
 
         def i32(a):
-            return torch.from_numpy(
-                np.minimum(a, _INT32_MAX).astype(np.int32)).to(device)
+            return np.minimum(a, _INT32_MAX).astype(np.int32)
 
-        dev = {
-            "rem0": torch.from_numpy(rem0).to(device),
-            "loc0": torch.from_numpy(f["loc0"].astype(np.int64)).to(device),
-            "steps32": i32(steps),
-            "slots32": i32(_slot_table(
-                f["gin"], f["main"], f["sc"], rem0, f["loc0"].astype(np.int64),
-                f["wr_cand"].astype(np.int64), slots)),
-        }
+        loc0 = f["loc0"].astype(np.int64)
+        table = _slot_table(f["gin"], f["main"], f["sc"], rem0, loc0,
+                            f["wr_cand"].astype(np.int64), slots)
+        dev = dict(zip(("rem0", "loc0", "steps32", "slots32"),
+                       upload(device, rem0, loc0, i32(steps), i32(table))))
         # the tensors' own device: "cuda" has become "cuda:0" by now
         device = dev["rem0"].device
         return cls(n=n, k=k, input_idx=n, sink_idx=n + 1,

@@ -82,9 +82,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.options import DEFAULT_BATCH_SIZE
+from repro_torch.kernels import upload
 from repro_torch.kernels.alloc_scan import (N_STATS, STAT_BFM, STAT_FEAS,
                                             STAT_SIDE, STAT_WRF, alloc_scan,
                                             lane_major)
+from repro_torch.utils.tracing import span
 
 VARIANTS = ("torch", "cuda")
 OBJECTIVES = ("latency", "sram", "dram")
@@ -167,16 +169,14 @@ class PipelineTables:
         tab = np.stack([np.asarray(d[name]).astype(np.float64)
                         for name in _TAB_ROWS])
 
-        def to(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        tab = to(tab)
+        (tab, run_of_t, pos_of_t, dir_neg_t, run_of32, pos_of32,
+         dir_neg8) = upload(device, tab, run_of, pos_of, dir_neg,
+                            run_of.astype(np.int32), pos_of.astype(np.int32),
+                            dir_neg.astype(np.uint8))
         # the tensors' own device: "cuda" has become "cuda:0" by now
-        return cls(n=len(run_of), device=tab.device, run_of=to(run_of),
-                   pos_of=to(pos_of), dir_neg=to(dir_neg),
-                   run_of32=to(run_of.astype(np.int32)),
-                   pos_of32=to(pos_of.astype(np.int32)),
-                   dir_neg8=to(dir_neg.astype(np.uint8)), tab=tab,
+        return cls(n=len(run_of), device=tab.device, run_of=run_of_t,
+                   pos_of=pos_of_t, dir_neg=dir_neg_t, run_of32=run_of32,
+                   pos_of32=pos_of32, dir_neg8=dir_neg8, tab=tab,
                    bpc=float(d["bpc"]), goc=float(d["goc"]),
                    budget=int(d["budget"]),
                    weight_bytes=int(d["weight_bytes"]),
@@ -191,18 +191,19 @@ def _engine_tables(engine) -> PipelineTables:
         return tbl
     lt, dt, st = engine._lt, engine._dt, engine._st
     hw = engine.hw
-    tbl = PipelineTables.from_numpy({
-        "run_of": engine._run_of, "pos_of": engine._pos_of,
-        "dir_neg": engine._dir_neg,
-        "lt_comp": lt.comp, "lt_row": lt.row, "lt_weight": lt.weight,
-        "lt_side": lt.side, "dt_rowfm": dt.row_fm,
-        "st_comp": st.compute, "st_weight": st.weight,
-        "st_outf": st.out_frame, "st_outr": st.out_row,
-        "st_wrr": st.wr_row,
-        "bpc": hw.dram_bytes_per_cycle, "goc": hw.group_overhead_cycles,
-        "budget": hw.sram_budget, "weight_bytes": dt.weight_bytes,
-        "row_buff": st.row_buff,
-    }, device=engine.device)
+    with span("pipeline.tables"):
+        tbl = PipelineTables.from_numpy({
+            "run_of": engine._run_of, "pos_of": engine._pos_of,
+            "dir_neg": engine._dir_neg,
+            "lt_comp": lt.comp, "lt_row": lt.row, "lt_weight": lt.weight,
+            "lt_side": lt.side, "dt_rowfm": dt.row_fm,
+            "st_comp": st.compute, "st_weight": st.weight,
+            "st_outf": st.out_frame, "st_outr": st.out_row,
+            "st_wrr": st.wr_row,
+            "bpc": hw.dram_bytes_per_cycle, "goc": hw.group_overhead_cycles,
+            "budget": hw.sram_budget, "weight_bytes": dt.weight_bytes,
+            "row_buff": st.row_buff,
+        }, device=engine.device)
     engine._pipeline_tables = tbl
     return tbl
 
@@ -221,20 +222,22 @@ class SubSpace:
 
     @classmethod
     def make(cls, prefix, dims, device) -> "SubSpace":
-        prefix = tuple(int(c) for c in prefix)
-        dims = tuple(int(d) for d in dims)
-        strides = _space_strides(dims)
-        size = 1
-        for d in dims:
-            size *= d
-        npfx = len(prefix)
-        digits = np.zeros((3, npfx + len(dims)), dtype=np.int64)
-        digits[0, :npfx] = prefix
-        digits[1, npfx:] = strides
-        digits[2, :npfx] = 1
-        digits[2, npfx:] = dims
-        return cls(prefix=prefix, dims=dims, strides=strides, size=size,
-                   digits=torch.from_numpy(digits).to(device))
+        with span("pipeline.tables"):
+            prefix = tuple(int(c) for c in prefix)
+            dims = tuple(int(d) for d in dims)
+            strides = _space_strides(dims)
+            size = 1
+            for d in dims:
+                size *= d
+            npfx = len(prefix)
+            digits = np.zeros((3, npfx + len(dims)), dtype=np.int64)
+            digits[0, :npfx] = prefix
+            digits[1, npfx:] = strides
+            digits[2, :npfx] = 1
+            digits[2, npfx:] = dims
+            [digits] = upload(device, digits)
+            return cls(prefix=prefix, dims=dims, strides=strides, size=size,
+                       digits=digits)
 
 
 def _objective_code(objective: str) -> int:
@@ -614,12 +617,13 @@ def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
     los = range(0, space.size, chunk)
     winners = torch.empty((len(los), 4), dtype=torch.float64,
                           device=tbl.device)
-    for k, lo in enumerate(los):
-        count = min(chunk, space.size - lo)
-        frame = enum_frames(tbl, space, lo, count, backend=variant)
-        res = alloc_scan(at, frame, backend=variant)
-        cost_rows(tbl, frame, res.io, res.stats, lo, objective,
-                  backend=variant, winner=winners[k])
+    with span("pipeline.enqueue"):
+        for k, lo in enumerate(los):
+            count = min(chunk, space.size - lo)
+            frame = enum_frames(tbl, space, lo, count, backend=variant)
+            res = alloc_scan(at, frame, backend=variant)
+            cost_rows(tbl, frame, res.io, res.stats, lo, objective,
+                      backend=variant, winner=winners[k])
     return winners
 
 
@@ -654,7 +658,9 @@ def pipeline_subspace(engine, prefix, suffix_dims, objective: str,
     before = engine.evaluations
 
     def finish(cuts):
-        [m] = engine.score_batch([cuts], memoize=False, replay="journal")
+        with span("search.reprice"):
+            [m] = engine.score_batch([cuts], memoize=False,
+                                     replay="journal")
         engine.evaluations = before + space.size
         return m, 0
 
@@ -663,8 +669,10 @@ def pipeline_subspace(engine, prefix, suffix_dims, objective: str,
     rows = run_chunks(engine, space, objective, max(1, int(batch_size)),
                       variant)
     best = None
-    for row in rows.cpu().tolist():       # the one read-back per sub-space
-        best = _fold(best, row)
+    with span("pipeline.readback"):
+        # the one read-back per sub-space: it waits for the last chunk
+        for row in rows.cpu().tolist():
+            best = _fold(best, row)
     assert best is not None and best[0] <= 1.0
     return finish(space.prefix
                   + _decode_index(int(best[3]), space.strides, space.dims))
