@@ -17,7 +17,12 @@ What it does, in order; any failure ends the run with a non-zero exit code:
                slot map of K1's on-chip state: 7 lanes live at once) and
                efficientnet-b1 (139, with SE side groups); cut-derived and
                random frame masks, all three objectives, duplicated argmin
-               keys; K2 at each width of its stores (``enum_frames_plan``:
+               keys; K1 also from its chunks' state rows (the prefix
+               kernel's, ``PREFIX_CASES``: every chunk of yolov2's space
+               at 2^20, four of yolov3's at 2^20 and 64 at 1,024, a
+               sub-space with fixed leading cuts) against the plain
+               version's whole replay, and without a row at resnet152's
+               8,748; K2 at each width of its stores (``enum_frames_plan``:
                16 candidates a thread at yolov2's chunk, 4 at resnet152's
                8,748, 1 at an odd B), at B = 1 and, on the spaces larger
                than 2^32, from ``lo`` = 2^32 - 5; K3 under both of its plans
@@ -384,6 +389,12 @@ KERNEL_INFO = {
     "alloc_scan": {
         "source": "src/repro_torch/kernels/csrc/alloc_scan.cu",
         "replaces": "src/repro/kernels/alloc_scan.py:492"},
+    # K1's shared prefix: the state a chunk's candidates share, replayed
+    # once a chunk (one launch a sub-space); the TPU kernel replays every
+    # group for every candidate
+    "alloc_prefix": {
+        "source": "src/repro_torch/kernels/csrc/alloc_scan.cu",
+        "replaces": None},
     "enum_frames": {
         "source": "src/repro_torch/kernels/csrc/search_pipeline.cu",
         "replaces": "src/repro/kernels/search_pipeline.py:448"},
@@ -443,8 +454,8 @@ SCORER_SHAPES = (("resnet152", 1024), ("yolov2", CHUNK),
 # the four sweeps of the main path: (engine, backend, exhaustive limits,
 # kernels that must have launched); K4 runs inside K3's launches
 PIPELINE_KERNELS = ("alloc_scan", "enum_frames", "cost_rows", "argmin_rows")
-SWEEPS = (("pipeline", "numpy", {}, ("alloc_scan", "enum_frames",
-                                     "cost_rows")),
+SWEEPS = (("pipeline", "numpy", {}, ("alloc_scan", "alloc_prefix",
+                                     "enum_frames", "cost_rows")),
           ("device", "numpy", {"yolov2": 100000}, ("alloc_scan",)),
           ("pipeline", "pallas", {}, ("score_batch",)),
           ("device", "pallas", {"yolov2": 100000},
@@ -834,6 +845,90 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
         lambda: pipe.cost_rows_cuda(tbl, frame, res_k.io, res_k.stats, lo,
                                     "latency"), "cost_rows", reps)
     out["times"]["enum_frames"]["vec"] = pipe.enum_frames_plan(B)
+    return out
+
+
+# K1 from its chunks' state rows: (net, chunk, chunks checked -- None:
+# all, else that many spread over the space from the first to the last,
+# sub-space -- None: the whole space, else its size with the leading cuts
+# fixed mid-run, check_space)
+PREFIX_CASES = (("yolov2", CHUNK, None, None), ("yolov3", CHUNK, 4, None),
+                ("yolov3", 1024, 64, None), ("yolov2", 4096, 8, 20000))
+
+
+def check_alloc_prefix(timed: bool, reps: int) -> dict:
+    """K1 started from each chunk's state row (``alloc_prefix_cuda``, one
+    launch a space) against the plain version's whole replay of the same
+    chunk's masks, every integer equal, and each row's ``g0`` equal to
+    ``shared_prefix``'s; then K1 without a row over resnet152's whole space
+    (8,748 candidates).  Timed: the prefix kernel, and K1 with and without
+    the row, at yolov3's chunk of 2^20, and K1 at resnet152 (device ms
+    from a trace)."""
+    import torch
+    from repro_torch.kernels import alloc_scan as scan
+    from repro_torch.kernels import search_pipeline as pipe
+
+    def whole(engine):
+        return pipe.SubSpace.make((), [len(r) + 1 for r in engine.runs],
+                                  "cuda")
+
+    def equal(got, want, what):
+        require(torch.equal(got.io.to(torch.int64), want.io)
+                and torch.equal(got.stats.to(torch.int64), want.stats),
+                f"{what}: K1 != the plain version's whole replay")
+
+    out, timed_at = {}, None
+    for net, chunk, picks, target in PREFIX_CASES:
+        engine = make_engine(net)
+        tbl = pipe._engine_tables(engine)
+        at = engine.alloc_tables()
+        space = whole(engine) if target is None else check_space(engine,
+                                                                 target)
+        rows = scan.alloc_prefix_cuda(at, tbl, space, chunk)
+        n_chunks = rows.shape[0]
+        picked = (range(n_chunks) if picks is None else sorted(
+            {round(i * (n_chunks - 1) / (picks - 1)) for i in range(picks)}))
+        g0s = set()
+        for k in picked:
+            lo = k * chunk
+            count = min(chunk, space.size - lo)
+            frame = pipe.enum_frames_cuda(tbl, space, lo, count)
+            g0 = int(rows[k, 0])
+            what = f"{net} at {chunk}, chunk {k} of {n_chunks} (g0 {g0})"
+            require(g0 == pipe.shared_prefix(space, engine._run_of, lo,
+                                             count),
+                    f"{what}: the prefix kernel's g0 != shared_prefix's")
+            equal(scan.alloc_scan_cuda(at, frame, rows[k]),
+                  scan.alloc_scan_torch(at, frame), f"{what}, state row")
+            g0s.add(g0)
+            if net == "yolov3" and chunk == CHUNK:
+                timed_at = (at, tbl, space, frame, rows[k])
+        name = f"{net}@{chunk}" + ("" if target is None
+                                   else f" of {space.size}")
+        out[name] = {"chunks": n_chunks, "checked": len(picked),
+                     "g0": sorted(g0s), "groups": tbl.n}
+    engine = make_engine("resnet152")
+    r_at = engine.alloc_tables()
+    space = whole(engine)
+    r_frame = pipe.enum_frames_cuda(pipe._engine_tables(engine), space, 0,
+                                    space.size)
+    equal(scan.alloc_scan_cuda(r_at, r_frame),
+          scan.alloc_scan_torch(r_at, r_frame),
+          f"resnet152, B {space.size}, no row")
+    out["resnet152 no row"] = {"B": space.size}
+    torch.cuda.synchronize()
+    if not timed:
+        return out
+    at, tbl, space, frame, row = timed_at
+    out["device_ms"] = {
+        "alloc_prefix": traced_ms(lambda: scan.alloc_prefix_cuda(
+            at, tbl, space, CHUNK), "alloc_prefix", reps),
+        "alloc_scan_from_row": traced_ms(lambda: scan.alloc_scan_cuda(
+            at, frame, row), "alloc_scan", reps),
+        "alloc_scan_no_row": traced_ms(lambda: scan.alloc_scan_cuda(
+            at, frame), "alloc_scan", reps),
+        "alloc_scan_resnet152_no_row": traced_ms(lambda: scan.alloc_scan_cuda(
+            r_at, r_frame), "alloc_scan", reps)}
     return out
 
 
@@ -2153,6 +2248,7 @@ MODEL_CHECK_TOL = 1e-3
 # functions), by wrapper; a trace entry counts for a wrapper when one of
 # them is a substring of its name
 TRACE_NAMES = {"alloc_scan": ("alloc_scan_kernel",),
+               "alloc_prefix": ("alloc_prefix_kernel",),
                "enum_frames": ("enum_frames_kernel",),
                "cost_rows": ("cost_rows_kernel", "cost_rows_split_kernel"),
                "argmin_rows": ("argmin_rows_kernel",),
@@ -4840,6 +4936,9 @@ def main(argv=None) -> int:
         for net in ("yolov2", "resnet152", "retinanet", "efficientnet-b1"):
             r = check_kernels(net, target=20000, timed=False, reps=0)
             log(f"kernels equal their plain versions: {json.dumps(r)}")
+        r = check_alloc_prefix(timed=True, reps=10)
+        log(f"alloc_scan from its state rows equals the whole replay: "
+            f"{json.dumps(r)}")
         r = check_scorer((("resnet152", 1024), ("yolov2", 20000),
                           ("efficientnet-b1", 8)), timed=False, reps=0)
         log(f"score_batch equals its plain version: {json.dumps(r)}")
@@ -4867,6 +4966,10 @@ def main(argv=None) -> int:
             f"(B={c['B']}, G={c['G']}, runs={c['runs']}, K1 slots "
             f"{c['alloc_slots']}): max abs err "
             f"{c['errs']} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    prefix = check_alloc_prefix(timed=True, reps=10)
+    log(f"alloc_scan from its state rows == the plain version's whole "
+        f"replay: {json.dumps(prefix)} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     scorer = check_scorer(SCORER_SHAPES, timed=True, reps=20)
     log(f"score_batch == plain version at {SCORER_SHAPES}: "
@@ -5039,6 +5142,17 @@ def main(argv=None) -> int:
                 for net in ("resnet152", "retinanet")}
         if name == "alloc_scan":
             kernels[-1]["slots"] = main_shape["alloc_slots"]
+    info = KERNEL_INFO["alloc_prefix"]
+    kernels.append({
+        "name": "alloc_prefix", "route": "cuda", "source": info["source"],
+        "replaces": info["replaces"],
+        "launches": launches["pipeline", "numpy"]["alloc_prefix"],
+        "launches_by_sweep": by_sweep["alloc_prefix"],
+        "launches_in_service_phase": service["launches"].get(
+            "alloc_prefix", 0),
+        "max_abs_err": 0, "cases": {k: v for k, v in prefix.items()
+                                    if k != "device_ms"},
+        "device_ms": prefix["device_ms"]})
     info = KERNEL_INFO["score_batch"]
     t, chunk, descent = (scorer[net] for net, _b in SCORER_SHAPES)
     kernels.append({

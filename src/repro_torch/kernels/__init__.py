@@ -3,7 +3,9 @@ beside its plain torch version:
 
     alloc_scan.py      -- tensorized allocator replay: Algorithm 1's
                           sequential state machine for a whole batch of
-                          candidates (CompileOptions engine="device")
+                          candidates (CompileOptions engine="device"), and
+                          the state a chunk's candidates share before
+                          their first differing group
     search_pipeline.py -- fused sub-space search: candidate enumeration ->
                           alloc_scan replay -> exact float64 cost reduction
                           -> lexicographic argmin, so only the winning tuple
@@ -35,7 +37,8 @@ def kernel_wrappers() -> dict:
     its launches in its ``launches`` attribute; a wrapper that picks one of
     several kernels (K5, K6, K7, K8) also counts them apart in
     ``launches_by_variant``."""
-    from repro_torch.kernels.alloc_scan import alloc_scan_cuda
+    from repro_torch.kernels.alloc_scan import (alloc_prefix_cuda,
+                                                alloc_scan_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_block import fused_block_cuda
     from repro_torch.kernels.rglru_scan import rglru_scan_cuda
@@ -44,7 +47,8 @@ def kernel_wrappers() -> dict:
                                                      cost_rows_cuda,
                                                      enum_frames_cuda)
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
-    return {"alloc_scan": alloc_scan_cuda, "enum_frames": enum_frames_cuda,
+    return {"alloc_scan": alloc_scan_cuda, "alloc_prefix": alloc_prefix_cuda,
+            "enum_frames": enum_frames_cuda,
             "cost_rows": cost_rows_cuda, "argmin_rows": argmin_rows_cuda,
             "score_batch": score_batch_cuda,
             "flash_attention": flash_attention_cuda,

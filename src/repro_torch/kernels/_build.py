@@ -152,8 +152,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
     lib.alloc_scan_launch.argtypes = [
-        p, p, p, p, p,              # frame, steps, slots, io, stats
+        p, p, p, p,                 # frame, steps, slots, row (null: none)
+        p, p,                       # io, stats
         ll, i, i, i,                # B, n, k, lw
+        i, i, i,                    # input_slot, input_meta, W
+        i, p]                       # device, stream
+    lib.alloc_prefix_launch.argtypes = [
+        p, p, p, p,                 # digits, run_of, pos_of, dir_neg
+        p, p, p,                    # steps, slots, rows
+        ll, ll,                     # S, C
+        i, i, i, i,                 # n, nr, k, lw
         i, i, i,                    # input_slot, input_meta, W
         i, p]                       # device, stream
     lib.enum_frames_launch.argtypes = [
@@ -223,8 +231,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,                    # a, b, h
         i, i, i, i,                 # B, S, W, vec
         i, p]                       # device, stream
-    for fn in (lib.alloc_scan_launch, lib.enum_frames_launch,
-               lib.cost_rows_launch, lib.argmin_rows_launch,
+    for fn in (lib.alloc_scan_launch, lib.alloc_prefix_launch,
+               lib.enum_frames_launch, lib.cost_rows_launch,
+               lib.argmin_rows_launch,
                lib.score_batch_launch, lib.score_batch_split_launch,
                lib.flash_attention_launch,
                lib.flash_attention_tc_launch, lib.fused_block_launch,

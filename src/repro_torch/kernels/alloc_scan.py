@@ -50,6 +50,25 @@ seven stats out.  What bounds it on the card: the least it must move is
 about ``5 * n + 28`` bytes per candidate, and each step costs on the order
 of a hundred integer operations per candidate, which at the card's integer
 rate is the larger of the two times.
+
+**The shared prefix.**  The state entering group g depends only on the
+frame bits of groups 0 .. g-1.  The fused search (``search_pipeline.py``)
+hands the replay chunks of consecutive candidates of a mixed-radix space,
+last run fastest, so a chunk's leading runs keep one digit and its leading
+groups one frame bit for all its candidates: ``g0``
+(``search_pipeline.shared_prefix``), the first group of the first run
+whose digit varies in the chunk, is 57 of yolov3's 79 groups at a chunk of
+2**20.  :func:`alloc_prefix_cuda` launches one kernel a sub-space, a thread
+a chunk, that computes each chunk's ``g0`` and replays groups ``[0, g0)``
+once, for the chunk's first candidate, into the chunk's **state row**
+(:func:`state_row_width` int32: ``g0``, the three buffer owners and maxima,
+side maximum, ``wrf``, ``bfm``, ``feas``, the W slots' packed state and io,
+and the final io of every lane whose range ended before ``g0``).  Given its
+chunk's row, :func:`alloc_scan_cuda` starts there: it stores the row's
+final io words into those lanes' rows of ``io`` and replays groups
+``[g0, n)``; without a row it replays all groups from the initial state.
+The outputs are the same integers either way, and ``alloc_scan_torch``
+stays the whole replay they are held to.
 """
 from __future__ import annotations
 
@@ -82,6 +101,11 @@ _STEP_FIXED = 8
 
 TABLE_FIELDS = ("is_side", "gin", "src_size", "main", "sc", "sc_size",
                 "in_size", "out_size", "wr_cand", "spill_ok", "rem0", "loc0")
+
+# fields of a state row before its slots (csrc/alloc_scan.cu: R_SLOTS): g0,
+# the three buffer owners, the three buffer maxima, side maximum, wrf, bfm,
+# feas and the number of lanes whose range ended before g0
+ROW_FIXED = 1 + 2 * NUM_BUFFERS + 4 + 1
 
 # the most slots the kernel's wrapper takes (W x 8 bytes a candidate of
 # shared memory, csrc/alloc_scan.cu: 128 KB a block of 128 candidates at
@@ -500,27 +524,54 @@ def lane_major(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous().t()
 
 
-def alloc_scan_cuda(t: AllocScanTables,
-                    frame: torch.Tensor) -> AllocScanResult:
+def state_row_width(t: AllocScanTables) -> int:
+    """int32 words of a chunk's state row (module docstring): the fixed
+    fields, the W slots' packed state and io, and n entries each for the
+    lanes whose range ended before ``g0`` and their final io."""
+    return ROW_FIXED + 2 * t.slots.width + 2 * t.n
+
+
+def _kernel_tables(t: AllocScanTables, what: str) -> None:
+    """Raise for tables the kernels cannot take."""
+    if t.slots.width > MAX_SLOTS:
+        raise ValueError(
+            f"{what}: this graph keeps {t.slots.width} lanes live at once, "
+            f"more than the {MAX_SLOTS} slots of shared memory the kernel "
+            f"holds a candidate's state in; use the plain version")
+    if t.k > MAX_FAN_IN:
+        raise ValueError(f"{what}: a group reads {t.k} producers, more "
+                         f"than the kernel's {MAX_FAN_IN}; use the plain "
+                         f"version")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} wants CUDA tables, got {t.device}")
+    if not t.fits_int32:
+        raise OverflowError(
+            "this graph's byte totals could exceed int32, the kernel's "
+            "integer width; use the plain version (int64)")
+
+
+def _input_lane(t: AllocScanTables) -> tuple[int, int]:
+    """The graph input's slot and packed initial state."""
+    ni = t.input_idx
+    return int(t.slots.slot[ni]), int(_meta(t.rem0[ni], t.loc0[ni]))
+
+
+def alloc_scan_cuda(t: AllocScanTables, frame: torch.Tensor,
+                    state: torch.Tensor | None = None) -> AllocScanResult:
     """The CUDA replay (``csrc/alloc_scan.cu``): bit-identical integers to
     :func:`alloc_scan_torch`, int32.
 
     ``frame`` is a (B, G) bool or uint8 CUDA tensor; lane-major storage
     (as :func:`~repro_torch.kernels.search_pipeline.enum_frames_cuda`
-    writes it) is read in place, anything else is copied once.  A graph
-    whose live lanes need more than ``MAX_SLOTS`` slots is refused.
-    Launches the kernel or raises -- there is no other path."""
+    writes it) is read in place, anything else is copied once.  ``state``:
+    ``None`` (replay every group from the initial state), or the state row
+    that :func:`alloc_prefix_cuda` wrote for the chunk these candidates
+    form (replay from its ``g0``).  A graph whose live lanes need more than
+    ``MAX_SLOTS`` slots is refused.  Launches the kernel or raises -- there
+    is no other path."""
     from repro_torch.kernels import _build
 
-    if t.slots.width > MAX_SLOTS:
-        raise ValueError(
-            f"alloc_scan_cuda: this graph keeps {t.slots.width} lanes live "
-            f"at once, more than the {MAX_SLOTS} slots of shared memory the "
-            f"kernel holds a candidate's state in; use the plain version")
-    if t.k > MAX_FAN_IN:
-        raise ValueError(f"alloc_scan_cuda: a group reads {t.k} producers, "
-                         f"more than the kernel's {MAX_FAN_IN}; use the "
-                         f"plain version")
+    _kernel_tables(t, "alloc_scan_cuda")
     if not frame.is_cuda or frame.device != t.device:
         raise ValueError(f"alloc_scan_cuda wants a CUDA frame on the "
                          f"tables' device {t.device}, got {frame.device}")
@@ -529,10 +580,14 @@ def alloc_scan_cuda(t: AllocScanTables,
     if frame.ndim != 2 or frame.shape[1] != t.n:
         raise ValueError(f"frame must be (B, {t.n}), got "
                          f"{tuple(frame.shape)}")
-    if not t.fits_int32:
-        raise OverflowError(
-            "this graph's byte totals could exceed int32, the kernel's "
-            "integer width; use the plain version (int64)")
+    if state is not None and (
+            state.device != t.device or state.dtype != torch.int32
+            or state.shape != (state_row_width(t),)
+            or not state.is_contiguous()):
+        raise ValueError(f"alloc_scan_cuda wants the state row as a "
+                         f"contiguous ({state_row_width(t)},) int32 tensor "
+                         f"on {t.device}, got {tuple(state.shape)} "
+                         f"{state.dtype} on {state.device}")
     B, n = frame.shape
     dev = t.device
     io = torch.empty((n, B), dtype=torch.int32, device=dev)
@@ -542,12 +597,10 @@ def alloc_scan_cuda(t: AllocScanTables,
     frame_lm = lane_major(frame.view(torch.uint8)
                           if frame.dtype == torch.bool else frame)
     slots = t.dev["slots32"]
-    lib = _build.load()
-    ni = t.input_idx
-    err = lib.alloc_scan_launch(
+    err = _build.load().alloc_scan_launch(
         frame_lm.data_ptr(), t.dev["steps32"].data_ptr(), slots.data_ptr(),
-        io.data_ptr(), stats.data_ptr(), B, n, t.k, slots.shape[1],
-        int(t.slots.slot[ni]), int(_meta(t.rem0[ni], t.loc0[ni])),
+        None if state is None else state.data_ptr(), io.data_ptr(),
+        stats.data_ptr(), B, n, t.k, slots.shape[1], *_input_lane(t),
         t.slots.width, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "alloc_scan")
@@ -558,9 +611,49 @@ def alloc_scan_cuda(t: AllocScanTables,
 alloc_scan_cuda.launches = 0
 
 
+def alloc_prefix_cuda(t: AllocScanTables, tbl, space,
+                      chunk: int) -> torch.Tensor:
+    """The state rows of every chunk of ``space`` searched ``chunk``
+    candidates at a time: (ceil(space.size / chunk), :func:`state_row_width`)
+    int32 on the tables' device, row c the state entering group ``g0`` of
+    the candidates ``[c chunk, (c + 1) chunk)`` (module docstring), written
+    by one launch of ``alloc_prefix_kernel``.  ``tbl`` and ``space`` are the
+    search pipeline's ``PipelineTables`` and ``SubSpace``: the kernel
+    decodes frame bits from their digit table and three gathers as the
+    enumeration kernel does.  Launches the kernel or raises."""
+    from repro_torch.kernels import _build
+
+    _kernel_tables(t, "alloc_prefix_cuda")
+    if tbl.device != t.device or space.digits.device != t.device:
+        raise ValueError(f"alloc_prefix_cuda wants the pipeline's tables "
+                         f"on {t.device}, got {tbl.device} / "
+                         f"{space.digits.device}")
+    if tbl.n != t.n or chunk <= 0:
+        raise ValueError(f"alloc_prefix_cuda: {tbl.n} groups in the "
+                         f"pipeline's tables, {t.n} in the allocator's, "
+                         f"chunk {chunk}")
+    rows = torch.empty((-(-space.size // chunk), state_row_width(t)),
+                       dtype=torch.int32, device=t.device)
+    slots = t.dev["slots32"]
+    err = _build.load().alloc_prefix_launch(
+        space.digits.data_ptr(), tbl.run_of32.data_ptr(),
+        tbl.pos_of32.data_ptr(), tbl.dir_neg8.data_ptr(),
+        t.dev["steps32"].data_ptr(), slots.data_ptr(), rows.data_ptr(),
+        space.size, chunk, t.n, space.digits.shape[1], t.k, slots.shape[1],
+        *_input_lane(t), t.slots.width, t.device.index or 0,
+        torch.cuda.current_stream(t.device).cuda_stream)
+    _build.check(err, "alloc_prefix")
+    alloc_prefix_cuda.launches += 1
+    return rows
+
+
+alloc_prefix_cuda.launches = 0
+
+
 def alloc_scan(t: AllocScanTables, frame: torch.Tensor,
                backend: str | None = None,
-               skip: torch.Tensor | None = None) -> AllocScanResult:
+               skip: torch.Tensor | None = None,
+               state: torch.Tensor | None = None) -> AllocScanResult:
     """Run the tensorized allocator replay for a B x G frame-mask batch.
 
     ``backend`` selects the implementation: ``"cuda"`` (the kernel;
@@ -575,11 +668,20 @@ def alloc_scan(t: AllocScanTables, frame: torch.Tensor,
     backend unchanged, and the outputs are scattered back into
     zero-filled full-width matrices (``feasible`` is 1 on skipped lanes
     so downstream masking stays inert).  The surviving rows are
-    bit-identical to an unskipped call on the same sub-batch."""
+    bit-identical to an unskipped call on the same sub-batch.
+
+    ``state``: the chunk's state row (:func:`alloc_prefix_cuda`), which the
+    kernel starts from; the plain version replays every group, which gives
+    the same integers.  Not with ``skip``."""
     if backend is None:
         backend = "cuda" if frame.is_cuda else "torch"
     if backend not in ("torch", "cuda"):
         raise ValueError(f"unknown alloc_scan backend: {backend!r}")
+    if state is not None and skip is not None:
+        raise ValueError("alloc_scan takes a state row or a skip mask, not "
+                         "both")
+    if backend == "cuda" and state is not None:
+        return alloc_scan_cuda(t, frame, state)
     run = alloc_scan_cuda if backend == "cuda" else alloc_scan_torch
     if skip is None:
         return run(t, frame)

@@ -15,7 +15,10 @@ host.  This module fuses that whole loop into one device pipeline behind
    gathers as ``CutpointEngine._frame_matrix``); the host never
    materializes the candidate tuple stream.
 2. **Allocator replay** -- the decoded masks feed the tensorized allocator
-   (``kernels/alloc_scan.py``), integer-exact.
+   (``kernels/alloc_scan.py``), integer-exact.  A chunk's candidates share
+   their leading runs' digits, so the replay of the groups before
+   :func:`shared_prefix` is done once a chunk, by one launch a sub-space
+   that writes each chunk's state row, and each chunk's replay starts there.
 3. **Cost reduction** -- the B x G mask-matrix reductions of
    ``timing/dram/sram.*_fast_batch``, evaluated in float64.  Every integer
    quantity is far below 2**53, so the int -> f64 embedding is exact and
@@ -84,8 +87,10 @@ import torch
 from repro_torch.core.options import DEFAULT_BATCH_SIZE
 from repro_torch.kernels import upload
 from repro_torch.kernels.alloc_scan import (N_STATS, STAT_BFM, STAT_FEAS,
-                                            STAT_SIDE, STAT_WRF, alloc_scan,
+                                            STAT_SIDE, STAT_WRF,
+                                            alloc_prefix_cuda, alloc_scan,
                                             lane_major)
+from repro_torch.utils import tracing
 from repro_torch.utils.tracing import span
 
 VARIANTS = ("torch", "cuda")
@@ -128,6 +133,26 @@ def _decode_index(idx: int, strides: tuple[int, ...],
                   dims: tuple[int, ...]) -> tuple[int, ...]:
     """Linear index -> suffix cut tuple (inverse of the in-kernel decode)."""
     return tuple((idx // s) % d for s, d in zip(strides, dims))
+
+
+def shared_prefix(space: "SubSpace", run_of, lo: int, count: int) -> int:
+    """The shared prefix ``g0`` of the candidates ``[lo, lo + count)``: the
+    least group whose run's digit is not constant over them (``n`` when every
+    run's is).  A free run's digit is constant when ``j // stride`` is, and
+    its stride divides every earlier run's, so the runs whose digit varies
+    are those from the first such run on; a fixed run never varies.  Every
+    candidate of the range has the same frame bits on groups ``< g0``, so
+    the allocator state entering group ``g0`` is the same for all of them
+    (``alloc_prefix_kernel`` in ``csrc/alloc_scan.cu`` computes the same
+    ``g0`` on the card)."""
+    run_of = np.asarray(run_of)
+    last = lo + count - 1
+    npfx = len(space.prefix)
+    q0 = next((npfx + q for q, s in enumerate(space.strides)
+               if lo // s != last // s), None)
+    if q0 is None:
+        return len(run_of)
+    return int(np.argmax(run_of >= q0))
 
 
 def _fold(best, w):
@@ -610,20 +635,29 @@ def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
                variant: str) -> torch.Tensor:
     """The device loop: one winner row per chunk of ``chunk`` candidates,
     (nchunks, 4) float64 on the engine's device, each written by the
-    chunk's cost stage.  Nothing is read back here and nothing
-    synchronises."""
+    chunk's cost stage.  Under the kernels, one launch first writes every
+    chunk's state row (``alloc_prefix_cuda``: the allocator state its
+    candidates share up to their first differing group, :func:`shared_prefix`),
+    and each chunk's replay starts from its row.  Nothing is read back here
+    and nothing synchronises."""
     tbl = _engine_tables(engine)
     at = engine.alloc_tables()
     los = range(0, space.size, chunk)
     winners = torch.empty((len(los), 4), dtype=torch.float64,
                           device=tbl.device)
     with span("pipeline.enqueue"):
+        rows = (alloc_prefix_cuda(at, tbl, space, chunk)
+                if _pick(variant, tbl.tab, "alloc_scan") else None)
         for k, lo in enumerate(los):
             count = min(chunk, space.size - lo)
             frame = enum_frames(tbl, space, lo, count, backend=variant)
-            res = alloc_scan(at, frame, backend=variant)
+            res = (alloc_scan(at, frame, backend=variant) if rows is None
+                   else alloc_scan(at, frame, backend=variant, state=rows[k]))
             cost_rows(tbl, frame, res.io, res.stats, lo, objective,
                       backend=variant, winner=winners[k])
+            if rows is not None and tracing.recording():
+                g0 = shared_prefix(space, engine._run_of, lo, count)
+                tracing.count("alloc.shared_prefix_steps", g0 * count)
     return winners
 
 

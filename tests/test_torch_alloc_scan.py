@@ -13,6 +13,7 @@ import torch
 import repro.kernels.alloc_scan as ref_scan
 
 import repro_torch.kernels.alloc_scan as port_scan
+import repro_torch.kernels.search_pipeline as port_pipe
 from repro_torch.convert import alloc_tables_from_numpy
 
 from torch_parity import (ALL_CNNS, as_tensor, assert_scan_equal, both,
@@ -190,30 +191,36 @@ def test_lane_slots_never_share_a_slot_between_live_lanes(name):
                for x in ended)
 
 
-def slot_replay(t, frame):
-    """csrc/alloc_scan.cu's algorithm on the CPU, B candidates at once: the
-    state lives only in the W slots of the packed slot table the kernel
-    reads (``dev["slots32"]``), each lane's io leaves when its range ends.
-    Returns ``(io (B, n), stats (B, 7))`` int64."""
+def slot_state(t, B):
+    """The kernel's initial state of B candidates: the W slots' rem / loc
+    / bw / io (slot-major), the graph input's slot set from the tables, the
+    other slots zero (alloc_prefix_kernel's start), and the buffer owners,
+    maxima and accumulators."""
+    W, NB = t.slots.width, 3
+    st = {"rem": np.zeros((W, B), np.int64), "loc": np.zeros((W, B), np.int64),
+          "bw": np.zeros((W, B), bool), "io": np.zeros((W, B), np.int64),
+          "live": np.full((NB, B), -1, np.int64),
+          "buff": np.zeros((NB, B), np.int64), "side": np.zeros(B, np.int64),
+          "wrf": np.zeros(B, np.int64), "bfm": np.zeros(B, np.int64),
+          "feas": np.ones(B, bool)}
+    s_in = t.slots.slot[t.input_idx]
+    st["rem"][s_in], st["loc"][s_in] = t.rem0[t.input_idx], t.loc0[t.input_idx]
+    return st
+
+
+def slot_steps(t, st, frame, g_from, g_to, ended):
+    """csrc/alloc_scan.cu's alloc_step for groups ``[g_from, g_to)`` on the
+    state ``st`` of B candidates, the state living only in the W slots of
+    the packed slot table the kernel reads (``dev["slots32"]``); each lane
+    whose range ends is appended to ``ended`` as ``(lane, its io (B,))``,
+    in the kernel's order."""
     frame = np.asarray(frame, dtype=bool)
     B, (n, k) = frame.shape[0], t.gin.shape
     ni, sink, NB = t.input_idx, t.sink_idx, 3
     table = t.dev["slots32"].cpu().numpy().astype(np.int64)
     E = (table.shape[1] - 5 - 2 * k) // 2
-    W = t.slots.width
-    rem = np.zeros((W, B), np.int64)
-    loc = np.zeros((W, B), np.int64)
-    bw = np.zeros((W, B), bool)
-    io_s = np.zeros((W, B), np.int64)
-    io = np.full((n, B), -1, np.int64)         # -1: never written out
-    s_in = t.slots.slot[ni]
-    rem[s_in], loc[s_in] = t.rem0[ni], t.loc0[ni]
-    live = np.full((NB, B), -1, np.int64)
-    buff = np.zeros((NB, B), np.int64)
-    side = np.zeros(B, np.int64)
-    wrf = np.zeros(B, np.int64)
-    bfm = np.zeros(B, np.int64)
-    feas = np.ones(B, bool)
+    rem, loc, bw, io_s = st["rem"], st["loc"], st["bw"], st["io"]
+    live, buff = st["live"], st["buff"]
 
     def first_free(masks):
         out = np.full(B, -1, np.int64)
@@ -229,7 +236,7 @@ def slot_replay(t, frame):
             for i in range(NB):
                 live[i][dead & (loc[sj] == i) & (live[i] == src)] = -1
 
-    for g in range(n):
+    for g in range(g_from, g_to):
         row = table[g]
         own, smain, ssc = row[0], row[1], row[2]
         ops = [(int(t.gin[g, j]), int(row[4 + j]), int(t.src_size[g, j]))
@@ -241,7 +248,7 @@ def slot_replay(t, frame):
         rem[own], loc[own] = row[3] >> 8, row[3] & 15
         bw[own], io_s[own] = (row[3] >> 4) & 1, 0
         if t.is_side[g]:
-            side = np.maximum(side, outsz)
+            st["side"] = np.maximum(st["side"], outsz)
             loc[own] = 3
             for _, sj, _ in ops:
                 rem[sj] -= 1
@@ -276,18 +283,20 @@ def slot_replay(t, frame):
                 add = ~fr & (loc[sj] < NB) & ~bw[sj]
                 bw[sj] |= add
                 io_s[sj] += add * sz
-                bfm += add * sz
-                wrf = np.where(add, np.maximum(wrf, wrc[src]), wrf)
+                st["bfm"] += add * sz
+                st["wrf"] = np.where(add, np.maximum(st["wrf"], wrc[src]),
+                                     st["wrf"])
             for _, sj, _ in ops:
                 rem[sj] -= 1
             io_g = fr * read
-            bfm += fr * read
+            st["bfm"] += fr * read
             final = rem[own] == 0
             addf = fr & final
             bw[own] |= addf
             io_g += addf * outsz
-            bfm += addf * outsz
-            wrf = np.where(addf, np.maximum(wrf, t.wr_cand[g]), wrf)
+            st["bfm"] += addf * outsz
+            st["wrf"] = np.where(addf, np.maximum(st["wrf"], t.wr_cand[g]),
+                                 st["wrf"])
             b_out = first_free([(live[i] == -1) & ~in_buf[i]
                                 for i in range(NB)])
             main_live = np.zeros(B, bool)
@@ -298,9 +307,9 @@ def slot_replay(t, frame):
             alloc = fr & ~final & (b_out >= 0)
             spill = fr & ~final & (b_out < 0)
             io_g += (spill & ~addf) * outsz
-            bfm += (spill & ~addf) * outsz
+            st["bfm"] += (spill & ~addf) * outsz
             if not t.spill_ok[g]:
-                feas &= ~spill
+                st["feas"] &= ~spill
             for i in range(NB):
                 sel = alloc & (b_out == i)
                 live[i] = np.where(sel, g, live[i])
@@ -309,8 +318,65 @@ def slot_replay(t, frame):
             io_s[own] = io_g
             release([(src, sj) for src, sj, _ in ops])
         for e in range(row[4 + 2 * k]):
-            io[row[5 + 2 * k + e]] = io_s[row[5 + 2 * k + E + e]]
-    stats = np.stack([*buff, side, wrf, bfm, feas.astype(np.int64)], axis=1)
+            ended.append((row[5 + 2 * k + e],
+                          io_s[row[5 + 2 * k + E + e]].copy()))
+
+
+def prefix_row(t, first, g0):
+    """alloc_prefix_kernel's state row on the CPU: groups ``[0, g0)``
+    replayed for one candidate (``first``, its (G,) frame bits) from the
+    initial state, laid out as the kernel writes it (``ROW_FIXED`` fields,
+    the W slots' packed state and io, the lanes ended before ``g0`` and
+    their io, n entries each)."""
+    n, W = t.n, t.slots.width
+    st = slot_state(t, 1)
+    ended = []
+    slot_steps(t, st, np.asarray(first, bool)[None, :], 0, g0, ended)
+    row = np.zeros(port_scan.state_row_width(t), np.int64)
+    row[0] = g0
+    row[1:4], row[4:7] = st["live"][:, 0], st["buff"][:, 0]
+    row[7:11] = st["side"][0], st["wrf"][0], st["bfm"][0], st["feas"][0]
+    row[11] = len(ended)
+    f = port_scan.ROW_FIXED
+    row[f:f + W] = ((st["rem"] << 8) | (st["bw"].astype(np.int64) << 4)
+                    | st["loc"])[:, 0]
+    row[f + W:f + 2 * W] = st["io"][:, 0]
+    for e, (lane, io) in enumerate(ended):
+        row[f + 2 * W + e], row[f + 2 * W + n + e] = lane, io[0]
+    return row
+
+
+def slot_replay(t, frame, row=None):
+    """csrc/alloc_scan.cu's algorithm on the CPU, B candidates at once:
+    from the initial state at group 0, or -- given the chunk's state row
+    (:func:`prefix_row`) -- from the row's ``g0``, each candidate starting
+    with the row's slots and registers and the io of the lanes ended before
+    ``g0`` written from it, as alloc_scan_kernel does with a row.  Returns
+    ``(io (B, n), stats (B, 7))`` int64."""
+    frame = np.asarray(frame, dtype=bool)
+    B, n, W = frame.shape[0], t.n, t.slots.width
+    io = np.full((n, B), -1, np.int64)         # -1: never written out
+    st = slot_state(t, B)
+    g0 = 0
+    if row is not None:
+        f = port_scan.ROW_FIXED
+        g0 = int(row[0])
+        st["live"][:] = row[1:4, None]
+        st["buff"][:] = row[4:7, None]
+        st["side"][:], st["wrf"][:], st["bfm"][:] = row[7], row[8], row[9]
+        st["feas"][:] = row[10] > 0
+        meta = row[f:f + W, None]
+        st["rem"][:], st["bw"][:] = meta >> 8, (meta >> 4) & 1
+        st["loc"][:] = meta & 15
+        st["io"][:] = row[f + W:f + 2 * W, None]
+        for e in range(int(row[11])):
+            io[row[f + 2 * W + e]] = row[f + 2 * W + n + e]
+    ended = []
+    slot_steps(t, st, frame, g0, n, ended)
+    for lane, lane_io in ended:
+        io[lane] = lane_io
+    stats = np.stack([*st["buff"], st["side"], st["wrf"], st["bfm"],
+                      st["feas"].astype(np.int64)], axis=1)
     return io.T, stats
 
 
@@ -335,6 +401,56 @@ def test_slot_replay_equals_plain_version_and_reference(name, masks):
     assert np.array_equal(stats[:, :3], np.asarray(want.buff))
     assert np.array_equal(stats[:, 5], np.asarray(want.bfm))
     assert np.array_equal(stats[:, 6] > 0, np.asarray(want.feasible))
+
+
+# chunks of a cut space handed to the replay: (net -- a zoo net or a
+# benchmark configuration, chunk, the first two runs fixed mid-run)
+HANDOFF_CASES = [("bench:yolov2-416", 1 << 20, False),
+                 ("bench:yolov3-416", 1 << 20, False),
+                 ("bench:yolov3-416", 1024, False),
+                 ("resnet50", 1024, False), ("yolov2", 4096, True)]
+
+
+@pytest.mark.parametrize("net, chunk, fixed", HANDOFF_CASES)
+def test_slot_replay_from_the_chunks_state_row(net, chunk, fixed):
+    """The state hand-off of the shared prefix: groups ``[0, g0)`` replayed
+    once, for the chunk's first candidate, into its state row (the prefix
+    kernel's algorithm), then ``[g0, n)`` for every candidate from that row
+    (K1's with a row) equal the whole replay -- the kernel's algorithm and
+    the plain version -- in every io and stats integer.  64 candidates of
+    each chunk checked (its first and last among them) on up to 8 chunks,
+    the ragged last chunk included."""
+    pe = torch_parity.port_engine_of(net)
+    tbl = port_pipe._engine_tables(pe)
+    at = pe.alloc_tables()
+    dims = [len(r) + 1 for r in pe.runs]
+    npfx = 2 if fixed else 0
+    space = port_pipe.SubSpace.make(
+        tuple(len(r) // 2 for r in pe.runs[:npfx]), dims[npfx:], "cpu")
+    n_chunks = -(-space.size // chunk)
+    g0s = set()
+    for c in sorted({round(i * (n_chunks - 1) / 7) for i in range(8)}):
+        lo = c * chunk
+        count = min(chunk, space.size - lo)
+        js = np.unique(np.linspace(lo, lo + count - 1, 64).astype(np.int64))
+        frame = torch.cat([port_pipe.enum_frames_torch(tbl, space, int(j), 1)
+                           for j in js]).numpy()
+        g0 = port_pipe.shared_prefix(space, pe._run_of, lo, count)
+        row = prefix_row(at, frame[0], g0)
+        assert row[0] == g0 and row[11] <= at.n
+        io, stats = slot_replay(at, frame, row=row)
+        whole_io, whole_stats = slot_replay(at, frame)
+        assert (io >= 0).all(), "a lane's io was never written out"
+        assert np.array_equal(io, whole_io), (net, c, g0)
+        assert np.array_equal(stats, whole_stats), (net, c, g0)
+        plain = port_scan.alloc_scan_torch(at, as_tensor(frame))
+        assert np.array_equal(io, plain.io.numpy())
+        assert np.array_equal(stats, plain.stats.numpy())
+        g0s.add(g0)
+    if (net, chunk) == ("bench:yolov2-416", 1 << 20):
+        assert g0s == {0, 2, 3}
+    if (net, chunk) == ("bench:yolov3-416", 1 << 20):
+        assert g0s == {57}
 
 
 @pytest.mark.parametrize("name", ["vgg16-conv", "resnet50", "mobilenet-v3"])

@@ -869,3 +869,158 @@ def test_run_chunks_takes_no_argmin_launch(monkeypatch):
     rows = port_pipe.run_chunks(pe, space, "latency", 300, "torch")
     assert rows.shape == (-(-space.size // 300), 4)
     assert (rows[:, 0] <= 1.0).all()
+
+
+# ------------------------------------------------------- K1's shared prefix
+# zoo nets and the benchmark's two configurations (``bench/configs/``)
+PREFIX_NETS = ("bench:yolov2-416", "bench:yolov3-416", "resnet50", "yolov2")
+
+
+@functools.lru_cache(maxsize=None)
+def _prefix_engine(net):
+    return torch_parity.port_engine_of(net)
+
+
+def prefix_space(net, fixed):
+    """The net's whole cut space, or with its first two runs fixed
+    mid-run."""
+    pe = _prefix_engine(net)
+    dims = [len(r) + 1 for r in pe.runs]
+    npfx = 2 if fixed else 0
+    return port_pipe.SubSpace.make(
+        tuple(len(r) // 2 for r in pe.runs[:npfx]), dims[npfx:], "cpu")
+
+
+def prefix_chunks(space, chunk, picks=4):
+    """``(lo, count)`` of the first chunk, the last (ragged where the space
+    is not a multiple of ``chunk``) and ``picks - 2`` between."""
+    n = -(-space.size // chunk)
+    ks = sorted({round(i * (n - 1) / (picks - 1)) for i in range(picks)})
+    return [(k * chunk, min(chunk, space.size - k * chunk)) for k in ks]
+
+
+def varying_rows(tbl, space, lo, count, block=1 << 16):
+    """(G,) bool: the frame rows that differ somewhere in ``[lo, lo +
+    count)`` from the first candidate's, from the plain enumeration's masks
+    a block at a time."""
+    first = port_pipe.enum_frames_torch(tbl, space, lo, 1)[0]
+    vary = torch.zeros(tbl.n, dtype=torch.bool)
+    for a in range(lo, lo + count, block):
+        masks = port_pipe.enum_frames_torch(tbl, space, a,
+                                            min(block, lo + count - a))
+        vary |= (masks != first).any(dim=0)
+    return vary
+
+
+@pytest.mark.parametrize("chunk", [1024, 1 << 20])
+@pytest.mark.parametrize("fixed", [False, True], ids=["whole", "fixed"])
+@pytest.mark.parametrize("net", PREFIX_NETS)
+def test_shared_prefix_against_brute_force(net, fixed, chunk):
+    """``shared_prefix``'s ``g0`` against every candidate's masks: the
+    frame rows before it are constant over the chunk, and unless ``g0`` is
+    G a row of ``g0``'s run is not, so no later start of a run would do.
+    (Row ``g0`` itself may be constant: yolov2-416's sixth chunk of 2^20
+    sees only cuts 1 and 2 of its first run, which frame its first group
+    either way.)  On the first, the last and two chunks between, whole
+    spaces and sub-spaces with fixed leading cuts."""
+    pe = _prefix_engine(net)
+    tbl = port_pipe._engine_tables(pe)
+    space = prefix_space(net, fixed)
+    for lo, count in prefix_chunks(space, chunk):
+        g0 = port_pipe.shared_prefix(space, pe._run_of, lo, count)
+        vary = varying_rows(tbl, space, lo, count)
+        assert 0 <= g0 <= tbl.n
+        assert not vary[:g0].any(), (net, lo, count, g0)
+        if g0 < tbl.n:
+            run = pe._run_of == pe._run_of[g0]
+            assert g0 == 0 or pe._run_of[g0 - 1] != pe._run_of[g0]
+            assert vary[torch.from_numpy(run)].any(), (net, lo, count, g0)
+
+
+@pytest.mark.parametrize("chunk, want", [(1 << 20, [57] * 128),
+                                         (1024, [68] * 131072)])
+def test_shared_prefix_of_the_yolov3_cell(chunk, want):
+    """yolov3-416's 23 runs: at a chunk of 2^20 every chunk shares groups
+    0-56 (runs 0-4, strides >= 2^20) of 79 -- 72.15 % of the group steps --
+    and at the default batch of 1,024 groups 0-67; yolov2-416's 8 chunks
+    of 2^20 share 3, 2, 0, 2, 3, 0, 2 and 3 of 26."""
+    pe = _prefix_engine("bench:yolov3-416")
+    space = prefix_space("bench:yolov3-416", False)
+    got = [port_pipe.shared_prefix(space, pe._run_of, lo, min(chunk,
+                                                              space.size - lo))
+           for lo in range(0, space.size, chunk)]
+    assert got == want
+    pe = _prefix_engine("bench:yolov2-416")
+    space = prefix_space("bench:yolov2-416", False)
+    assert [port_pipe.shared_prefix(space, pe._run_of, lo,
+                                    min(1 << 20, space.size - lo))
+            for lo in range(0, space.size, 1 << 20)] == [3, 2, 0, 2, 3, 0,
+                                                         2, 3]
+
+
+def test_shared_prefix_edges():
+    """One candidate shares every group; a range that crosses the first
+    free run's stride shares only the fixed runs' groups."""
+    pe = _prefix_engine("resnet50")
+    space = prefix_space("resnet50", True)
+    n = len(pe._run_of)
+    assert port_pipe.shared_prefix(space, pe._run_of, 5, 1) == n
+    first_free = int(np.argmax(pe._run_of >= len(space.prefix)))
+    assert first_free > 0
+    assert port_pipe.shared_prefix(space, pe._run_of, 0,
+                                   space.size) == first_free
+
+
+def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
+    """Under the kernels the device loop makes every chunk's state row in
+    one prefix launch and hands row k to chunk k's replay; while a profiler
+    records it counts each chunk's ``g0`` times its candidates in
+    ``alloc.shared_prefix_steps``, and nothing otherwise.  The plain
+    variant makes no rows.  (The kernels are stood in for by the plain
+    versions: this host has no card.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import tracing
+
+    pe = _prefix_engine("bench:yolov2-416")
+    fixed = len(pe.runs) - 5
+    space = port_pipe.SubSpace.make(
+        tuple(len(r) // 2 for r in pe.runs[:fixed]),
+        [len(r) + 1 for r in pe.runs[fixed:]], "cpu")
+    chunk = 40
+    los = range(0, space.size, chunk)
+    prefix_calls, states = [], []
+
+    def prefix(at, tbl, sp, c):
+        prefix_calls.append(c)
+        rows = torch.arange(len(los), dtype=torch.int32)[:, None]
+        return rows.expand(len(los), 3).contiguous()
+
+    def scan(at, frame, backend=None, skip=None, state=None):
+        states.append(None if state is None else int(state[0]))
+        return alloc_scan(at, frame, backend="torch")
+
+    monkeypatch.setattr(port_pipe, "alloc_prefix_cuda", prefix)
+    monkeypatch.setattr(port_pipe, "alloc_scan", scan)
+    monkeypatch.setattr(port_pipe, "enum_frames",
+                        lambda *a, backend=None: port_pipe.enum_frames_torch(
+                            *a))
+    monkeypatch.setattr(port_pipe, "cost_rows",
+                        lambda *a, backend=None, winner=None:
+                        port_pipe.cost_rows_torch(*a, winner=winner))
+    want = sum(port_pipe.shared_prefix(space, pe._run_of, lo,
+                                       min(chunk, space.size - lo))
+               * min(chunk, space.size - lo) for lo in los)
+    assert want > 0
+    tracing.reset()
+    plain = port_pipe.run_chunks(pe, space, "latency", chunk, "torch")
+    assert prefix_calls == [] and set(states) == {None}
+    states.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rows = port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
+    assert prefix_calls == [chunk] and states == list(range(len(los)))
+    assert tracing.counters() == {"alloc.shared_prefix_steps": want}
+    assert torch.equal(rows, plain)
+    tracing.reset()
+    port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
+    assert tracing.counters() == {}

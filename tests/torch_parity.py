@@ -94,6 +94,32 @@ class _Side:
                                        self.runs, **kw)
 
 
+def port_engine_of(name: str, **kw):
+    """A port ``CutpointEngine`` on the CPU (``engine="pipeline:torch"``
+    unless ``kw`` says) for a zoo net, or for a benchmark configuration
+    named ``bench:<config>`` (``bench/configs/<config>.json``: its layer
+    table and its accelerator's fields)."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.core.hw import FPGAConfig
+    from repro_torch.core.ir import Graph, LayerNode
+
+    kw = {"engine": "pipeline:torch", "device": "cpu", **kw}
+    if not name.startswith("bench:"):
+        return both(name)[1].engine(**kw)
+    path = (Path(__file__).resolve().parents[1] / "bench" / "configs"
+            / (name.split(":", 1)[1] + ".json"))
+    cfg = json.loads(path.read_text())
+    net = cfg["network"]
+    graph = Graph(net["name"],
+                  [LayerNode(idx=i, **dict(zip(net["columns"], row)))
+                   for i, row in enumerate(net["layers"])])
+    return port_cut.CutpointEngine(port_grouping.group_nodes(graph),
+                                   FPGAConfig(**cfg["accelerator"]["fields"]),
+                                   **kw)
+
+
 def mixed_tuples(runs, n_prefix=25, n_random=25, seed=17):
     """Cut tuples: the first few in product order, seeded random ones, and
     the two corners (the fuzz of tests/test_alloc_scan.py)."""
