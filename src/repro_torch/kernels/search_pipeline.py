@@ -639,7 +639,13 @@ def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
     chunk's state row (``alloc_prefix_cuda``: the allocator state its
     candidates share up to their first differing group, :func:`shared_prefix`),
     and each chunk's replay starts from its row.  Nothing is read back here
-    and nothing synchronises."""
+    and nothing synchronises.
+
+    While a profiler records, each chunk adds to two counters: its ``g0``
+    times its candidates to ``alloc.shared_prefix_steps`` (under the
+    kernels only), and the SE side steps its replay runs, the side groups
+    at or past ``g0`` (0 without a row) times its candidates, to
+    ``alloc.side_steps``."""
     tbl = _engine_tables(engine)
     at = engine.alloc_tables()
     los = range(0, space.size, chunk)
@@ -655,9 +661,13 @@ def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
                    else alloc_scan(at, frame, backend=variant, state=rows[k]))
             cost_rows(tbl, frame, res.io, res.stats, lo, objective,
                       backend=variant, winner=winners[k])
-            if rows is not None and tracing.recording():
-                g0 = shared_prefix(space, engine._run_of, lo, count)
-                tracing.count("alloc.shared_prefix_steps", g0 * count)
+            if tracing.recording():
+                g0 = 0
+                if rows is not None:
+                    g0 = shared_prefix(space, engine._run_of, lo, count)
+                    tracing.count("alloc.shared_prefix_steps", g0 * count)
+                tracing.count("alloc.side_steps",
+                              int(at.is_side[g0:].sum()) * count)
     return winners
 
 

@@ -975,7 +975,8 @@ def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
     """Under the kernels the device loop makes every chunk's state row in
     one prefix launch and hands row k to chunk k's replay; while a profiler
     records it counts each chunk's ``g0`` times its candidates in
-    ``alloc.shared_prefix_steps``, and nothing otherwise.  The plain
+    ``alloc.shared_prefix_steps`` (and its side steps past ``g0``, none
+    on yolov2, in ``alloc.side_steps``), and nothing otherwise.  The plain
     variant makes no rows.  (The kernels are stood in for by the plain
     versions: this host has no card.)"""
     from torch.profiler import ProfilerActivity, profile
@@ -1019,7 +1020,9 @@ def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         rows = port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
     assert prefix_calls == [chunk] and states == list(range(len(los)))
-    assert tracing.counters() == {"alloc.shared_prefix_steps": want}
+    # yolov2 has no SE side path: its side-step counter reads 0
+    assert tracing.counters() == {"alloc.shared_prefix_steps": want,
+                                  "alloc.side_steps": 0}
     assert torch.equal(rows, plain)
     tracing.reset()
     port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
