@@ -848,22 +848,34 @@ def check_kernels(net: str, target: int, timed: bool, reps: int) -> dict:
     return out
 
 
-# K1 from its chunks' state rows: (net, chunk, chunks checked -- None:
-# all, else that many spread over the space from the first to the last,
-# sub-space -- None: the whole space, else its size with the leading cuts
-# fixed mid-run, check_space)
+# K1 from its state rows: (net, chunk, chunks checked -- None: all, else
+# that many spread over the space from the first to the last, sub-space --
+# None: the whole space, else its size with the leading cuts fixed mid-run,
+# check_space)
 PREFIX_CASES = (("yolov2", CHUNK, None, None), ("yolov3", CHUNK, 4, None),
-                ("yolov3", 1024, 64, None), ("yolov2", 4096, 8, 20000))
+                ("yolov3", 1024, 64, None), ("yolov2", 4096, 8, 20000),
+                ("mobilenet-v3", CHUNK, 4, None))
+# the nets whose first whole chunk of 2^20 is timed by CUDA events
+PREFIX_TIMED = ("yolov3", "mobilenet-v3", "yolov2")
+# K1 without a row at resnet152's 8,748 candidates, device ms from a trace,
+# before the state rows came a block of candidates at a time: the path
+# without a row should be no slower (logged on its own line)
+NO_ROW_RESNET152_MS = 0.1169
 
 
 def check_alloc_prefix(timed: bool, reps: int) -> dict:
-    """K1 started from each chunk's state row (``alloc_prefix_cuda``, one
-    launch a space) against the plain version's whole replay of the same
-    chunk's masks, every integer equal, and each row's ``g0`` equal to
-    ``shared_prefix``'s; then K1 without a row over resnet152's whole space
-    (8,748 candidates).  Timed: the prefix kernel, and K1 with and without
-    the row, at yolov3's chunk of 2^20, and K1 at resnet152 (device ms
-    from a trace)."""
+    """K1 started from the state rows (``alloc_prefix_cuda``, one launch a
+    space) at the block of D candidates that ``row_grain`` picks, each
+    row's ``g0`` its ``g1``, against the plain version's whole replay of
+    the same chunk's masks, every integer equal.  Rows of another grain
+    too: a row a chunk, each row's ``g0`` equal to ``shared_prefix``'s,
+    K1 from them on each chunk and on a launch straddling two chunks whose
+    ``g0`` differ (each thread from its own row's group).  Then K1 without
+    a row over resnet152's whole space (8,748 candidates), and from a row a
+    candidate there.  Timed, by CUDA events: the prefix launch and K1 from
+    its rows and without a row, at the first chunk of 2^20 of yolov3,
+    mobilenet-v3 and yolov2, and K1 at resnet152; the same at yolov3 and
+    resnet152 from a trace."""
     import torch
     from repro_torch.kernels import alloc_scan as scan
     from repro_torch.kernels import search_pipeline as pipe
@@ -877,14 +889,22 @@ def check_alloc_prefix(timed: bool, reps: int) -> dict:
                 and torch.equal(got.stats.to(torch.int64), want.stats),
                 f"{what}: K1 != the plain version's whole replay")
 
-    out, timed_at = {}, None
+    out, timed_at = {}, {}
     for net, chunk, picks, target in PREFIX_CASES:
         engine = make_engine(net)
         tbl = pipe._engine_tables(engine)
         at = engine.alloc_tables()
         space = whole(engine) if target is None else check_space(engine,
                                                                  target)
+        grain = pipe.row_grain(space, engine._run_of, chunk,
+                               4 * scan.state_row_width(at))
+        require(grain is not None, f"{net} at {chunk}: no rows fit")
+        D, g1 = grain
         rows = scan.alloc_prefix_cuda(at, tbl, space, chunk)
+        blocks = scan.alloc_prefix_cuda(at, tbl, space, D)
+        require(bool((blocks[:, 0] == g1).all()),
+                f"{net} at {chunk}: a row of a block of {D} does not "
+                f"start at g1 {g1}")
         n_chunks = rows.shape[0]
         picked = (range(n_chunks) if picks is None else sorted(
             {round(i * (n_chunks - 1) / (picks - 1)) for i in range(picks)}))
@@ -898,37 +918,89 @@ def check_alloc_prefix(timed: bool, reps: int) -> dict:
             require(g0 == pipe.shared_prefix(space, engine._run_of, lo,
                                              count),
                     f"{what}: the prefix kernel's g0 != shared_prefix's")
-            equal(scan.alloc_scan_cuda(at, frame, rows[k]),
-                  scan.alloc_scan_torch(at, frame), f"{what}, state row")
+            want = scan.alloc_scan_torch(at, frame)
+            equal(scan.alloc_scan_cuda(at, frame,
+                                       scan.StateRows(blocks, D, lo)),
+                  want, f"{what}, rows a block of {D}")
+            equal(scan.alloc_scan_cuda(at, frame,
+                                       scan.StateRows(rows, chunk, lo)),
+                  want, f"{what}, its chunk's row")
             g0s.add(g0)
-            if net == "yolov3" and chunk == CHUNK:
-                timed_at = (at, tbl, space, frame, rows[k])
+            if net in PREFIX_TIMED and chunk == CHUNK and k == 0:
+                timed_at[net] = (at, tbl, space, frame, D, blocks)
+        # a launch across the first boundary where the chunks' g0 change,
+        # up to 4,100 candidates each side, so a block of K1's threads
+        # reads two rows that start at different groups
+        starts = rows[:, 0].tolist()
+        edge = next((k for k in range(1, n_chunks)
+                     if starts[k] != starts[k - 1]), None)
+        if edge is not None:
+            lo = max(0, edge * chunk - 4100)
+            frame = pipe.enum_frames_cuda(tbl, space, lo,
+                                          min(8200, space.size - lo))
+            equal(scan.alloc_scan_cuda(at, frame,
+                                       scan.StateRows(rows, chunk, lo)),
+                  scan.alloc_scan_torch(at, frame),
+                  f"{net} at {chunk}, across chunk {edge}'s start "
+                  f"(g0 {starts[edge - 1]} then {starts[edge]})")
         name = f"{net}@{chunk}" + ("" if target is None
                                    else f" of {space.size}")
         out[name] = {"chunks": n_chunks, "checked": len(picked),
-                     "g0": sorted(g0s), "groups": tbl.n}
+                     "g0": sorted(g0s), "groups": tbl.n, "block": D,
+                     "g1": g1, "straddling": sum(k * chunk % D != 0
+                                                 for k in picked),
+                     "across_g0_change": edge}
     engine = make_engine("resnet152")
     r_at = engine.alloc_tables()
     space = whole(engine)
-    r_frame = pipe.enum_frames_cuda(pipe._engine_tables(engine), space, 0,
-                                    space.size)
-    equal(scan.alloc_scan_cuda(r_at, r_frame),
-          scan.alloc_scan_torch(r_at, r_frame),
+    r_tbl = pipe._engine_tables(engine)
+    r_frame = pipe.enum_frames_cuda(r_tbl, space, 0, space.size)
+    r_want = scan.alloc_scan_torch(r_at, r_frame)
+    equal(scan.alloc_scan_cuda(r_at, r_frame), r_want,
           f"resnet152, B {space.size}, no row")
     out["resnet152 no row"] = {"B": space.size}
+    # a row a candidate, each at g0 = G: the most rows a block of K1 copies
+    # (33 rows of 338 words for a block of 32 threads), and a replay of no
+    # group
+    ones = scan.alloc_prefix_cuda(r_at, r_tbl, space, 1)
+    require(bool((ones[:, 0] == r_at.n).all()),
+            "resnet152, a row a candidate: a row's g0 is not G")
+    equal(scan.alloc_scan_cuda(r_at, r_frame, scan.StateRows(ones, 1)),
+          r_want, f"resnet152, B {space.size}, a row a candidate")
     torch.cuda.synchronize()
     if not timed:
         return out
-    at, tbl, space, frame, row = timed_at
+    out["event_ms"] = {}
+    for net, (at, tbl, space, frame, D, blocks) in timed_at.items():
+        out["event_ms"][net] = {
+            "block": D,
+            "alloc_prefix": time_ms(lambda: scan.alloc_prefix_cuda(
+                at, tbl, space, D), reps),
+            "alloc_scan_from_rows": time_ms(lambda: scan.alloc_scan_cuda(
+                at, frame, scan.StateRows(blocks, D)), reps),
+            "alloc_scan_no_row": time_ms(lambda: scan.alloc_scan_cuda(
+                at, frame), reps)}
+    out["event_ms"]["resnet152 no row"] = {"alloc_scan_no_row": time_ms(
+        lambda: scan.alloc_scan_cuda(r_at, r_frame), reps)}
+    at, tbl, space, frame, D, blocks = timed_at["yolov3"]
     out["device_ms"] = {
         "alloc_prefix": traced_ms(lambda: scan.alloc_prefix_cuda(
-            at, tbl, space, CHUNK), "alloc_prefix", reps),
+            at, tbl, space, D), "alloc_prefix", reps),
         "alloc_scan_from_row": traced_ms(lambda: scan.alloc_scan_cuda(
-            at, frame, row), "alloc_scan", reps),
+            at, frame, scan.StateRows(blocks, D)), "alloc_scan", reps),
         "alloc_scan_no_row": traced_ms(lambda: scan.alloc_scan_cuda(
             at, frame), "alloc_scan", reps),
         "alloc_scan_resnet152_no_row": traced_ms(lambda: scan.alloc_scan_cuda(
             r_at, r_frame), "alloc_scan", reps)}
+    # so short a launch runs at the pace the host launches it through the
+    # wrapper, which the events time with it: the trace's time is the
+    # device's
+    no_row = out["device_ms"]["alloc_scan_resnet152_no_row"]
+    no_slower = (no_row <= NO_ROW_RESNET152_MS if isinstance(no_row, float)
+                 else "not measured")
+    log(f"K1 without a row at resnet152 (B {r_frame.shape[0]}): {no_row} "
+        f"ms device from a trace; {NO_ROW_RESNET152_MS} ms before the state "
+        f"rows came a block of candidates at a time: no slower {no_slower}")
     return out
 
 
@@ -5151,8 +5223,8 @@ def main(argv=None) -> int:
         "launches_in_service_phase": service["launches"].get(
             "alloc_prefix", 0),
         "max_abs_err": 0, "cases": {k: v for k, v in prefix.items()
-                                    if k != "device_ms"},
-        "device_ms": prefix["device_ms"]})
+                                    if k not in ("device_ms", "event_ms")},
+        "device_ms": prefix["device_ms"], "event_ms": prefix["event_ms"]})
     info = KERNEL_INFO["score_batch"]
     t, chunk, descent = (scorer[net] for net, _b in SCORER_SHAPES)
     kernels.append({

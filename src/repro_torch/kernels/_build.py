@@ -152,7 +152,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_double)
     lib.alloc_scan_launch.argtypes = [
-        p, p, p, p,                 # frame, steps, slots, row (null: none)
+        p, p, p, p,                 # frame, steps, slots, rows (null: none)
+        ll, ll, ll,                 # nrows, lo, D
         p, p,                       # io, stats
         ll, i, i, i,                # B, n, k, lw
         i, i, i,                    # input_slot, input_meta, W
@@ -160,7 +161,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.alloc_prefix_launch.argtypes = [
         p, p, p, p,                 # digits, run_of, pos_of, dir_neg
         p, p, p,                    # steps, slots, rows
-        ll, ll,                     # S, C
+        ll, ll,                     # S, D
         i, i, i, i,                 # n, nr, k, lw
         i, i, i,                    # input_slot, input_meta, W
         i, p]                       # device, stream

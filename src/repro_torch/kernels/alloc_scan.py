@@ -54,21 +54,25 @@ rate is the larger of the two times.
 **The shared prefix.**  The state entering group g depends only on the
 frame bits of groups 0 .. g-1.  The fused search (``search_pipeline.py``)
 hands the replay chunks of consecutive candidates of a mixed-radix space,
-last run fastest, so a chunk's leading runs keep one digit and its leading
-groups one frame bit for all its candidates: ``g0``
-(``search_pipeline.shared_prefix``), the first group of the first run
-whose digit varies in the chunk, is 57 of yolov3's 79 groups at a chunk of
-2**20.  :func:`alloc_prefix_cuda` launches one kernel a sub-space, a thread
-a chunk, that computes each chunk's ``g0`` and replays groups ``[0, g0)``
-once, for the chunk's first candidate, into the chunk's **state row**
+last run fastest, so an aligned block of D consecutive candidates keeps its
+leading runs' digits, and its leading groups' frame bits, for all its
+candidates: the block's ``g0`` (``search_pipeline.shared_prefix``), the
+first group of the first run whose digit varies in the block.
+:func:`alloc_prefix_cuda` launches one kernel a sub-space, a thread a
+block, that computes each block's ``g0`` and replays groups ``[0, g0)``
+once, for the block's first candidate, into the block's **state row**
 (:func:`state_row_width` int32: ``g0``, the three buffer owners and maxima,
 side maximum, ``wrf``, ``bfm``, ``feas``, the W slots' packed state and io,
-and the final io of every lane whose range ended before ``g0``).  Given its
-chunk's row, :func:`alloc_scan_cuda` starts there: it stores the row's
-final io words into those lanes' rows of ``io`` and replays groups
-``[g0, n)``; without a row it replays all groups from the initial state.
-The outputs are the same integers either way, and ``alloc_scan_torch``
-stays the whole replay they are held to.
+and the final io of every lane whose range ended before ``g0``).
+``search_pipeline.row_grain`` picks D, the block of a run: the stride of
+the run before it, every row starting at that run's first group (69 of
+yolov3's 79 groups at D 512, 52 of mobilenet-v3's 72 at D 108; a chunk of
+2**20 shares 57 of yolov3's).  Given the rows, :func:`alloc_scan_cuda`
+starts each candidate from its block's row: it stores the row's final io
+words into those lanes' rows of ``io`` and replays groups ``[g0, n)``;
+without rows it replays all groups from the initial state.  The outputs
+are the same integers either way, and ``alloc_scan_torch`` stays the whole
+replay they are held to.
 """
 from __future__ import annotations
 
@@ -525,7 +529,7 @@ def lane_major(x: torch.Tensor) -> torch.Tensor:
 
 
 def state_row_width(t: AllocScanTables) -> int:
-    """int32 words of a chunk's state row (module docstring): the fixed
+    """int32 words of a block's state row (module docstring): the fixed
     fields, the W slots' packed state and io, and n entries each for the
     lanes whose range ended before ``g0`` and their final io."""
     return ROW_FIXED + 2 * t.slots.width + 2 * t.n
@@ -556,19 +560,42 @@ def _input_lane(t: AllocScanTables) -> tuple[int, int]:
     return int(t.slots.slot[ni]), int(_meta(t.rem0[ni], t.loc0[ni]))
 
 
+@dataclass(frozen=True)
+class StateRows:
+    """Where a launch of the replay starts (:func:`alloc_scan_cuda`): the
+    state rows ``table`` that :func:`alloc_prefix_cuda` wrote for a
+    sub-space at blocks of ``block`` candidates, and the index ``lo`` in
+    that sub-space of the launch's first candidate.  Candidate i of the
+    launch starts from row ``(lo + i) // block``."""
+    table: torch.Tensor
+    block: int
+    lo: int = 0
+
+
+def _state_rows_ok(t: AllocScanTables, table: torch.Tensor) -> bool:
+    """``table`` is a table of state rows as :func:`alloc_prefix_cuda`
+    makes it: (rows, :func:`state_row_width`) int32 on the tables' device,
+    stored field-major."""
+    return (table.device == t.device and table.dtype == torch.int32
+            and table.ndim == 2 and table.shape[0] > 0
+            and table.shape[1] == state_row_width(t)
+            and table.stride() == (1, table.shape[0]))
+
+
 def alloc_scan_cuda(t: AllocScanTables, frame: torch.Tensor,
-                    state: torch.Tensor | None = None) -> AllocScanResult:
+                    state: StateRows | None = None) -> AllocScanResult:
     """The CUDA replay (``csrc/alloc_scan.cu``): bit-identical integers to
     :func:`alloc_scan_torch`, int32.
 
     ``frame`` is a (B, G) bool or uint8 CUDA tensor; lane-major storage
     (as :func:`~repro_torch.kernels.search_pipeline.enum_frames_cuda`
     writes it) is read in place, anything else is copied once.  ``state``:
-    ``None`` (replay every group from the initial state), or the state row
-    that :func:`alloc_prefix_cuda` wrote for the chunk these candidates
-    form (replay from its ``g0``).  A graph whose live lanes need more than
-    ``MAX_SLOTS`` slots is refused.  Launches the kernel or raises -- there
-    is no other path."""
+    ``None`` (replay every group from the initial state), or the state rows
+    these B candidates start from (:class:`StateRows`), each at its row's
+    ``g0``.  A graph whose live lanes need more than ``MAX_SLOTS`` slots is
+    refused, and so are rows a block of the kernel's threads could not hold
+    in shared memory.  Launches the kernel or raises -- there is no other
+    path."""
     from repro_torch.kernels import _build
 
     _kernel_tables(t, "alloc_scan_cuda")
@@ -580,15 +607,20 @@ def alloc_scan_cuda(t: AllocScanTables, frame: torch.Tensor,
     if frame.ndim != 2 or frame.shape[1] != t.n:
         raise ValueError(f"frame must be (B, {t.n}), got "
                          f"{tuple(frame.shape)}")
-    if state is not None and (
-            state.device != t.device or state.dtype != torch.int32
-            or state.shape != (state_row_width(t),)
-            or not state.is_contiguous()):
-        raise ValueError(f"alloc_scan_cuda wants the state row as a "
-                         f"contiguous ({state_row_width(t)},) int32 tensor "
-                         f"on {t.device}, got {tuple(state.shape)} "
-                         f"{state.dtype} on {state.device}")
     B, n = frame.shape
+    if state is not None:
+        table = state.table
+        if not _state_rows_ok(t, table):
+            raise ValueError(f"alloc_scan_cuda wants the state rows as "
+                             f"alloc_prefix_cuda makes them, (rows, "
+                             f"{state_row_width(t)}) int32 on {t.device} "
+                             f"stored field-major, got {tuple(table.shape)} "
+                             f"{table.dtype} on {table.device}")
+        if state.block <= 0 or state.lo < 0 or (
+                B and (state.lo + B - 1) // state.block >= table.shape[0]):
+            raise ValueError(f"alloc_scan_cuda: candidates [{state.lo}, "
+                             f"{state.lo + B}) in blocks of {state.block} "
+                             f"lie outside the {table.shape[0]} state rows")
     dev = t.device
     io = torch.empty((n, B), dtype=torch.int32, device=dev)
     stats = torch.empty((N_STATS, B), dtype=torch.int32, device=dev)
@@ -597,11 +629,13 @@ def alloc_scan_cuda(t: AllocScanTables, frame: torch.Tensor,
     frame_lm = lane_major(frame.view(torch.uint8)
                           if frame.dtype == torch.bool else frame)
     slots = t.dev["slots32"]
+    rows = ((None, 0, 0, 0) if state is None else
+            (state.table.data_ptr(), state.table.shape[0], state.lo,
+             state.block))
     err = _build.load().alloc_scan_launch(
         frame_lm.data_ptr(), t.dev["steps32"].data_ptr(), slots.data_ptr(),
-        None if state is None else state.data_ptr(), io.data_ptr(),
-        stats.data_ptr(), B, n, t.k, slots.shape[1], *_input_lane(t),
-        t.slots.width, dev.index or 0,
+        *rows, io.data_ptr(), stats.data_ptr(), B, n, t.k, slots.shape[1],
+        *_input_lane(t), t.slots.width, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "alloc_scan")
     alloc_scan_cuda.launches += 1
@@ -612,15 +646,16 @@ alloc_scan_cuda.launches = 0
 
 
 def alloc_prefix_cuda(t: AllocScanTables, tbl, space,
-                      chunk: int) -> torch.Tensor:
-    """The state rows of every chunk of ``space`` searched ``chunk``
-    candidates at a time: (ceil(space.size / chunk), :func:`state_row_width`)
-    int32 on the tables' device, row c the state entering group ``g0`` of
-    the candidates ``[c chunk, (c + 1) chunk)`` (module docstring), written
-    by one launch of ``alloc_prefix_kernel``.  ``tbl`` and ``space`` are the
-    search pipeline's ``PipelineTables`` and ``SubSpace``: the kernel
-    decodes frame bits from their digit table and three gathers as the
-    enumeration kernel does.  Launches the kernel or raises."""
+                      block: int) -> torch.Tensor:
+    """The state rows of ``space`` in blocks of ``block`` consecutive
+    candidates: (ceil(space.size / block), :func:`state_row_width`) int32
+    on the tables' device, stored field-major (a field of every row
+    contiguous), row r the state entering group ``g0`` of the candidates
+    ``[r block, (r + 1) block)`` (module docstring), written by one launch
+    of ``alloc_prefix_kernel``.  ``tbl`` and ``space`` are the search
+    pipeline's ``PipelineTables`` and ``SubSpace``: the kernel decodes frame
+    bits from their digit table and three gathers as the enumeration kernel
+    does.  Launches the kernel or raises."""
     from repro_torch.kernels import _build
 
     _kernel_tables(t, "alloc_prefix_cuda")
@@ -628,18 +663,18 @@ def alloc_prefix_cuda(t: AllocScanTables, tbl, space,
         raise ValueError(f"alloc_prefix_cuda wants the pipeline's tables "
                          f"on {t.device}, got {tbl.device} / "
                          f"{space.digits.device}")
-    if tbl.n != t.n or chunk <= 0:
+    if tbl.n != t.n or block <= 0:
         raise ValueError(f"alloc_prefix_cuda: {tbl.n} groups in the "
                          f"pipeline's tables, {t.n} in the allocator's, "
-                         f"chunk {chunk}")
-    rows = torch.empty((-(-space.size // chunk), state_row_width(t)),
-                       dtype=torch.int32, device=t.device)
+                         f"block {block}")
+    rows = torch.empty((state_row_width(t), -(-space.size // block)),
+                       dtype=torch.int32, device=t.device).t()
     slots = t.dev["slots32"]
     err = _build.load().alloc_prefix_launch(
         space.digits.data_ptr(), tbl.run_of32.data_ptr(),
         tbl.pos_of32.data_ptr(), tbl.dir_neg8.data_ptr(),
         t.dev["steps32"].data_ptr(), slots.data_ptr(), rows.data_ptr(),
-        space.size, chunk, t.n, space.digits.shape[1], t.k, slots.shape[1],
+        space.size, block, t.n, space.digits.shape[1], t.k, slots.shape[1],
         *_input_lane(t), t.slots.width, t.device.index or 0,
         torch.cuda.current_stream(t.device).cuda_stream)
     _build.check(err, "alloc_prefix")
@@ -653,7 +688,7 @@ alloc_prefix_cuda.launches = 0
 def alloc_scan(t: AllocScanTables, frame: torch.Tensor,
                backend: str | None = None,
                skip: torch.Tensor | None = None,
-               state: torch.Tensor | None = None) -> AllocScanResult:
+               state: StateRows | None = None) -> AllocScanResult:
     """Run the tensorized allocator replay for a B x G frame-mask batch.
 
     ``backend`` selects the implementation: ``"cuda"`` (the kernel;
@@ -670,15 +705,16 @@ def alloc_scan(t: AllocScanTables, frame: torch.Tensor,
     so downstream masking stays inert).  The surviving rows are
     bit-identical to an unskipped call on the same sub-batch.
 
-    ``state``: the chunk's state row (:func:`alloc_prefix_cuda`), which the
-    kernel starts from; the plain version replays every group, which gives
-    the same integers.  Not with ``skip``."""
+    ``state``: the state rows these candidates start from
+    (:class:`StateRows`), which the kernel starts from; the plain version
+    replays every group, which gives the same integers.  Not with
+    ``skip``."""
     if backend is None:
         backend = "cuda" if frame.is_cuda else "torch"
     if backend not in ("torch", "cuda"):
         raise ValueError(f"unknown alloc_scan backend: {backend!r}")
     if state is not None and skip is not None:
-        raise ValueError("alloc_scan takes a state row or a skip mask, not "
+        raise ValueError("alloc_scan takes state rows or a skip mask, not "
                          "both")
     if backend == "cuda" and state is not None:
         return alloc_scan_cuda(t, frame, state)

@@ -36,20 +36,35 @@
 //
 // The shared prefix.  The state entering group g depends only on the frame
 // bits of groups 0 .. g-1, and the fused search hands this kernel chunks of
-// consecutive candidates of a mixed-radix space (last run fastest), whose
-// leading runs' digits, and so whose leading groups' frame bits, are the
-// same for every candidate of the chunk: g0, the first group of the first
-// run whose digit is not, is 57 of yolov3's 79 groups at a chunk of 2^20.
-// alloc_prefix_kernel, one thread a chunk and one launch a sub-space,
-// computes each chunk's g0 from the sub-space's digit table, replays
-// groups 0 .. g0-1 for the chunk's first candidate (its frame bits decoded
-// with the enumeration kernel's three gathers) and writes the state
-// entering g0 into the chunk's state row.  Given that row, the replay
-// starts there: it copies the row's slots and registers, stores the final
-// io of every lane whose range ended before g0 (the same word for the whole
-// chunk: a broadcast, coalesced store), and runs groups g0 .. n-1.  Without
-// a row it starts from the initial state at group 0.  Both kernels run the
-// same step (alloc_step), so the integers are those of the whole replay.
+// consecutive candidates of a mixed-radix space (last run fastest).  The
+// candidates of an aligned block of D consecutive indices share their
+// leading runs' digits, and so their leading groups' frame bits: the
+// block's g, the first group of the first run whose digit is not the same
+// over the block.  alloc_prefix_kernel, one thread a block and one launch a
+// sub-space, computes each block's g from the sub-space's digit table,
+// replays groups 0 .. g-1 for the block's first candidate (its frame bits
+// decoded with the enumeration kernel's three gathers) and writes the state
+// entering g into the block's state row.  The host picks D
+// (kernels/search_pipeline.py::row_grain), a run's block: the stride of the
+// run before it, which divides the sub-space, so every row starts at that
+// run's first group, 52 of mobilenet-v3's 72 groups at D 108.  Given the
+// rows, thread b of the chunk at lo starts from row (lo + b) / D: it copies
+// the row's slots and registers, stores the final io of every lane whose
+// range ended before the row's g, and runs groups g .. n-1.  A block of
+// threads walks the table windows from the least g of its rows, each thread
+// stepping from its own (at the host's grain all the same), so any rows
+// give the integers of the whole replay.  Without rows it starts from the
+// initial state at group 0.  Both kernels run the same step (alloc_step),
+// so the integers are those of the whole replay.  The rows are stored
+// field-major, [R][rows]: the prefix kernel's warp writes one field of 32
+// neighbouring rows as one store, and a block of the replay copies the one
+// or few rows its candidates read into shared memory in a few coalesced
+// loads a thread, where neighbouring threads then read one row (on an
+// H100, row-major rows cost the prefix kernel 4x, each of a warp's stores
+// touching 32 lines; field-major rows read straight from global memory
+// cost the replay ~20 %, a line a field of its row).  A launch whose
+// block's rows do not fit in shared memory beside one row of the tables
+// is refused.
 //
 // Plain C interface; the launch goes to the stream it is given, allocates
 // nothing and does not synchronise.
@@ -72,7 +87,7 @@ constexpr int S_SIDE = 0, S_MAIN = 1, S_SC = 2, S_SCSZ = 3, S_INSZ = 4,
 // (below), then k producer slots and k producer write-buffer candidates,
 // the number of lanes whose range ends at the step, E lanes and E slots
 constexpr int L_OWN = 0, L_MAIN = 1, L_SC = 2, L_META0 = 3, L_GIN = 4;
-// fields of a chunk's state row (kernels/alloc_scan.py: ROW_FIXED): g0, the
+// fields of a block's state row (kernels/alloc_scan.py: ROW_FIXED): g0, the
 // three buffer owners, the three buffer maxima, the side maximum, wrf, bfm,
 // feas and the number m of lanes whose range ended before g0; then the W
 // slots' packed state, their io, and n entries each for those m lanes and
@@ -83,7 +98,7 @@ constexpr int R_G0 = 0, R_LIVE = 1, R_BUFF = R_LIVE + NB,
 
 constexpr int MAX_THREADS = 128;
 constexpr int MIN_THREADS = 32;
-constexpr int PREFIX_THREADS = 64;   // chunks a block of the prefix kernel
+constexpr int PREFIX_THREADS = 64;   // rows a block of the prefix kernel
 constexpr int MAX_SLOTS = 128;   // kernels/alloc_scan.py: MAX_SLOTS
 constexpr int MAX_FAN_IN = 64;   // kernels/alloc_scan.py: MAX_FAN_IN
 constexpr int SLOT_BYTES = 8;    // a slot's packed state and io (int32)
@@ -295,12 +310,15 @@ __device__ __forceinline__ void load_window(int* w_steps, int* w_slots,
     __syncthreads();
 }
 
-template <int K>
+// ROWS: the candidates start from state rows (rows not null); the replay
+// without them is compiled on its own, free of the rows' code
+template <int K, bool ROWS>
 __global__ void __launch_bounds__(MAX_THREADS)
 alloc_scan_kernel(const uint8_t* __restrict__ frame,    // [n][B] 0/1
                   const int* __restrict__ steps,        // [n][8 + 2k]
                   const int* __restrict__ slots,        // [n][lw]
-                  const int* __restrict__ row,          // state row, or null
+                  const int* __restrict__ rows,         // [R][nrows], or null
+                  long long nrows, long long lo, long long D,
                   int* __restrict__ io,                 // [n][B] out
                   int* __restrict__ stats,              // [7][B] out
                   long long B, int n, int k, int lw, int input_slot,
@@ -309,7 +327,7 @@ alloc_scan_kernel(const uint8_t* __restrict__ frame,    // [n][B] 0/1
     const int T = blockDim.x, tid = threadIdx.x;
     const int width = S_GIN + 2 * k;
     // the tables of `window` steps, then slot s of this candidate at
-    // s * T + tid in each state array
+    // s * T + tid in each state array, then the block's state rows
     int* w_steps = smem;                        // [window][width]
     int* w_slots = w_steps + window * width;    // [window][lw]
     int* sm = w_slots + window * lw + tid;      // [W][T]
@@ -323,43 +341,64 @@ alloc_scan_kernel(const uint8_t* __restrict__ frame,    // [n][B] 0/1
     const int E = (lw - L_GIN - 2 * k - 1) / 2;
 
     Replay st = initial_state();
-    int g0 = 0;
-    if (row) {
-        // the state entering group g0, the same for every candidate
-        g0 = __ldg(row + R_G0);
+    // the group this thread's replay starts at (n: it replays none), and
+    // the block's first, from which the block walks the table windows
+    int start = active ? 0 : n, g0 = 0;
+    if constexpr (ROWS) {
+        // the rows of this block's candidates, [lo + b_first, lo + b_last],
+        // copied field by field into shared memory by the whole block: each
+        // field of neighbouring rows is contiguous, so the copy is a few
+        // coalesced loads a thread, all in flight at once
+        const long long first = lo + blockIdx.x * (long long)T;
+        const long long r0 = first / D;
+        const long long last = lo + (B < blockIdx.x * (long long)T + T
+                                     ? B : blockIdx.x * (long long)T + T) - 1;
+        const int nr = (int)(last / D - r0) + 1;
+        const int R = R_SLOTS + 2 * W + 2 * n;
+        int* srows = w_slots + window * lw + 2 * W * T;     // [R][nr]
+        for (int i = tid; i < R * nr; i += T)
+            srows[i] = __ldg(rows + (long long)(i / nr) * nrows + r0 + i % nr);
+        __syncthreads();
+        g0 = n;
+        for (int r = 0; r < nr; ++r) g0 = min(g0, srows[R_G0 * nr + r]);
         if (active) {
+            // the state entering its g of this candidate's block of D
+            const int* row = srows + (int)((lo + b) / D - r0);
+#define ROW(f) row[(f) * nr]
+            start = ROW(R_G0);
 #pragma unroll
             for (int i = 0; i < NB; ++i) {
-                st.live[i] = __ldg(row + R_LIVE + i);
-                st.buff[i] = __ldg(row + R_BUFF + i);
+                st.live[i] = ROW(R_LIVE + i);
+                st.buff[i] = ROW(R_BUFF + i);
             }
-            st.side_buff = __ldg(row + R_SIDE);
-            st.wrf = __ldg(row + R_WRF);
-            st.bfm = __ldg(row + R_BFM);
-            st.feas = __ldg(row + R_FEAS);
+            st.side_buff = ROW(R_SIDE);
+            st.wrf = ROW(R_WRF);
+            st.bfm = ROW(R_BFM);
+            st.feas = ROW(R_FEAS);
             for (int x = 0; x < W; ++x) {
-                sm[x * T] = __ldg(row + R_SLOTS + x);
-                sio[x * T] = __ldg(row + R_SLOTS + W + x);
+                sm[x * T] = ROW(R_SLOTS + x);
+                sio[x * T] = ROW(R_SLOTS + W + x);
             }
-            // the lanes whose range ended before g0: their io is final
-            const int* ended = row + R_SLOTS + 2 * W;
-            const int m = __ldg(row + R_ENDED);
+            // the lanes whose range ended before start: their io is final
+            const int ended = R_SLOTS + 2 * W;
+            const int m = ROW(R_ENDED);
             for (int e = 0; e < m; ++e)
-                io[(long long)__ldg(ended + e) * B + b] = __ldg(ended + n + e);
+                io[(long long)ROW(ended + e) * B + b] = ROW(ended + n + e);
+#undef ROW
         }
     } else if (active) {
         sm[input_slot * T] = input_meta;
         sio[input_slot * T] = 0;
     }
-    const uint8_t* frame_b = frame + (long long)g0 * B + b;  // this column
-    uint8_t fr_next = active && g0 < n ? *frame_b : 0;
+    const uint8_t* frame_b = frame + (long long)start * B + b;  // its column
+    uint8_t fr_next = start < n ? *frame_b : 0;
 
     for (int g = g0, wg = 0; g < n; ++g, ++wg) {
         if (wg == window) wg = 0;
         if (wg == 0)                 // the next window of the tables
             load_window(w_steps, w_slots, steps, slots, g,
                         min(window, n - g), width, lw);
-        if (!active) continue;
+        if (g < start) continue;
         const uint8_t fr_byte = fr_next;
         frame_b += B;
         if (g + 1 < n) fr_next = *frame_b;
@@ -384,13 +423,14 @@ alloc_scan_kernel(const uint8_t* __restrict__ frame,    // [n][B] 0/1
     stats[6 * B + b] = st.feas;
 }
 
-// The shared prefix of every chunk of a sub-space of S candidates, chunks
-// of C: one thread a chunk, chunk c holding the candidates [c C, min((c +
-// 1) C, S)).  The chunk's g0 is the first group of the first free run (its
-// stride not 0) in whose stride the chunk's first and last candidates
-// differ: runs from there on vary inside the chunk, runs before it do not
+// The shared prefix of every block of a sub-space of S candidates, blocks
+// of D: one thread a block, block c holding the candidates [c D, min((c +
+// 1) D, S)).  The block's g0 is the first group of the first free run (its
+// stride not 0) in whose stride the block's first and last candidates
+// differ: runs from there on vary inside the block, runs before it do not
 // (a run's stride divides every earlier run's).  Groups 0 .. g0-1 are
-// replayed for the chunk's first candidate into the chunk's state row.
+// replayed for the block's first candidate into the block's state row,
+// field f of row c at rows[f * nrows + c].
 template <int K>
 __global__ void __launch_bounds__(PREFIX_THREADS)
 alloc_prefix_kernel(const long long* __restrict__ digits,  // [3][nr]
@@ -399,8 +439,8 @@ alloc_prefix_kernel(const long long* __restrict__ digits,  // [3][nr]
                     const uint8_t* __restrict__ dir_neg,   // [n]
                     const int* __restrict__ steps,         // [n][8 + 2k]
                     const int* __restrict__ slots,         // [n][lw]
-                    int* __restrict__ rows,                // [chunks][R] out
-                    long long S, long long C, long long chunks, int n,
+                    int* __restrict__ rows,                // [R][nrows] out
+                    long long S, long long D, long long nrows, int n,
                     int nr, int k, int lw, int input_slot, int input_meta,
                     int W, int window) {
     extern __shared__ __align__(16) int smem[];
@@ -413,13 +453,13 @@ alloc_prefix_kernel(const long long* __restrict__ digits,  // [3][nr]
     int* sio = sm + W * T;                      // [W][T]
 
     const long long c = blockIdx.x * (long long)T + tid;
-    const bool active = c < chunks;
+    const bool active = c < nrows;
     const int ni = n, sink = n + 1;
     const int E = (lw - L_GIN - 2 * k - 1) / 2;
-    const long long lo = c * C;
-    const long long last = (S - lo < C ? S : lo + C) - 1;
-    const int R = R_SLOTS + 2 * W + 2 * n;
-    int* row = rows + (active ? c : 0) * R;
+    const long long lo = c * D;
+    const long long last = (S - lo < D ? S : lo + D) - 1;
+    int* row = rows + (active ? c : 0);
+#define OUT(f) row[(long long)(f) * nrows]
 
     int g0 = 0;
     if (active) {
@@ -475,34 +515,36 @@ alloc_prefix_kernel(const long long* __restrict__ digits,  // [3][nr]
         const int* ends = ls + L_GIN + 2 * k;
         const int n_end = ends[0];
         for (int e = 0; e < n_end; ++e, ++m) {
-            row[R_SLOTS + 2 * W + m] = ends[1 + e];
-            row[R_SLOTS + 2 * W + n + m] = sio[ends[1 + E + e] * T];
+            OUT(R_SLOTS + 2 * W + m) = ends[1 + e];
+            OUT(R_SLOTS + 2 * W + n + m) = sio[ends[1 + E + e] * T];
         }
     }
 
     if (!active) return;
-    row[R_G0] = g0;
+    OUT(R_G0) = g0;
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
-        row[R_LIVE + i] = st.live[i];
-        row[R_BUFF + i] = st.buff[i];
+        OUT(R_LIVE + i) = st.live[i];
+        OUT(R_BUFF + i) = st.buff[i];
     }
-    row[R_SIDE] = st.side_buff;
-    row[R_WRF] = st.wrf;
-    row[R_BFM] = st.bfm;
-    row[R_FEAS] = st.feas;
-    row[R_ENDED] = m;
+    OUT(R_SIDE) = st.side_buff;
+    OUT(R_WRF) = st.wrf;
+    OUT(R_BFM) = st.bfm;
+    OUT(R_FEAS) = st.feas;
+    OUT(R_ENDED) = m;
     for (int x = 0; x < W; ++x) {
-        row[R_SLOTS + x] = sm[x * T];
-        row[R_SLOTS + W + x] = sio[x * T];
+        OUT(R_SLOTS + x) = sm[x * T];
+        OUT(R_SLOTS + W + x) = sio[x * T];
     }
+#undef OUT
 }
 
 // The widest window of table rows (at most MAX_WINDOW, at most n) that fits
-// in shared memory beside `threads` candidates' W slots, and the bytes it
-// all takes; 0 where not even one row fits.
-int table_window(int n, int k, int lw, int W, int threads, size_t* smem) {
-    const size_t slot_bytes = (size_t)SLOT_BYTES * W * threads;
+// in shared memory beside `threads` candidates' W slots and `extra` bytes,
+// and the bytes it all takes; 0 where not even one row fits.
+int table_window(int n, int k, int lw, int W, int threads, size_t* smem,
+                 size_t extra = 0) {
+    const size_t slot_bytes = (size_t)SLOT_BYTES * W * threads + extra;
     const size_t row_bytes = sizeof(int) * (size_t)(S_GIN + 2 * k + lw);
     int window = n < MAX_WINDOW ? n : MAX_WINDOW;
     while (window > 1 && slot_bytes + row_bytes * window > SMEM_BUDGET)
@@ -511,10 +553,11 @@ int table_window(int n, int k, int lw, int W, int threads, size_t* smem) {
     return *smem > SMEM_BUDGET ? 0 : window;
 }
 
-template <int K>
+template <int K, bool ROWS>
 int launch(const void* frame, const void* steps, const void* slots,
-           const void* row, void* io, void* stats, long long B, int n, int k,
-           int lw, int input_slot, int input_meta, int W, int device,
+           const void* rows, long long nrows, long long lo, long long D,
+           void* io, void* stats, long long B, int n, int k, int lw,
+           int input_slot, int input_meta, int W, int device,
            cudaStream_t stream) {
     int sms = 0;
     cudaError_t err = cudaDeviceGetAttribute(
@@ -525,25 +568,31 @@ int launch(const void* frame, const void* steps, const void* slots,
     while (threads > MIN_THREADS
            && (B + threads - 1) / threads < 2LL * sms)
         threads /= 2;
+    // the state rows a block's candidates read: a block of threads spans
+    // at most (threads - 1) / D + 2 blocks of D candidates
+    const long long spans = ROWS ? (threads - 1) / D + 2 : 0;
     size_t smem = 0;
-    const int window = table_window(n, k, lw, W, threads, &smem);
+    const int window = table_window(
+        n, k, lw, W, threads, &smem,
+        sizeof(int) * (size_t)(R_SLOTS + 2 * W + 2 * n)
+            * (size_t)(spans < threads ? spans : threads));
     if (window == 0) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(alloc_scan_kernel<K>,
+    err = cudaFuncSetAttribute(alloc_scan_kernel<K, ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (B + threads - 1) / threads;
-    alloc_scan_kernel<K><<<(unsigned)blocks, threads, smem, stream>>>(
+    alloc_scan_kernel<K, ROWS><<<(unsigned)blocks, threads, smem, stream>>>(
         (const uint8_t*)frame, (const int*)steps, (const int*)slots,
-        (const int*)row, (int*)io, (int*)stats, B, n, k, lw, input_slot,
-        input_meta, W, window);
+        (const int*)rows, nrows, lo, D, (int*)io, (int*)stats, B, n, k, lw,
+        input_slot, input_meta, W, window);
     return (int)cudaGetLastError();
 }
 
 template <int K>
 int launch_prefix(const void* digits, const void* run_of, const void* pos_of,
                   const void* dir_neg, const void* steps, const void* slots,
-                  void* rows, long long S, long long C, long long chunks,
+                  void* rows, long long S, long long D, long long nrows,
                   int n, int nr, int k, int lw, int input_slot,
                   int input_meta, int W, cudaStream_t stream) {
     size_t smem = 0;
@@ -553,12 +602,12 @@ int launch_prefix(const void* digits, const void* run_of, const void* pos_of,
         alloc_prefix_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const long long blocks = (chunks + PREFIX_THREADS - 1) / PREFIX_THREADS;
+    const long long blocks = (nrows + PREFIX_THREADS - 1) / PREFIX_THREADS;
     alloc_prefix_kernel<K><<<(unsigned)blocks, PREFIX_THREADS, smem,
                              stream>>>(
         (const long long*)digits, (const int*)run_of, (const int*)pos_of,
         (const uint8_t*)dir_neg, (const int*)steps, (const int*)slots,
-        (int*)rows, S, C, chunks, n, nr, k, lw, input_slot, input_meta, W,
+        (int*)rows, S, D, nrows, n, nr, k, lw, input_slot, input_meta, W,
         window);
     return (int)cudaGetLastError();
 }
@@ -583,51 +632,59 @@ bool tables_ok(int n, int k, int lw, int input_slot, int W) {
     return CALL(64)
 
 // frame [n][B] uint8; steps [n][8 + 2k] and slots [n][lw] int32
-// (kernels/alloc_scan.py packs them); row: null, or a chunk's state row
-// [R_SLOTS + 2 W + 2 n] int32 that alloc_prefix_launch wrote; io [n][B] and
-// stats [7][B] int32 out.  W slots (1..128), the graph input's in
-// input_slot with its packed state input_meta; k <= 64.
+// (kernels/alloc_scan.py packs them); rows: null, or the state rows
+// [R_SLOTS + 2 W + 2 n][nrows] int32 that alloc_prefix_launch wrote at
+// blocks of D, the B candidates being those from lo of its sub-space; io
+// [n][B] and stats [7][B] int32 out.
+// W slots (1..128), the graph input's in input_slot with its packed state
+// input_meta; k <= 64.
 extern "C" int alloc_scan_launch(const void* frame, const void* steps,
-                                 const void* slots, const void* row,
+                                 const void* slots, const void* rows,
+                                 long long nrows, long long lo, long long D,
                                  void* io, void* stats, long long B, int n,
                                  int k, int lw, int input_slot,
                                  int input_meta, int W, int device,
                                  void* stream) {
     if (B <= 0 || n <= 0) return 0;
-    if (!tables_ok(n, k, lw, input_slot, W))
+    if (!tables_ok(n, k, lw, input_slot, W)
+        || (rows && (D <= 0 || lo < 0 || (lo + B - 1) / D >= nrows)))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
 #define SCAN(K_)                                                            \
-    launch<K_>(frame, steps, slots, row, io, stats, B, n, k, lw,            \
-               input_slot, input_meta, W, device, s)
+    (rows ? launch<K_, true>(frame, steps, slots, rows, nrows, lo, D, io,   \
+                             stats, B, n, k, lw, input_slot, input_meta, W, \
+                             device, s)                                     \
+          : launch<K_, false>(frame, steps, slots, rows, nrows, lo, D, io,  \
+                              stats, B, n, k, lw, input_slot, input_meta,   \
+                              W, device, s))
     BY_FAN_IN(SCAN);
 #undef SCAN
 }
 
-// The state rows [chunks][R_SLOTS + 2 W + 2 n] int32 of a sub-space of S
-// candidates searched in chunks of C (chunks = ceil(S / C)): digits [3][nr]
-// int64 (each run's fixed cut, stride -- 0 for a fixed run -- and dim),
-// run_of / pos_of [n] int32 and dir_neg [n] uint8, the enumeration kernel's
-// tables; the rest as alloc_scan_launch's.
+// The state rows [R_SLOTS + 2 W + 2 n][ceil(S / D)] int32 of a sub-space of
+// S candidates in blocks of D: digits [3][nr] int64 (each run's fixed cut,
+// stride -- 0 for a fixed run -- and dim), run_of / pos_of [n] int32 and
+// dir_neg [n] uint8, the enumeration kernel's tables; the rest as
+// alloc_scan_launch's.
 extern "C" int alloc_prefix_launch(const void* digits, const void* run_of,
                                    const void* pos_of, const void* dir_neg,
                                    const void* steps, const void* slots,
-                                   void* rows, long long S, long long C,
+                                   void* rows, long long S, long long D,
                                    int n, int nr, int k, int lw,
                                    int input_slot, int input_meta, int W,
                                    int device, void* stream) {
     if (S <= 0) return 0;
-    if (C <= 0 || nr <= 0 || !tables_ok(n, k, lw, input_slot, W))
+    if (D <= 0 || nr <= 0 || !tables_ok(n, k, lw, input_slot, W))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const long long chunks = (S + C - 1) / C;
+    const long long nrows = (S + D - 1) / D;
     cudaStream_t s = (cudaStream_t)stream;
 #define PREFIX(K_)                                                          \
     launch_prefix<K_>(digits, run_of, pos_of, dir_neg, steps, slots, rows,  \
-                      S, C, chunks, n, nr, k, lw, input_slot, input_meta,   \
+                      S, D, nrows, n, nr, k, lw, input_slot, input_meta,    \
                       W, s)
     BY_FAN_IN(PREFIX);
 #undef PREFIX

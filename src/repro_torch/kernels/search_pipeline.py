@@ -15,10 +15,11 @@ host.  This module fuses that whole loop into one device pipeline behind
    gathers as ``CutpointEngine._frame_matrix``); the host never
    materializes the candidate tuple stream.
 2. **Allocator replay** -- the decoded masks feed the tensorized allocator
-   (``kernels/alloc_scan.py``), integer-exact.  A chunk's candidates share
-   their leading runs' digits, so the replay of the groups before
-   :func:`shared_prefix` is done once a chunk, by one launch a sub-space
-   that writes each chunk's state row, and each chunk's replay starts there.
+   (``kernels/alloc_scan.py``), integer-exact.  An aligned block of
+   candidates shares its leading runs' digits, so the replay of the groups
+   before its :func:`shared_prefix` is done once a block, by one launch a
+   sub-space that writes each block's state row, and each candidate's
+   replay starts from its block's row; :func:`row_grain` picks the block.
 3. **Cost reduction** -- the B x G mask-matrix reductions of
    ``timing/dram/sram.*_fast_batch``, evaluated in float64.  Every integer
    quantity is far below 2**53, so the int -> f64 embedding is exact and
@@ -88,8 +89,9 @@ from repro_torch.core.options import DEFAULT_BATCH_SIZE
 from repro_torch.kernels import upload
 from repro_torch.kernels.alloc_scan import (N_STATS, STAT_BFM, STAT_FEAS,
                                             STAT_SIDE, STAT_WRF,
-                                            alloc_prefix_cuda, alloc_scan,
-                                            lane_major)
+                                            StateRows, alloc_prefix_cuda,
+                                            alloc_scan, lane_major,
+                                            state_row_width)
 from repro_torch.utils import tracing
 from repro_torch.utils.tracing import span
 
@@ -114,6 +116,10 @@ COST_AHEAD = 2                       # steps the split kernel loads ahead
 # candidates a thread of the enumeration kernel decodes and stores as one
 # vector, widest first (csrc/search_pipeline.cu enum_frames_kernel<V>)
 ENUM_VECTORS = (16, 4, 1)
+
+# bytes the state rows of one sub-space may take (row_grain): the prefix
+# launch writes them once and the chunks' replays read them
+ROW_BUDGET = 256 << 20
 
 # rows of PipelineTables.tab
 _TAB_ROWS = ("lt_comp", "lt_row", "lt_weight", "lt_side", "dt_rowfm",
@@ -153,6 +159,46 @@ def shared_prefix(space: "SubSpace", run_of, lo: int, count: int) -> int:
     if q0 is None:
         return len(run_of)
     return int(np.argmax(run_of >= q0))
+
+
+def row_grain(space: "SubSpace", run_of, chunk: int,
+              row_bytes: int) -> tuple[int, int] | None:
+    """The grain of the state rows the replay of ``space``'s chunks of
+    ``chunk`` starts from: ``(D, g1)``, a row a block of D consecutive
+    candidates, every row starting at group ``g1``; ``None`` where no such
+    block's rows fit.
+
+    The candidates of an aligned block of a free run's stride, or of the
+    whole sub-space, share the digits of the runs before the next run whose
+    digit varies, so they share the allocator state entering its first group
+    ``g1`` (the block's :func:`shared_prefix`); such a D divides the
+    sub-space, so every block is whole and every row starts at ``g1``.  Of
+    these, the D no larger than the chunk whose rows (``row_bytes`` each)
+    fit in ``ROW_BUDGET`` that models the fewest group steps a candidate --
+    its ``G - g1`` replayed, plus the ``g1`` of its block's row over the D
+    candidates that share it; the larger D on a tie."""
+    run_of = np.asarray(run_of).tolist()
+    n, size, strides = len(run_of), space.size, space.strides
+    # the first group at or past each run, n past the last: the
+    # shared_prefix of an aligned block is that of the first free run
+    # whose stride is below the block
+    npfx = len(space.prefix)
+    first = [n] * (npfx + len(strides) + 1)
+    for g in reversed(range(n)):
+        first[run_of[g]] = g
+    for r in reversed(range(len(first) - 1)):
+        first[r] = min(first[r], first[r + 1])
+    best, grain, q = None, None, 0
+    for block in sorted({size, *strides}, reverse=True):
+        while q < len(strides) and strides[q] >= block:
+            q += 1
+        if block > chunk or -(-size // block) * row_bytes > ROW_BUDGET:
+            continue
+        g1 = first[npfx + q]
+        steps = n - g1 + g1 / block
+        if best is None or steps < best:
+            best, grain = steps, (block, g1)
+    return grain
 
 
 def _fold(best, w):
@@ -635,30 +681,38 @@ def run_chunks(engine, space: SubSpace, objective: str, chunk: int,
                variant: str) -> torch.Tensor:
     """The device loop: one winner row per chunk of ``chunk`` candidates,
     (nchunks, 4) float64 on the engine's device, each written by the
-    chunk's cost stage.  Under the kernels, one launch first writes every
-    chunk's state row (``alloc_prefix_cuda``: the allocator state its
-    candidates share up to their first differing group, :func:`shared_prefix`),
-    and each chunk's replay starts from its row.  Nothing is read back here
-    and nothing synchronises.
+    chunk's cost stage.  Under the kernels, one launch first writes the
+    state rows (``alloc_prefix_cuda``: the allocator state the candidates
+    of a block share up to their first differing group), at the grain
+    :func:`row_grain` picks, and each candidate's replay starts from its
+    block's row; where no grain's rows fit, every replay starts at group 0.
+    Nothing is read back here and nothing synchronises.
 
-    While a profiler records, each chunk adds to two counters: its ``g0``
-    times its candidates to ``alloc.shared_prefix_steps`` (under the
-    kernels only), and the SE side steps its replay runs, the side groups
-    at or past ``g0`` (0 without a row) times its candidates, to
-    ``alloc.side_steps``."""
+    While a profiler records, each chunk adds to two counters, at the
+    chunk's grain whatever the rows' grain (the benchmark's readers define
+    them so): its shared cut prefix ``g0`` times its candidates to
+    ``alloc.shared_prefix_steps`` (under the kernels only), and the side
+    groups at or past that ``g0`` (0 without rows) times its candidates to
+    ``alloc.side_steps``.  A chunk of D or more candidates varies in every
+    run a block of D varies in, so its rows start at ``g1 >= g0`` and the
+    replay skips at least that much."""
     tbl = _engine_tables(engine)
     at = engine.alloc_tables()
     los = range(0, space.size, chunk)
     winners = torch.empty((len(los), 4), dtype=torch.float64,
                           device=tbl.device)
     with span("pipeline.enqueue"):
-        rows = (alloc_prefix_cuda(at, tbl, space, chunk)
-                if _pick(variant, tbl.tab, "alloc_scan") else None)
+        grain = (row_grain(space, engine._run_of, chunk,
+                           4 * state_row_width(at))
+                 if _pick(variant, tbl.tab, "alloc_scan") else None)
+        rows = (None if grain is None
+                else alloc_prefix_cuda(at, tbl, space, grain[0]))
         for k, lo in enumerate(los):
             count = min(chunk, space.size - lo)
             frame = enum_frames(tbl, space, lo, count, backend=variant)
             res = (alloc_scan(at, frame, backend=variant) if rows is None
-                   else alloc_scan(at, frame, backend=variant, state=rows[k]))
+                   else alloc_scan(at, frame, backend=variant,
+                                   state=StateRows(rows, grain[0], lo)))
             cost_rows(tbl, frame, res.io, res.stats, lo, objective,
                       backend=variant, winner=winners[k])
             if tracing.recording():

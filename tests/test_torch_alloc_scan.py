@@ -322,37 +322,47 @@ def slot_steps(t, st, frame, g_from, g_to, ended):
                           io_s[row[5 + 2 * k + E + e]].copy()))
 
 
-def prefix_row(t, first, g0):
-    """alloc_prefix_kernel's state row on the CPU: groups ``[0, g0)``
-    replayed for one candidate (``first``, its (G,) frame bits) from the
-    initial state, laid out as the kernel writes it (``ROW_FIXED`` fields,
-    the W slots' packed state and io, the lanes ended before ``g0`` and
-    their io, n entries each)."""
-    n, W = t.n, t.slots.width
-    st = slot_state(t, 1)
+def prefix_rows(t, firsts, g0):
+    """alloc_prefix_kernel's state rows on the CPU, one a row of
+    ``firsts`` (K, G) frame bits: groups ``[0, g0)`` replayed for that
+    candidate from the initial state, laid out as the kernel writes a row
+    (``ROW_FIXED`` fields, the W slots' packed state and io, the lanes ended
+    before ``g0`` and their io, n entries each); (K, R) int64."""
+    firsts = np.asarray(firsts, bool)
+    K, n, W = firsts.shape[0], t.n, t.slots.width
+    st = slot_state(t, K)
     ended = []
-    slot_steps(t, st, np.asarray(first, bool)[None, :], 0, g0, ended)
-    row = np.zeros(port_scan.state_row_width(t), np.int64)
-    row[0] = g0
-    row[1:4], row[4:7] = st["live"][:, 0], st["buff"][:, 0]
-    row[7:11] = st["side"][0], st["wrf"][0], st["bfm"][0], st["feas"][0]
-    row[11] = len(ended)
+    slot_steps(t, st, firsts, 0, g0, ended)
+    rows = np.zeros((K, port_scan.state_row_width(t)), np.int64)
+    rows[:, 0] = g0
+    rows[:, 1:4], rows[:, 4:7] = st["live"].T, st["buff"].T
+    rows[:, 7:11] = np.stack([st["side"], st["wrf"], st["bfm"],
+                              st["feas"]], axis=1)
+    rows[:, 11] = len(ended)
     f = port_scan.ROW_FIXED
-    row[f:f + W] = ((st["rem"] << 8) | (st["bw"].astype(np.int64) << 4)
-                    | st["loc"])[:, 0]
-    row[f + W:f + 2 * W] = st["io"][:, 0]
+    rows[:, f:f + W] = ((st["rem"] << 8) | (st["bw"].astype(np.int64) << 4)
+                        | st["loc"]).T
+    rows[:, f + W:f + 2 * W] = st["io"].T
     for e, (lane, io) in enumerate(ended):
-        row[f + 2 * W + e], row[f + 2 * W + n + e] = lane, io[0]
-    return row
+        rows[:, f + 2 * W + e], rows[:, f + 2 * W + n + e] = lane, io
+    return rows
+
+
+def prefix_row(t, first, g0):
+    """:func:`prefix_rows` of one candidate (``first``, its (G,) frame
+    bits): its (R,) state row."""
+    return prefix_rows(t, np.asarray(first, bool)[None, :], g0)[0]
 
 
 def slot_replay(t, frame, row=None):
     """csrc/alloc_scan.cu's algorithm on the CPU, B candidates at once:
-    from the initial state at group 0, or -- given the chunk's state row
-    (:func:`prefix_row`) -- from the row's ``g0``, each candidate starting
-    with the row's slots and registers and the io of the lanes ended before
-    ``g0`` written from it, as alloc_scan_kernel does with a row.  Returns
-    ``(io (B, n), stats (B, 7))`` int64."""
+    from the initial state at group 0, or -- given a state row
+    (:func:`prefix_row`), or one a candidate, (B, R) -- from each
+    candidate's row's ``g0``, each candidate starting with its row's slots
+    and registers and the io of the lanes ended before its ``g0`` written
+    from it, as alloc_scan_kernel does with rows (a block of its threads
+    walks the steps from its rows' least ``g0``, each thread stepping from
+    its own).  Returns ``(io (B, n), stats (B, 7))`` int64."""
     frame = np.asarray(frame, dtype=bool)
     B, n, W = frame.shape[0], t.n, t.slots.width
     io = np.full((n, B), -1, np.int64)         # -1: never written out
@@ -360,17 +370,32 @@ def slot_replay(t, frame, row=None):
     g0 = 0
     if row is not None:
         f = port_scan.ROW_FIXED
-        g0 = int(row[0])
-        st["live"][:] = row[1:4, None]
-        st["buff"][:] = row[4:7, None]
-        st["side"][:], st["wrf"][:], st["bfm"][:] = row[7], row[8], row[9]
-        st["feas"][:] = row[10] > 0
-        meta = row[f:f + W, None]
+        rows = np.broadcast_to(np.asarray(row, np.int64).reshape(
+            -1, port_scan.state_row_width(t)), (B, f + 2 * W + 2 * n)).T
+        starts = rows[0]
+        if len(set(starts.tolist())) > 1:
+            # the candidates of each start group on their own: a thread
+            # skips the steps before its row's g0
+            out_io = np.empty((B, n), np.int64)
+            out_stats = np.empty((B, port_scan.N_STATS), np.int64)
+            for g in set(starts.tolist()):
+                sel = starts == g
+                out_io[sel], out_stats[sel] = slot_replay(t, frame[sel],
+                                                          rows.T[sel])
+            return out_io, out_stats
+        g0 = int(rows[0, 0])
+        st["live"][:] = rows[1:4]
+        st["buff"][:] = rows[4:7]
+        st["side"][:], st["wrf"][:], st["bfm"][:] = rows[7], rows[8], rows[9]
+        st["feas"][:] = rows[10] > 0
+        meta = rows[f:f + W]
         st["rem"][:], st["bw"][:] = meta >> 8, (meta >> 4) & 1
         st["loc"][:] = meta & 15
-        st["io"][:] = row[f + W:f + 2 * W, None]
-        for e in range(int(row[11])):
-            io[row[f + 2 * W + e]] = row[f + 2 * W + n + e]
+        st["io"][:] = rows[f + W:f + 2 * W]
+        assert len(set(rows[11].tolist())) == 1
+        for e in range(int(rows[11, 0])):
+            lanes = rows[f + 2 * W + e]
+            io[lanes, np.arange(B)] = rows[f + 2 * W + n + e]
     ended = []
     slot_steps(t, st, frame, g0, n, ended)
     for lane, lane_io in ended:
@@ -408,18 +433,33 @@ def test_slot_replay_equals_plain_version_and_reference(name, masks):
 HANDOFF_CASES = [("bench:yolov2-416", 1 << 20, False),
                  ("bench:yolov3-416", 1 << 20, False),
                  ("bench:yolov3-416", 1024, False),
-                 ("resnet50", 1024, False), ("yolov2", 4096, True)]
+                 ("resnet50", 1024, False), ("yolov2", 4096, True),
+                 ("bench:mobilenet-v3-224", 1 << 20, False),
+                 ("bench:mobilenet-v3-224", 1024, False),
+                 ("bench:yolov2-416", 1024, False),
+                 ("bench:mobilenet-v3-224", 1 << 20, True)]
+
+# the grain row_grain picks on the benchmark's configurations, at either
+# chunk: (D, g1) -- replays of 20 of 72, 10 of 79 and 5 of 26 groups
+BENCH_GRAINS = {"bench:mobilenet-v3-224": (108, 52),
+                "bench:yolov3-416": (512, 69),
+                "bench:yolov2-416": (18, 21)}
 
 
 @pytest.mark.parametrize("net, chunk, fixed", HANDOFF_CASES)
 def test_slot_replay_from_the_chunks_state_row(net, chunk, fixed):
-    """The state hand-off of the shared prefix: groups ``[0, g0)`` replayed
-    once, for the chunk's first candidate, into its state row (the prefix
-    kernel's algorithm), then ``[g0, n)`` for every candidate from that row
-    (K1's with a row) equal the whole replay -- the kernel's algorithm and
-    the plain version -- in every io and stats integer.  64 candidates of
-    each chunk checked (its first and last among them) on up to 8 chunks,
-    the ragged last chunk included."""
+    """The state hand-off of the shared prefix, at both grains of the
+    search's state rows: a row a chunk (groups ``[0, g0)`` replayed once,
+    for the chunk's first candidate, the prefix kernel's algorithm) and a
+    row a block of the D that ``row_grain`` picks (``[0, g1)`` for each
+    block's first candidate); then ``[g0, n)`` for every candidate from its
+    chunk's row, and ``[g1, n)`` from its block's row (K1's with rows), each
+    equal to the whole replay -- the kernel's algorithm and the plain
+    version -- in every io and stats integer.  64 candidates of each chunk
+    checked (its first and last, and both ends of the block that holds its
+    first, among them) on up to 8 chunks, the ragged last chunk of the
+    sub-space included; on yolov2-416 and mobilenet-v3-224 at 2^20 blocks
+    straddle the chunks' boundaries."""
     pe = torch_parity.port_engine_of(net)
     tbl = port_pipe._engine_tables(pe)
     at = pe.alloc_tables()
@@ -427,30 +467,91 @@ def test_slot_replay_from_the_chunks_state_row(net, chunk, fixed):
     npfx = 2 if fixed else 0
     space = port_pipe.SubSpace.make(
         tuple(len(r) // 2 for r in pe.runs[:npfx]), dims[npfx:], "cpu")
+    grain = port_pipe.row_grain(space, pe._run_of,
+                                chunk, 4 * port_scan.state_row_width(at))
+    assert grain is not None
+    D, g1 = grain
+
+    def frames(js):
+        return torch.cat([port_pipe.enum_frames_torch(tbl, space, int(j), 1)
+                          for j in js]).numpy()
+
     n_chunks = -(-space.size // chunk)
-    g0s = set()
+    g0s, straddles = set(), 0
     for c in sorted({round(i * (n_chunks - 1) / 7) for i in range(8)}):
         lo = c * chunk
         count = min(chunk, space.size - lo)
-        js = np.unique(np.linspace(lo, lo + count - 1, 64).astype(np.int64))
-        frame = torch.cat([port_pipe.enum_frames_torch(tbl, space, int(j), 1)
-                           for j in js]).numpy()
+        edge = lo - lo % D + D
+        js = np.unique(np.concatenate([
+            np.linspace(lo, lo + count - 1, 64).astype(np.int64),
+            [x for x in (edge - 1, edge) if x < lo + count]]))
+        frame = frames(js)
+        whole_io, whole_stats = slot_replay(at, frame)
+        plain = port_scan.alloc_scan_torch(at, as_tensor(frame))
+        assert np.array_equal(whole_io, plain.io.numpy())
+        assert np.array_equal(whole_stats, plain.stats.numpy())
+        # a row a chunk
         g0 = port_pipe.shared_prefix(space, pe._run_of, lo, count)
         row = prefix_row(at, frame[0], g0)
         assert row[0] == g0 and row[11] <= at.n
         io, stats = slot_replay(at, frame, row=row)
-        whole_io, whole_stats = slot_replay(at, frame)
         assert (io >= 0).all(), "a lane's io was never written out"
         assert np.array_equal(io, whole_io), (net, c, g0)
         assert np.array_equal(stats, whole_stats), (net, c, g0)
-        plain = port_scan.alloc_scan_torch(at, as_tensor(frame))
-        assert np.array_equal(io, plain.io.numpy())
-        assert np.array_equal(stats, plain.stats.numpy())
         g0s.add(g0)
+        # a row a block of D, each candidate from its own block's row
+        blocks, which = np.unique(js // D, return_inverse=True)
+        rows = prefix_rows(at, frames(blocks * D), g1)
+        io, stats = slot_replay(at, frame, row=rows[which])
+        assert (io >= 0).all(), "a lane's io was never written out"
+        assert np.array_equal(io, whole_io), (net, c, D, g1)
+        assert np.array_equal(stats, whole_stats), (net, c, D, g1)
+        straddles += lo % D != 0
     if (net, chunk) == ("bench:yolov2-416", 1 << 20):
         assert g0s == {0, 2, 3}
     if (net, chunk) == ("bench:yolov3-416", 1 << 20):
         assert g0s == {57}
+    if net in BENCH_GRAINS and not fixed:
+        assert (D, g1) == BENCH_GRAINS[net]
+    if chunk == 1 << 20 and net in ("bench:yolov2-416",
+                                    "bench:mobilenet-v3-224"):
+        assert straddles > 0
+
+
+@pytest.mark.parametrize("net, chunk", [("bench:yolov2-416", 1 << 20),
+                                        ("bench:mobilenet-v3-224", 1 << 20),
+                                        ("yolov2", 4096)])
+def test_slot_replay_from_rows_that_start_at_different_groups(net, chunk):
+    """One launch over candidates whose rows start at different groups:
+    the chunks' own rows (each at its chunk's ``g0``) read across every
+    boundary where ``g0`` changes, 40 candidates each side, as a block of
+    K1's threads reads them when a launch straddles the rows; each
+    candidate from its own chunk's row equals the whole replay."""
+    pe = torch_parity.port_engine_of(net)
+    tbl = port_pipe._engine_tables(pe)
+    at = pe.alloc_tables()
+    space = port_pipe.SubSpace.make((), [len(r) + 1 for r in pe.runs],
+                                    "cpu")
+    los = range(0, space.size, chunk)
+    if len(los) > 64:
+        los = los[:64]
+    g0s = [port_pipe.shared_prefix(space, pe._run_of, lo,
+                                   min(chunk, space.size - lo)) for lo in los]
+    edges = [k for k in range(1, len(los)) if g0s[k] != g0s[k - 1]]
+    assert edges, (net, chunk, g0s)
+    for k in edges[:3]:
+        js = np.arange(los[k] - 40, los[k] + 40)
+        frame = torch.cat([port_pipe.enum_frames_torch(tbl, space, int(j), 1)
+                           for j in js]).numpy()
+        whole_io, whole_stats = slot_replay(at, frame)
+        firsts = torch.cat([port_pipe.enum_frames_torch(tbl, space, lo, 1)
+                            for lo in (los[k - 1], los[k])]).numpy()
+        rows = np.concatenate([prefix_rows(at, firsts[i:i + 1], g0s[k - 1 + i])
+                               for i in range(2)])
+        io, stats = slot_replay(at, frame, row=rows[(js >= los[k]) * 1])
+        assert (io >= 0).all(), "a lane's io was never written out"
+        assert np.array_equal(io, whole_io), (net, k, g0s[k - 1], g0s[k])
+        assert np.array_equal(stats, whole_stats), (net, k)
 
 
 @pytest.mark.parametrize("name", ["vgg16-conv", "resnet50", "mobilenet-v3"])

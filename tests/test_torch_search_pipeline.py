@@ -33,7 +33,7 @@ from repro.core.search_pool import partition_space
 
 import repro_torch.kernels.search_pipeline as port_pipe
 from repro_torch.convert import pipeline_tables_from_numpy
-from repro_torch.kernels.alloc_scan import alloc_scan
+from repro_torch.kernels.alloc_scan import alloc_scan, state_row_width
 
 from hypothesis_compat import given, settings, st
 from torch_parity import ALL_CNNS, METRICS, both
@@ -872,8 +872,9 @@ def test_run_chunks_takes_no_argmin_launch(monkeypatch):
 
 
 # ------------------------------------------------------- K1's shared prefix
-# zoo nets and the benchmark's two configurations (``bench/configs/``)
-PREFIX_NETS = ("bench:yolov2-416", "bench:yolov3-416", "resnet50", "yolov2")
+# zoo nets and the benchmark's configurations (``bench/configs/``)
+PREFIX_NETS = ("bench:yolov2-416", "bench:yolov3-416", "resnet50", "yolov2",
+               "bench:mobilenet-v3-224")
 
 
 @functools.lru_cache(maxsize=None)
@@ -971,34 +972,125 @@ def test_shared_prefix_edges():
                                    space.size) == first_free
 
 
-def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
-    """Under the kernels the device loop makes every chunk's state row in
-    one prefix launch and hands row k to chunk k's replay; while a profiler
-    records it counts each chunk's ``g0`` times its candidates in
-    ``alloc.shared_prefix_steps`` (and its side steps past ``g0``, none
-    on yolov2, in ``alloc.side_steps``), and nothing otherwise.  The plain
-    variant makes no rows.  (The kernels are stood in for by the plain
-    versions: this host has no card.)"""
+def first_varying_run(tbl, engine, space, block):
+    """Brute force: the first group of the run that holds the first frame
+    row varying over the candidates ``[0, block)`` (G when none does)."""
+    vary = varying_rows(tbl, space, 0, block).numpy()
+    if not vary.any():
+        return tbl.n
+    run_of = engine._run_of
+    return int(np.argmax(run_of == run_of[int(np.argmax(vary))]))
+
+
+def modelled_steps(n, g, block):
+    """row_grain's model: a candidate replays ``n - g`` groups, and shares
+    its block's row's ``g`` with the block's other candidates."""
+    return n - g + g / block
+
+
+@pytest.mark.parametrize("chunk", [1024, 1 << 20])
+@pytest.mark.parametrize("fixed", [False, True], ids=["whole", "fixed"])
+@pytest.mark.parametrize("net", PREFIX_NETS)
+def test_row_grain_against_brute_force(net, fixed, chunk):
+    """``row_grain``'s ``(D, g1)`` against every candidate's masks: D is
+    run-aligned (the sub-space or a free run's stride, so it divides the
+    sub-space) and no larger than the chunk; the frame rows before ``g1``
+    are constant over the first, a middle and the last block, and a row of
+    ``g1``'s run is not; the rows fit in ``ROW_BUDGET``; and no other
+    run-aligned D within the budget and the chunk, each with its first
+    block's ``g`` found from the masks, models fewer group steps a
+    candidate.  Where the chunk is itself run-aligned it is among them, so
+    the grain never models more steps than a row a chunk; on these spaces
+    it always models fewer than the first chunk's own ``g0``."""
+    pe = _prefix_engine(net)
+    tbl = port_pipe._engine_tables(pe)
+    space = prefix_space(net, fixed)
+    row_bytes = 4 * state_row_width(pe.alloc_tables())
+    grain = port_pipe.row_grain(space, pe._run_of, chunk, row_bytes)
+    assert grain is not None
+    D, g1 = grain
+    n, size = tbl.n, space.size
+    aligned = {size, *space.strides}
+    head = min(chunk, size)
+    g0 = port_pipe.shared_prefix(space, pe._run_of, 0, head)
+    best = modelled_steps(n, g0, head)
+    others = {b: first_varying_run(tbl, pe, space, b) for b in aligned
+              if b <= chunk and -(-size // b) * row_bytes
+              <= port_pipe.ROW_BUDGET}
+    if head in aligned:
+        assert head in others
+    assert D in aligned and size % D == 0 and D <= chunk
+    assert -(-size // D) * row_bytes <= port_pipe.ROW_BUDGET
+    assert g1 == others[D]
+    for lo in sorted({0, (size // D // 2) * D, size - D}):
+        vary = varying_rows(tbl, space, lo, D)
+        assert not vary[:g1].any(), (net, lo, D, g1)
+        if g1 < n:
+            run = pe._run_of == pe._run_of[g1]
+            assert vary[torch.from_numpy(run)].any(), (net, lo, D, g1)
+    mine = modelled_steps(n, g1, D)
+    assert mine < best or (D == head and mine == best)
+    assert all(mine <= modelled_steps(n, g, b) for b, g in others.items())
+
+
+def test_row_grain_keeps_the_chunk_where_nothing_beats_it(monkeypatch):
+    """The chunk is the grain where it is itself a run's block and no
+    finer block beats it: yolov3-416 at a chunk of 512, the stride of run
+    14 (every finer block over the budget), each row at the chunk's own
+    ``g0``, 69.  Where no run-aligned block within the chunk fits the
+    budget there are no rows: a chunk of one candidate on yolov3-416's 2^27
+    (a row a candidate would take 96 GB), and any space when not one row
+    fits."""
+    pe = _prefix_engine("bench:yolov3-416")
+    space = prefix_space("bench:yolov3-416", False)
+    row_bytes = 4 * state_row_width(pe.alloc_tables())
+    assert 512 in space.strides
+    assert port_pipe.row_grain(space, pe._run_of, 512, row_bytes) == (
+        512, port_pipe.shared_prefix(space, pe._run_of, 0, 512)) == (512, 69)
+    assert port_pipe.row_grain(space, pe._run_of, 1, row_bytes) is None
+    assert port_pipe.row_grain(space, pe._run_of, 1 << 20,
+                               row_bytes) == (512, 69)
+    monkeypatch.setattr(port_pipe, "ROW_BUDGET", row_bytes - 1)
+    assert port_pipe.row_grain(space, pe._run_of, 1 << 20,
+                               row_bytes) is None
+
+
+@pytest.mark.parametrize("net, chunk", [("bench:yolov2-416", 40),
+                                        ("bench:mobilenet-v3-224", 40),
+                                        ("bench:yolov2-416", 18)])
+def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch, net, chunk):
+    """Under the kernels the device loop makes the state rows in one prefix
+    launch a sub-space, at ``row_grain``'s D, and hands every chunk's
+    replay those rows, its ``lo`` and D; while a profiler records it counts
+    each chunk's own ``g0`` times its candidates in
+    ``alloc.shared_prefix_steps``, whatever the rows' grain, and the side
+    groups at or past it times them in ``alloc.side_steps`` (none on
+    yolov2, some on mobilenet-v3), and nothing otherwise.  The plain
+    variant makes no rows.  (The kernels are stood in for by the
+    plain versions: this host has no card.)"""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.utils import tracing
 
-    pe = _prefix_engine("bench:yolov2-416")
+    pe = _prefix_engine(net)
+    at = pe.alloc_tables()
     fixed = len(pe.runs) - 5
     space = port_pipe.SubSpace.make(
         tuple(len(r) // 2 for r in pe.runs[:fixed]),
         [len(r) + 1 for r in pe.runs[fixed:]], "cpu")
-    chunk = 40
+    D, g1 = port_pipe.row_grain(space, pe._run_of, chunk,
+                                4 * state_row_width(at))
     los = range(0, space.size, chunk)
     prefix_calls, states = [], []
+    table = torch.zeros((3, 1), dtype=torch.int32).t()
 
-    def prefix(at, tbl, sp, c):
-        prefix_calls.append(c)
-        rows = torch.arange(len(los), dtype=torch.int32)[:, None]
-        return rows.expand(len(los), 3).contiguous()
+    def prefix(at, tbl, sp, block):
+        prefix_calls.append(block)
+        return table
 
     def scan(at, frame, backend=None, skip=None, state=None):
-        states.append(None if state is None else int(state[0]))
+        states.append(None if state is None else
+                      (state.table is table, state.lo, state.block))
         return alloc_scan(at, frame, backend="torch")
 
     monkeypatch.setattr(port_pipe, "alloc_prefix_cuda", prefix)
@@ -1009,9 +1101,12 @@ def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
     monkeypatch.setattr(port_pipe, "cost_rows",
                         lambda *a, backend=None, winner=None:
                         port_pipe.cost_rows_torch(*a, winner=winner))
-    want = sum(port_pipe.shared_prefix(space, pe._run_of, lo,
-                                       min(chunk, space.size - lo))
-               * min(chunk, space.size - lo) for lo in los)
+    counts = [min(chunk, space.size - lo) for lo in los]
+    starts = [port_pipe.shared_prefix(space, pe._run_of, lo, c)
+              for lo, c in zip(los, counts)]
+    want = sum(g * c for g, c in zip(starts, counts))
+    sides = sum(int(at.is_side[g:].sum()) * c
+                for g, c in zip(starts, counts))
     assert want > 0
     tracing.reset()
     plain = port_pipe.run_chunks(pe, space, "latency", chunk, "torch")
@@ -1019,11 +1114,65 @@ def test_run_chunks_hands_each_chunk_its_state_row(monkeypatch):
     states.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         rows = port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
-    assert prefix_calls == [chunk] and states == list(range(len(los)))
-    # yolov2 has no SE side path: its side-step counter reads 0
+    assert prefix_calls == [D]
+    assert states == [(True, lo, D) for lo in los]
     assert tracing.counters() == {"alloc.shared_prefix_steps": want,
-                                  "alloc.side_steps": 0}
+                                  "alloc.side_steps": sides}
+    if net == "bench:yolov2-416":
+        # yolov2 has no SE side path: its side-step counter reads 0
+        assert sides == 0
+    else:
+        assert 0 < sides < int(at.is_side.sum()) * space.size
+    # 40: a row a block of D < 40; 18: itself a stride, a row a chunk
+    assert (D < chunk) == (chunk == 40) and g1 >= min(starts)
     assert torch.equal(rows, plain)
     tracing.reset()
     port_pipe.run_chunks(pe, space, "latency", chunk, "cuda")
     assert tracing.counters() == {}
+
+
+def test_run_chunks_replays_from_group_0_where_no_rows_fit(monkeypatch):
+    """Where no run-aligned block's rows fit ``ROW_BUDGET`` the device loop
+    makes no rows: no prefix launch, every chunk's replay from group 0
+    (no ``state``), the same winners, and while a profiler records only
+    the side steps counted, all of them (mobilenet-v3-224, its last five
+    runs free, chunks of 40)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import tracing
+
+    pe = _prefix_engine("bench:mobilenet-v3-224")
+    at = pe.alloc_tables()
+    fixed = len(pe.runs) - 5
+    space = port_pipe.SubSpace.make(
+        tuple(len(r) // 2 for r in pe.runs[:fixed]),
+        [len(r) + 1 for r in pe.runs[fixed:]], "cpu")
+    monkeypatch.setattr(port_pipe, "ROW_BUDGET", 4 * state_row_width(at) - 1)
+    assert port_pipe.row_grain(space, pe._run_of, 40,
+                               4 * state_row_width(at)) is None
+    prefix_calls, states = [], []
+
+    def scan(at, frame, backend=None, skip=None, state=None):
+        states.append(state)
+        return alloc_scan(at, frame, backend="torch")
+
+    monkeypatch.setattr(port_pipe, "alloc_prefix_cuda",
+                        lambda *a: prefix_calls.append(a))
+    monkeypatch.setattr(port_pipe, "alloc_scan", scan)
+    monkeypatch.setattr(port_pipe, "enum_frames",
+                        lambda *a, backend=None: port_pipe.enum_frames_torch(
+                            *a))
+    monkeypatch.setattr(port_pipe, "cost_rows",
+                        lambda *a, backend=None, winner=None:
+                        port_pipe.cost_rows_torch(*a, winner=winner))
+    plain = port_pipe.run_chunks(pe, space, "latency", 40, "torch")
+    states.clear()
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rows = port_pipe.run_chunks(pe, space, "latency", 40, "cuda")
+    assert prefix_calls == [] and set(states) == {None}
+    assert len(states) == -(-space.size // 40)
+    assert tracing.counters() == {
+        "alloc.side_steps": int(at.is_side.sum()) * space.size}
+    assert torch.equal(rows, plain)
+    tracing.reset()
